@@ -1,0 +1,40 @@
+"""Architecture registry of the port (the archs ported so far)."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.qwen2_1_5b import CONFIG as _qwen2_1_5b
+
+ARCHS: Dict[str, ModelConfig] = {c.name: c for c in (_qwen2_1_5b,)}
+
+
+def get_config(name: str) -> ModelConfig:
+    try:
+        return ARCHS[name]
+    except KeyError:
+        known = ", ".join(sorted(ARCHS))
+        raise KeyError(f"unknown arch '{name}'; known: [{known}]") from None
+
+
+def reduced_config(name: str, **overrides) -> ModelConfig:
+    """Small variant of an arch with the same topology knobs (mirrors
+    ``repro.configs.reduced_config`` for the dense family)."""
+    cfg = get_config(name)
+    small = dict(
+        num_layers=2,
+        d_model=64,
+        num_heads=4,
+        num_kv_heads=max(1, min(cfg.num_kv_heads, 2)),
+        head_dim=16,
+        d_ff=128 if cfg.d_ff else 0,
+        vocab_size=512,
+        param_dtype="float32",
+        remat="none",
+    )
+    if cfg.sliding_window:
+        small.update(sliding_window=32)
+    small.update(overrides)
+    return dataclasses.replace(cfg, **small)

@@ -1,0 +1,118 @@
+"""Per-layer pruning specs (mirrors ``repro/core/schemes.py``).
+
+Prunable tensors are chosen by path pattern over the parameter tree;
+biases, norms and embeddings stay dense. Patterns match the reference's
+stacked paths (``blocks/attn/wq``), so one ``PruneConfig`` selects the same
+tensors in both packages (see ``utils.tree.reference_path``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.core import projections
+from repro_torch.utils.tree import reference_path, tree_map_with_path
+
+DEFAULT_EXCLUDE = (
+    r".*bias.*",
+    r".*norm.*",
+    r".*scale.*",
+    r".*embed.*",
+    # \b keeps `lm_head` (a plain GEMM leaf) prunable
+    r".*\bhead\b.*",
+    r".*router.*",
+    r".*gate_logit.*",
+    r".*pos_emb.*",
+    r".*\bb\b.*",
+    r".*/b[qkv]",           # attention QKV biases (qwen2-style)
+    r".*conv.*",
+    r".*a_log.*",
+    r".*dt_bias.*",
+    r".*d_skip.*",
+    r".*r_gates.*",
+    r".*b_gates.*",
+    r".*b_if.*",
+    r".*out_norm.*",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    """Pruning spec for a single prunable tensor."""
+
+    scheme: str = "irregular"
+    alpha: float = 0.25
+    conv_shape: Optional[Tuple[int, int, int, int]] = None
+    column_group: int = 1
+    tile_block_p: int = 128
+    tile_group_q: int = 8
+    tile_keep: int = 4
+    pattern_keep: int = 4
+
+    def project(self, w: torch.Tensor) -> torch.Tensor:
+        # the projections take the paper's (out, in) view; model GEMM
+        # leaves are stored (in, out) for y = x @ w, so 2-D leaves are
+        # presented transposed and the result is laid back out (in, out)
+        if w.ndim == 2 and self.conv_shape is None:
+            return self._project_pq(w.T).T.contiguous()
+        return self._project_pq(w)
+
+    def _project_pq(self, w: torch.Tensor) -> torch.Tensor:
+        if self.scheme == "tile_pattern":
+            return projections.project_tile_pattern(
+                w, block_p=self.tile_block_p, group_q=self.tile_group_q,
+                keep=self.tile_keep)
+        raise NotImplementedError(
+            f"scheme {self.scheme!r} is not ported yet (tile_pattern only)")
+
+
+@dataclasses.dataclass(frozen=True)
+class PruneConfig:
+    """Which tensors are pruned, and how (global default + overrides).
+
+    The reference's ADMM hyper-parameters are not carried: the port's
+    only pruner so far is the data-free ``greedy_prune``.
+    """
+
+    scheme: str = "irregular"
+    alpha: float = 0.25
+    exclude: Sequence[str] = DEFAULT_EXCLUDE
+    overrides: Dict[str, Dict[str, Any]] = dataclasses.field(
+        default_factory=dict)
+
+    def spec_for(self, path: str, shape) -> Optional[LayerSpec]:
+        """LayerSpec for a (reference-style) path, or None if excluded."""
+        if len(shape) < 2:
+            return None
+        for pat in self.exclude:
+            if re.fullmatch(pat, path):
+                return None
+        kw: Dict[str, Any] = dict(scheme=self.scheme, alpha=self.alpha)
+        for pat, ov in self.overrides.items():
+            if re.fullmatch(pat, path):
+                kw.update(ov)
+        if kw["scheme"] in ("pattern", "pattern_shared", "kernel_pattern",
+                            "connectivity"):
+            if len(shape) == 4:
+                kw.setdefault("conv_shape", tuple(shape))
+            elif "conv_shape" not in kw:
+                kw["scheme"] = "tile_pattern"
+        return LayerSpec(**kw)
+
+
+def build_specs(params: Any, config: PruneConfig) -> Any:
+    """Tree of LayerSpec | None congruent with ``params``."""
+    return tree_map_with_path(
+        lambda path, w: config.spec_for(reference_path(path), w.shape),
+        params)
+
+
+def project_tree(params: Any, specs: Any) -> Any:
+    """Project every prunable leaf onto its set (spec None: identity)."""
+    return tree_map_with_path(
+        lambda path, w, spec: w if spec is None else spec.project(w),
+        params, specs)

@@ -1,0 +1,135 @@
+"""Attention for serving (mirrors ``repro/models/attention.py``).
+
+Prefill attention on the card is the ``flash_attention`` kernel;
+``blockwise_attention`` is the plain q-chunked online-softmax version the
+LM runs on the CPU. Decode attends one new position against the KV cache
+with plain tensor ops (an XLA op in the reference, not a Pallas kernel).
+Ring caches for sliding-window models are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        chunk: int = 512,
+                        softmax_scale: Optional[float] = None) -> torch.Tensor:
+    """Q-chunk online-softmax attention, the reference's ``_qchunk_fwd``:
+    q pre-scaled in its dtype, fp32 scores and (m, l, acc), every kv chunk
+    of the sequence visited (masked ones add exp(NEG_INF - m) = 0)."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"S={S} not divisible by chunk={chunk}")
+    n = S // chunk
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(hd)
+    qs = (q.to(torch.float32) * scale).to(q.dtype)
+    qg = qs.reshape(B, S, KV, G, hd).to(torch.float32)
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    pos = torch.arange(chunk, device=q.device)
+    out = torch.empty((B, S, KV, G, hd), dtype=torch.float32, device=q.device)
+    for qi in range(n):
+        qc = qg[:, qi * chunk:(qi + 1) * chunk]             # (B, c, KV, G, hd)
+        q_pos = qi * chunk + pos
+        m = torch.full((B, chunk, KV, G), NEG_INF, device=q.device)
+        l = torch.zeros((B, chunk, KV, G), device=q.device)
+        acc = torch.zeros((B, chunk, KV, G, hd), device=q.device)
+        for kj in range(n):
+            kc = kf[:, kj * chunk:(kj + 1) * chunk]
+            vc = vf[:, kj * chunk:(kj + 1) * chunk]
+            s = torch.einsum("bqkgd,bpkd->bqpkg", qc, kc)
+            k_pos = kj * chunk + pos
+            ok = torch.ones((chunk, chunk), dtype=torch.bool, device=q.device)
+            if causal:
+                ok &= q_pos[:, None] >= k_pos[None, :]
+            if window is not None:
+                ok &= q_pos[:, None] - k_pos[None, :] < window
+            s = torch.where(ok[None, :, :, None, None], s,
+                            torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(dim=2))
+            p = torch.exp(s - m_new[:, :, None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=2)
+            pv = torch.einsum("bqpkg,bpkd->bqkgd",
+                              p.to(v.dtype).to(torch.float32), vc)
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        out[:, qi * chunk:(qi + 1) * chunk] = (
+            acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+@dataclasses.dataclass
+class CacheSpec:
+    capacity: int            # S_max for full caches; window for ring caches
+    ring: bool
+
+
+def cache_capacity(seq_len: int, window: Optional[int]) -> CacheSpec:
+    if window is not None and window < seq_len:
+        return CacheSpec(capacity=window, ring=True)
+    return CacheSpec(capacity=seq_len, ring=False)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, slot_pos: torch.Tensor,
+                     q_pos: torch.Tensor, *, window: Optional[int] = None,
+                     softmax_scale: Optional[float] = None) -> torch.Tensor:
+    """One new position per row against the cache: masked softmax in fp32.
+
+    q (B, 1, H, hd); caches (B, C, KV, hd); slot_pos (B, C), -1 = empty;
+    q_pos (B,). Slots holding positions after q_pos, or empty, are masked.
+    """
+    B, C, KV, hd = k_cache.shape
+    H = q.shape[2]
+    G = H // KV
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, KV, G, hd).to(torch.float32)
+    s = torch.einsum("bkgd,bpkd->bkgp", qg, k_cache.to(torch.float32)) * scale
+    ok = (slot_pos >= 0) & (slot_pos <= q_pos[:, None])
+    if window is not None:
+        ok &= q_pos[:, None] - slot_pos < window
+    s = torch.where(ok[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgp,bpkd->bkgd", p.to(v_cache.dtype).to(torch.float32),
+                       v_cache.to(torch.float32))
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def insert_slots(pos: torch.Tensor, capacity: int, ring: bool):
+    """Cache slot of each row's new position -> (rows, slot, keep).
+
+    Ring caches write slot pos % C. A full cache drops a write past its
+    capacity, as the reference's scatter does: the slot is clamped and
+    ``keep`` is False there, so ``cache_insert`` writes the old values
+    back (no host sync to filter rows).
+    """
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    if ring:
+        return rows, (pos % capacity).long(), torch.ones_like(
+            pos, dtype=torch.bool)
+    return rows, pos.clamp(max=capacity - 1).long(), pos < capacity
+
+
+def cache_insert(cache: torch.Tensor, new: torch.Tensor, rows: torch.Tensor,
+                 slot: torch.Tensor, keep: torch.Tensor) -> None:
+    """Write one position per row, new (B, 1, ...), into cache (B, C, ...)
+    IN PLACE at ``slot`` where ``keep`` (see ``insert_slots``).
+
+    The reference returns updated arrays; the port mutates the cache
+    tensors instead of copying the cache every step.
+    """
+    old = cache[rows, slot]
+    val = new[:, 0].to(cache.dtype)
+    cache[rows, slot] = torch.where(keep.view((-1,) + (1,) * (val.ndim - 1)),
+                                    val, old)

@@ -1,0 +1,249 @@
+"""Dense-family decoder LM for serving (mirrors ``repro/models/transformer.py``).
+
+Per-layer weights are a Python list under ``params["blocks"]`` where the
+reference stacks them on a leading layer axis and scans. Any 2-D GEMM
+weight may be a ``PackedTensor``; ``dense_apply`` then runs it through the
+packed kernel. Prefill attention runs the ``flash_attention`` kernel on
+the card and ``blockwise_attention`` on the CPU. Only the dense family
+without a sliding window is ported; other families raise.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.attention import (
+    blockwise_attention,
+    cache_capacity,
+    cache_insert,
+    decode_attention,
+    insert_slots,
+)
+from repro_torch.models.layers import (
+    apply_rope_tables,
+    dense_apply,
+    dense_init,
+    dtype_of,
+    embed_init,
+    ffn_apply,
+    ffn_init,
+    rmsnorm,
+    rmsnorm_init,
+    rope_tables,
+)
+
+
+class LM:
+    """The reference's ``LM`` for ``family == "dense"``, on one device."""
+
+    def __init__(self, config: ModelConfig, *, device: DeviceLike = None):
+        if config.family != "dense":
+            raise NotImplementedError(
+                f"family {config.family!r} is not ported yet (dense only)")
+        if config.sliding_window is not None:
+            raise NotImplementedError(
+                "sliding-window attention (ring caches) is not ported yet")
+        if config.input_kind != "tokens":
+            raise NotImplementedError("embedding inputs are not ported yet")
+        self.config = config
+        self.device = resolve_device(device)
+        self.dtype = dtype_of(config.param_dtype)
+
+    # ------------------------------------------------------------------ init
+
+    def param_shapes(self) -> Dict[str, Tuple[int, ...]]:
+        """'/'-path -> shape of every parameter ``init`` creates."""
+        cfg = self.config
+        D = cfg.d_model
+        block = {"norm1/scale": (D,), "attn/wq": (D, cfg.attn_dim),
+                 "attn/wk": (D, cfg.kv_dim), "attn/wv": (D, cfg.kv_dim),
+                 "attn/wo": (cfg.attn_dim, D), "norm2/scale": (D,)}
+        if cfg.qkv_bias:
+            block.update({"attn/bq": (cfg.attn_dim,), "attn/bk": (cfg.kv_dim,),
+                          "attn/bv": (cfg.kv_dim,)})
+        if cfg.d_ff:
+            names = (("w_gate", "w_up", "w_down") if cfg.ffn_type == "swiglu"
+                     else ("w_up", "w_down"))
+            for n in names:
+                block[f"mlp/{n}"] = ((cfg.d_ff, D) if n == "w_down"
+                                     else (D, cfg.d_ff))
+        shapes = {"embed": (cfg.vocab_size, D), "final_norm/scale": (D,)}
+        for layer in range(cfg.num_layers):
+            shapes.update({f"blocks/{layer}/{k}": v for k, v in block.items()})
+        if not cfg.tie_embeddings:
+            shapes["lm_head"] = (D, cfg.vocab_size)
+        return shapes
+
+    @torch.no_grad()
+    def init(self, gen: torch.Generator) -> Dict[str, Any]:
+        """Random weights drawn from ``gen`` (a generator on this device)."""
+        cfg, dt, dev = self.config, self.dtype, self.device
+        params: Dict[str, Any] = {
+            "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dt, dev)}
+        blocks = []
+        for _ in range(cfg.num_layers):
+            attn = {"wq": dense_init(gen, cfg.d_model, cfg.attn_dim, dt, dev),
+                    "wk": dense_init(gen, cfg.d_model, cfg.kv_dim, dt, dev),
+                    "wv": dense_init(gen, cfg.d_model, cfg.kv_dim, dt, dev),
+                    "wo": dense_init(gen, cfg.attn_dim, cfg.d_model, dt, dev)}
+            if cfg.qkv_bias:
+                for name, width in (("bq", cfg.attn_dim), ("bk", cfg.kv_dim),
+                                    ("bv", cfg.kv_dim)):
+                    attn[name] = torch.zeros((width,), dtype=dt, device=dev)
+            block = {"norm1": rmsnorm_init(cfg.d_model, dt, dev), "attn": attn,
+                     "norm2": rmsnorm_init(cfg.d_model, dt, dev)}
+            if cfg.d_ff:
+                block["mlp"] = ffn_init(gen, cfg.d_model, cfg.d_ff,
+                                        cfg.ffn_type, dt, dev)
+            blocks.append(block)
+        params["blocks"] = blocks
+        params["final_norm"] = rmsnorm_init(cfg.d_model, dt, dev)
+        if not cfg.tie_embeddings:
+            params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
+                                           dt, dev)
+        return params
+
+    # --------------------------------------------------------------- forward
+
+    def embed_inputs(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        return params["embed"][tokens]
+
+    def _qkv(self, bp, h: torch.Tensor, sin, cos):
+        cfg = self.config
+        attn_p = bp["attn"]
+        # the qkv bias rides the GEMM epilogue (fused in-kernel when packed)
+        q = dense_apply(h, attn_p["wq"], bias=attn_p.get("bq"))
+        k = dense_apply(h, attn_p["wk"], bias=attn_p.get("bk"))
+        v = dense_apply(h, attn_p["wv"], bias=attn_p.get("bv"))
+        B, S, _ = h.shape
+        q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
+        k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+        v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+        return apply_rope_tables(q, sin, cos), apply_rope_tables(k, sin, cos), v
+
+    def _mlp(self, bp, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
+        h = rmsnorm(bp["norm2"], x, cfg.norm_eps)
+        y = ffn_apply(bp["mlp"], h, cfg.ffn_type) if cfg.d_ff else 0
+        return x + y
+
+    def _prefill_attention(self, q, k, v):
+        cfg = self.config
+        if q.device.type == "cuda":
+            return flash_attention(q, k, v, causal=cfg.causal)
+        return blockwise_attention(q, k, v, causal=cfg.causal,
+                                   chunk=min(512, q.shape[1]))
+
+    def hidden_states(self, params, tokens: torch.Tensor, *,
+                      collect_kv: bool = False):
+        """Full-sequence forward -> (final-normed hidden (B, S, D), kv).
+
+        ``kv`` is a per-layer list of (k, v), each (B, S, KV, hd), when
+        ``collect_kv``; else None.
+        """
+        cfg = self.config
+        x = self.embed_inputs(params, tokens)
+        B, S, _ = x.shape
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)
+        sin, cos = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+        kv: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = (
+            [] if collect_kv else None)
+        for bp in params["blocks"]:
+            h = rmsnorm(bp["norm1"], x, cfg.norm_eps)
+            q, k, v = self._qkv(bp, h, sin, cos)
+            if kv is not None:
+                kv.append((k, v))
+            out = self._prefill_attention(q, k, v)
+            x = x + dense_apply(out.reshape(B, S, cfg.attn_dim),
+                                bp["attn"]["wo"])
+            x = self._mlp(bp, x)
+        return rmsnorm(params["final_norm"], x, cfg.norm_eps), kv
+
+    def lm_logits(self, params, h: torch.Tensor) -> torch.Tensor:
+        w = params["lm_head"] if "lm_head" in params else params["embed"].T
+        return dense_apply(h, w)
+
+    # --------------------------------------------------------------- serving
+
+    def init_cache(self, batch: int, seq_len: int) -> Dict[str, Any]:
+        """Zeroed KV cache: per-layer k/v lists, slot positions, write pos."""
+        cfg = self.config
+        C = cache_capacity(seq_len, cfg.sliding_window).capacity
+        shape = (batch, C, cfg.num_kv_heads, cfg.head_dim)
+        zeros = lambda: torch.zeros(shape, dtype=self.dtype,
+                                    device=self.device)
+        return {"k": [zeros() for _ in range(cfg.num_layers)],
+                "v": [zeros() for _ in range(cfg.num_layers)],
+                "slot_pos": torch.full((batch, C), -1, dtype=torch.int32,
+                                       device=self.device),
+                "pos": torch.zeros((batch,), dtype=torch.int32,
+                                   device=self.device)}
+
+    @torch.no_grad()
+    def prefill(self, params, tokens: torch.Tensor, seq_len: int):
+        """Run the prompt, build the cache -> (cache, last-token logits)."""
+        B, S = tokens.shape
+        cache = self.init_cache(B, seq_len)
+        if S > cache["slot_pos"].shape[1]:
+            raise ValueError(f"prompt_len={S} exceeds cache capacity="
+                             f"{cache['slot_pos'].shape[1]}")
+        h, kv = self.hidden_states(params, tokens, collect_kv=True)
+        for layer, (k, v) in enumerate(kv):
+            cache["k"][layer][:, :S] = k
+            cache["v"][layer][:, :S] = v
+        cache["slot_pos"][:, :S] = torch.arange(S, dtype=torch.int32,
+                                                device=tokens.device)
+        cache["pos"].fill_(S)
+        return cache, self.lm_logits(params, h[:, -1:, :])
+
+    @torch.no_grad()
+    def decode_step(self, params, cache: Dict[str, Any],
+                    tokens: torch.Tensor):
+        """One decode step for tokens (B, 1); updates ``cache`` in place
+        (its k/v/slot_pos tensors) and returns (cache, logits (B, 1, V))."""
+        cfg = self.config
+        x = self.embed_inputs(params, tokens)
+        B = x.shape[0]
+        pos = cache["pos"]
+        sin, cos = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
+        # the new position's slot is the same in every layer's cache
+        rows, slot, keep = insert_slots(pos, cache["slot_pos"].shape[1],
+                                        ring=False)
+        cache_insert(cache["slot_pos"], pos[:, None], rows, slot, keep)
+        for layer, bp in enumerate(params["blocks"]):
+            h = rmsnorm(bp["norm1"], x, cfg.norm_eps)
+            q, k, v = self._qkv(bp, h, sin, cos)
+            kc, vc = cache["k"][layer], cache["v"][layer]
+            cache_insert(kc, k, rows, slot, keep)
+            cache_insert(vc, v, rows, slot, keep)
+            attn = decode_attention(q, kc, vc, cache["slot_pos"], pos,
+                                    window=cfg.sliding_window)
+            x = x + dense_apply(attn.reshape(B, 1, cfg.attn_dim),
+                                bp["attn"]["wo"])
+            x = self._mlp(bp, x)
+        cache["pos"] = pos + 1
+        h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        return cache, self.lm_logits(params, h)
+
+    @torch.no_grad()
+    def decode_many(self, params, cache: Dict[str, Any],
+                    tokens: torch.Tensor, num_steps: int,
+                    sampler: Optional[Callable] = None):
+        """``num_steps`` decode steps, each sampling the next token on the
+        device and feeding it back; no host sync. Returns (cache, tokens
+        (B, num_steps)), column 0 being the token after ``tokens``."""
+        if sampler is None:
+            from repro_torch.serve.sampler import greedy_sample
+            sampler = greedy_sample
+        out = []
+        tok = tokens
+        for _ in range(num_steps):
+            cache, logits = self.decode_step(params, cache, tok)
+            tok = sampler(logits)
+            out.append(tok)
+        return cache, torch.cat(out, dim=1)

@@ -1,0 +1,4 @@
+from repro_torch.serve.engine import Request, Result, ServeEngine
+from repro_torch.serve.sampler import greedy_sample
+
+__all__ = ["Request", "Result", "ServeEngine", "greedy_sample"]

@@ -1,0 +1,70 @@
+"""The port stands alone: no jax, nothing of ``repro``; and its entry points
+never drop silently to the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
+                         [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_engine_import_pulls_in_no_jax():
+    code = ("import sys, repro_torch.serve.engine, repro_torch.convert, "
+            "repro_torch.core, repro_torch.kernels._build; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_entry_points_refuse_a_missing_card():
+    """Without ``device=`` the entry points want the card; on a box
+    without one they raise instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    from repro_torch.configs import reduced_config
+    from repro_torch.core import PruneConfig, greedy_prune
+    from repro_torch.models import LM
+    from repro_torch.serve import ServeEngine
+
+    cfg = reduced_config("qwen2-1.5b")
+    with pytest.raises(RuntimeError):
+        LM(cfg)
+    model = LM(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    pcfg = PruneConfig(scheme="tile_pattern",
+                       overrides={".*": {"tile_block_p": 32}})
+    with pytest.raises(RuntimeError):
+        greedy_prune(params, pcfg)
+    art = greedy_prune(params, pcfg, device="cpu")
+    with pytest.raises(RuntimeError):
+        art.pack()
+    with pytest.raises(RuntimeError):
+        ServeEngine(model, art, batch_size=2, max_seq_len=16)
