@@ -8,9 +8,10 @@ result line is printed:
 
 1. device   — the card (nvidia-smi name and power limit), torch, CUDA, nvcc;
               exits 1 when no CUDA device is present.
-2. build    — nvcc builds every kernel in ``src/repro_torch/kernels/csrc``.
+2. build    — nvcc builds every kernel in ``src/repro_torch/kernels/csrc``
+              (four sources, one nvcc each, all started together).
 3. kernels  — each kernel against its plain PyTorch version on the card at
-              the shapes of the served path, in bf16 and fp32, with the
+              the shapes of the paths below, in bf16 and fp32, with the
               reference's tolerances (``tests/test_kernels.py::_tol``:
               fp32 2e-5, bf16 2e-2, as ``torch.allclose`` rtol = atol);
               kernel, plain-version and one library call's times.
@@ -23,8 +24,23 @@ result line is printed:
               served run and read just after.
 5. identity — the same model in fp32, served dense-pruned and packed: the
               greedy tokens must be identical.
-6. report   — one ``{"kernels": [...]}`` JSON line, then as the last line
-              ``{"ok": true, "device": {...}}``.
+6. cnn      — VGG-16 (ImageNet head, 224 x 224, batch 32) and ResNet-18
+              (CIFAR stem, 32 x 32, batch 256) at full width, seeded random
+              weights, pruned ``pattern_shared`` at alpha 0.25, packed and
+              bound; counts zeroed just before one bf16 forward and read
+              just after (one ``pattern_conv`` launch per stride-1 3x3
+              conv); the median of 3 timed bf16 forwards; then in fp32 the
+              dense-pruned forward (``F.conv2d``, no TF32) against the
+              packed one: max |logit difference| and top-1 identity on
+              every image whose dense top-2 gap exceeds twice it.
+7. column   — qwen2-1.5b pruned by column at alpha 0.5, packed and served
+              as in phase 4 (``column_gemm`` on every packed GEMM, prefill
+              and decode), counts zeroed around the served run; then fp32
+              dense-pruned against packed greedy tokens at 4 layers of full
+              width, which must be identical.
+8. report   — one ``{"kernels": [...]}`` JSON line covering all four
+              kernels, the card's name and power limit, then as the last
+              line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of ``jax`` or ``repro``.
 """
@@ -47,12 +63,18 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import PruneConfig, greedy_prune  # noqa: E402
-from repro_torch.core.projections import project_tile_pattern  # noqa: E402
+from repro_torch.core import LayerSpec, PruneConfig, greedy_prune  # noqa: E402
+from repro_torch.core.projections import (  # noqa: E402
+    project,
+    project_column,
+    project_tile_pattern,
+)
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import column_gemm as cg_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
+from repro_torch.kernels import pattern_conv as pc_mod  # noqa: E402
 from repro_torch.kernels import pattern_gemm as pg_mod  # noqa: E402
-from repro_torch.models import LM  # noqa: E402
+from repro_torch.models import LM, resnet18, vgg16  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
 from repro_torch.sparse import is_packed  # noqa: E402
 from repro_torch.sparse.registry import handler_for  # noqa: E402
@@ -78,6 +100,22 @@ QWEN2_GEMMS = (
 GEMM_MS = (4, 2048)                 # decode (M = batch) and prefill (4 x 512)
 FLASH_SHAPES = dict(B=4, H=12, KV=2, hd=128)
 FLASH_SEQS = (128, 200, 512)
+# (batch, H = W, C, A): every distinct stride-1 3x3 conv of VGG-16 at
+# 224 x 224, batch 32, and of ResNet-18 (CIFAR stem) at 32 x 32, batch 256
+VGG16_CONVS = tuple((32, h, c, a) for h, c, a in (
+    (224, 3, 64), (224, 64, 64), (112, 64, 128), (112, 128, 128),
+    (56, 128, 256), (56, 256, 256), (28, 256, 512), (28, 512, 512),
+    (14, 512, 512)))
+RESNET18_CONVS = tuple((256, h, c, a) for h, c, a in (
+    (32, 3, 64), (32, 64, 64), (16, 128, 128), (8, 256, 256), (4, 512, 512)))
+CNN_PATHS = (
+    # (tag, constructor, kwargs, batch, packed convs per forward)
+    ("vgg16", vgg16, dict(num_classes=1000, image_hwc=(224, 224, 3)), 32, 13),
+    # 17 3x3 convs less the 3 strided ones, which bind keeps dense
+    ("resnet18", resnet18, dict(num_classes=10, image_hwc=(32, 32, 3)), 256,
+     14),
+)
+COLUMN_IDENTITY_LAYERS = 4
 
 
 def fail(msg: str) -> None:
@@ -230,6 +268,83 @@ def check_flash(gen) -> list:
     return rows
 
 
+def check_pattern_conv(gen) -> list:
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = TOL[dtype]
+        for B, H, C, A in VGG16_CONVS + RESNET18_CONVS:
+            w4 = torch.empty((A, C, 3, 3), device="cuda")
+            torch.nn.init.trunc_normal_(w4, 0.0, 1.0, -2.0, 2.0, generator=gen)
+            w4 = project((w4 * math.sqrt(2.0 / (9 * C))).to(dtype),
+                         "pattern_shared", alpha=0.25)
+            pt = handler_for("pattern_shared").pack(w4, PATTERN_SPEC)
+            wp, taps = pt.buf("w_packed"), pt.buf("taps")
+            b = (torch.randn(A, generator=gen, device="cuda") * 0.1).to(dtype)
+            x = torch.randn((B, H, H, C), generator=gen, device="cuda").to(dtype)
+            y = pc_mod.pattern_conv(x, wp, taps, b, activation="relu")
+            torch.cuda.synchronize()
+            r = pc_mod.pattern_conv_ref(x, wp, taps, b, activation="relu")
+            err = (y.float() - r.float()).abs().max().item()
+            if not torch.allclose(y.float(), r.float(), rtol=tol, atol=tol):
+                fail(f"pattern_conv B={B} H={H} C={C} A={A} {dtype}: max "
+                     f"err {err}")
+            del r
+            ms = timed_ms(lambda: pc_mod.pattern_conv(
+                x, wp, taps, b, activation="relu"))
+            plain = timed_ms(lambda: pc_mod.pattern_conv_ref(
+                x, wp, taps, b, activation="relu"), 2)
+            xn = x.permute(0, 3, 1, 2)             # channels-last NCHW view
+            lib = timed_ms(lambda: F.conv2d(xn, w4, padding=1))
+            t_b, by = bound(nbytes(x, wp, taps, b, y),
+                            2.0 * B * H * H * 4 * C * A, dtype)
+            rows.append(dict(kernel="pattern_conv",
+                             shape=f"B={B} {H}x{H} {C}->{A}",
+                             dtype=str(dtype).split(".")[-1],
+                             max_abs_err=err, ms=ms, plain_ms=plain,
+                             bound_ms=t_b, bound_by=by, library_ms=lib))
+            print("[kernels] " + json.dumps(rows[-1]), flush=True)
+            del x, y, w4, wp, taps
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_column_gemm(gen) -> list:
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = TOL[dtype]
+        for name, Q, P, has_bias, act in QWEN2_GEMMS:
+            w = torch.empty((Q, P), device="cuda")
+            torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+            w = (w / math.sqrt(Q)).to(dtype)
+            w = project_column(w.T, alpha=0.5).T.contiguous()
+            wp, kept = cg_mod.pack_columns(w)
+            b = (torch.randn(P, generator=gen, device="cuda") * 0.1).to(dtype) \
+                if has_bias else None
+            for M in GEMM_MS:
+                x = torch.randn((M, Q), generator=gen, device="cuda").to(dtype)
+                y = cg_mod.column_gemm(x, wp, kept, b, activation=act)
+                torch.cuda.synchronize()
+                r = cg_mod.column_gemm_ref(x, wp, kept, b, activation=act)
+                err = (y.float() - r.float()).abs().max().item()
+                if not torch.allclose(y.float(), r.float(), rtol=tol, atol=tol):
+                    fail(f"column_gemm {name} M={M} {dtype}: max err {err}")
+                ms = timed_ms(lambda: cg_mod.column_gemm(
+                    x, wp, kept, b, activation=act), 20)
+                plain = timed_ms(lambda: cg_mod.column_gemm_ref(
+                    x, wp, kept, b, activation=act), 3)
+                lib = timed_ms(lambda: torch.matmul(x, w), 20)
+                K = wp.shape[0]
+                t_b, by = bound(nbytes(x, wp, kept, b, y), 2.0 * M * K * P,
+                                dtype)
+                rows.append(dict(kernel="column_gemm", shape=f"{name} M={M}",
+                                 dtype=str(dtype).split(".")[-1],
+                                 max_abs_err=err, ms=ms, plain_ms=plain,
+                                 bound_ms=t_b, bound_by=by, library_ms=lib))
+                print("[kernels] " + json.dumps(rows[-1]), flush=True)
+            del w, wp, kept
+    return rows
+
+
 def make_requests(vocab: int) -> list:
     g = torch.Generator().manual_seed(1)
     lens = (512,) * 4 + (128,) * 4
@@ -237,18 +352,31 @@ def make_requests(vocab: int) -> list:
                     max_new_tokens=32) for i, n in enumerate(lens)]
 
 
+KERNEL_MODS = {"pattern_gemm": pg_mod, "flash_attention": fa_mod,
+               "column_gemm": cg_mod, "pattern_conv": pc_mod}
+
+
 def reset_launches() -> None:
-    pg_mod.LAUNCHES = 0
-    fa_mod.LAUNCHES = 0
+    for mod in KERNEL_MODS.values():
+        mod.LAUNCHES = 0
 
 
-def build_engine(cfg):
+def launch_counts(names) -> dict:
+    return {n: KERNEL_MODS[n].LAUNCHES for n in names}
+
+
+TILE_PCFG = PruneConfig(scheme="tile_pattern", overrides={
+    ".*": {"tile_block_p": 128, "tile_group_q": 8, "tile_keep": 4}})
+COLUMN_PCFG = PruneConfig(scheme="column", alpha=0.5)
+PATTERN_PCFG = PruneConfig(scheme="pattern_shared", alpha=0.25)
+PATTERN_SPEC = LayerSpec(scheme="pattern_shared", alpha=0.25)
+
+
+def build_engine(cfg, pcfg=TILE_PCFG):
     model = LM(cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     params = model.init(gen)
-    pcfg = PruneConfig(scheme="tile_pattern", overrides={
-        ".*": {"tile_block_p": 128, "tile_group_q": 8, "tile_keep": 4}})
     art = greedy_prune(params, pcfg)
     del params
     art = art.pack()
@@ -260,23 +388,32 @@ def build_engine(cfg):
     return art, dense, eng, t_setup
 
 
-def phase_serve(smi: str) -> dict:
-    cfg = get_config("qwen2-1.5b")
-    art, _, eng, t_setup = build_engine(cfg)
-    reqs = make_requests(cfg.vocab_size)
-    print(f"[serve] qwen2-1.5b L={cfg.num_layers} d_model={cfg.d_model} "
-          f"vocab={cfg.vocab_size} {cfg.param_dtype}; init+prune+pack "
-          f"{t_setup:.2f} s; weight bytes dense {art.dense_bytes()} packed "
-          f"{art.packed_bytes()} ({smi})", flush=True)
+def check_exact(tag: str, art) -> None:
+    """Every packed leaf must reproduce its pruned weight exactly."""
     dense = dict(tree_items(art.params))
     packed_leaves = [(p, pt) for p, pt in tree_items(art.packed)
                      if is_packed(pt)]
     exact = sum(torch.equal(handler_for(pt.scheme).to_dense(pt), dense[p])
                 for p, pt in packed_leaves)
-    print(f"[serve] packed leaves that reproduce the pruned weight exactly: "
+    print(f"[{tag}] packed leaves that reproduce the pruned weight exactly: "
           f"{exact}/{len(packed_leaves)}", flush=True)
-    if exact != len(packed_leaves):
-        fail("a packed leaf does not encode its pruned weight")
+    if exact != len(packed_leaves) or not packed_leaves:
+        fail(f"[{tag}] a packed leaf does not encode its pruned weight")
+
+
+def drive_serve(tag: str, smi: str, pcfg, gemm: str) -> dict:
+    """Serve qwen2-1.5b packed under ``pcfg``: the main path (8 requests,
+    counts zeroed around it), then each chunk's prefill and decode apart.
+    Returns the main path's launch counts."""
+    names = (gemm, "flash_attention")
+    cfg = get_config("qwen2-1.5b")
+    art, _, eng, t_setup = build_engine(cfg, pcfg)
+    reqs = make_requests(cfg.vocab_size)
+    print(f"[{tag}] qwen2-1.5b L={cfg.num_layers} d_model={cfg.d_model} "
+          f"vocab={cfg.vocab_size} {cfg.param_dtype}; init+prune+pack "
+          f"{t_setup:.2f} s; weight bytes dense {art.dense_bytes()} packed "
+          f"{art.packed_bytes()} ({smi})", flush=True)
+    check_exact(tag, art)
     eng.generate(reqs[:1])                              # warm-up
     torch.cuda.synchronize()
 
@@ -285,29 +422,27 @@ def phase_serve(smi: str) -> dict:
     results = eng.generate(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"pattern_gemm": pg_mod.LAUNCHES,
-                "flash_attention": fa_mod.LAUNCHES}
-    print(f"[serve] generate(8 requests) {wall * 1e3:.1f} ms; launches "
+    launches = launch_counts(names)
+    print(f"[{tag}] generate(8 requests) {wall * 1e3:.1f} ms; launches "
           f"{json.dumps(launches)}", flush=True)
     for r in results:
         if len(r.tokens) != 32 or not all(0 <= t < cfg.vocab_size
                                           for t in r.tokens):
             fail(f"request {r.uid}: bad tokens {r.tokens[:8]}...")
 
-    split = {}
     for S, chunk in ((128, reqs[4:]), (512, reqs[:4])):
         prompts, mask = eng.pad_prompts(chunk)
         reset_launches()
         cache, logits = eng.prefill(prompts)
         torch.cuda.synchronize()
-        pre = (pg_mod.LAUNCHES, fa_mod.LAUNCHES)
+        pre = launch_counts(names)
         if not bool(torch.isfinite(logits).all()):
             fail(f"non-finite prefill logits at S={S}")
         reset_launches()
         tok0 = eng.sampler(logits) * mask[:, None]
         eng.decode(cache, tok0, mask, 31)
         torch.cuda.synchronize()
-        dec = (pg_mod.LAUNCHES, fa_mod.LAUNCHES)
+        dec = launch_counts(names)
         t_pre, t_dec = [], []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -320,23 +455,24 @@ def phase_serve(smi: str) -> dict:
             t_dec.append(time.perf_counter() - t0)
         pre_ms = sorted(t_pre)[1] * 1e3
         step_ms = sorted(t_dec)[1] * 1e3 / 31
-        split[S] = dict(prefill_ms=pre_ms, decode_ms_per_step=step_ms,
-                        decode_tok_s=4 / (step_ms / 1e3),
-                        prefill_launches={"pattern_gemm": pre[0],
-                                          "flash_attention": pre[1]},
-                        decode_launches={"pattern_gemm": dec[0],
-                                         "flash_attention": dec[1]})
-        print(f"[serve] chunk S={S}: " + json.dumps(split[S]), flush=True)
-        if pre[0] == 0 or pre[1] == 0 or dec[0] == 0:
+        split = dict(prefill_ms=pre_ms, decode_ms_per_step=step_ms,
+                     decode_tok_s=4 / (step_ms / 1e3),
+                     prefill_launches=pre, decode_launches=dec)
+        print(f"[{tag}] chunk S={S}: " + json.dumps(split), flush=True)
+        if pre[gemm] == 0 or pre["flash_attention"] == 0 or dec[gemm] == 0:
             fail(f"kernels not launched on the served path at S={S}: "
                  f"prefill {pre}, decode {dec}")
-    if launches["pattern_gemm"] == 0 or launches["flash_attention"] == 0:
+    if not all(launches.values()):
         fail(f"a kernel never launched on the main path: {launches}")
-    profile_decode(eng, reqs[:4])
+    profile_decode(tag, eng, reqs[:4])
     return launches
 
 
-def profile_decode(eng, chunk, steps: int = 8) -> None:
+def phase_serve(smi: str) -> dict:
+    return drive_serve("serve", smi, TILE_PCFG, "pattern_gemm")
+
+
+def profile_decode(tag: str, eng, chunk, steps: int = 8) -> None:
     """Where a decode step's time goes: wall clock against the device's
     busy time (sum of kernel self times under torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
@@ -356,7 +492,7 @@ def profile_decode(eng, chunk, steps: int = 8) -> None:
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     launches = sum(e.count for e in kernels) / steps
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
-    print(f"[profile] decode step (profiled, S=512 chunk): wall "
+    print(f"[profile] {tag} decode step (profiled, S=512 chunk): wall "
           f"{wall * 1e3:.2f} ms, device busy {busy:.2f} ms "
           f"({100 * busy / (wall * 1e3):.1f}%), {launches:.0f} kernel "
           f"launches; top device time: " + json.dumps(
@@ -364,18 +500,23 @@ def profile_decode(eng, chunk, steps: int = 8) -> None:
                for e in top}), flush=True)
 
 
-def phase_identity() -> None:
-    cfg = dataclasses.replace(get_config("qwen2-1.5b"), param_dtype="float32")
-    _, dense, packed, _ = build_engine(cfg)
+def token_identity(tag: str, cfg, pcfg, note: str = "") -> None:
+    """Serve ``cfg`` in fp32 dense-pruned and packed: identical tokens."""
+    _, dense, packed, _ = build_engine(cfg, pcfg)
     reqs = make_requests(cfg.vocab_size)
     td = [r.tokens for r in dense.generate(reqs)]
     tp = [r.tokens for r in packed.generate(reqs)]
     same = td == tp
-    print(f"[identity] fp32 dense-pruned vs packed greedy tokens identical: "
-          f"{same} ({sum(len(t) for t in tp)} tokens)", flush=True)
+    print(f"[{tag}] fp32 dense-pruned vs packed greedy tokens identical: "
+          f"{same} ({sum(len(t) for t in tp)} tokens{note})", flush=True)
     if not same:
         divergence_report(dense, packed, reqs, td, tp)
         fail("packed fp32 tokens differ from dense-pruned fp32 tokens")
+
+
+def phase_identity() -> None:
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), param_dtype="float32")
+    token_identity("identity", cfg, TILE_PCFG)
 
 
 def divergence_report(dense, packed, reqs, td, tp) -> None:
@@ -407,15 +548,108 @@ def divergence_report(dense, packed, reqs, td, tp) -> None:
           f"(gap {float(top[0] - top[1])})", flush=True)
 
 
-def summarize(rows: list, launches: dict) -> list:
-    meta = {
-        "pattern_gemm": ("src/repro_torch/kernels/csrc/pattern_gemm.cu",
-                         "src/repro/kernels/pattern_gemm.py:124"),
-        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
-                            "src/repro/kernels/flash_attention.py:110"),
-    }
+def build_cnn(ctor, kwargs: dict, dtype: str):
+    model = ctor(**kwargs, param_dtype=dtype)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    art = greedy_prune(params, PATTERN_PCFG)
+    del params
+    art = art.pack()
+    torch.cuda.synchronize()
+    return model, art, time.perf_counter() - t0
+
+
+def phase_cnn(smi: str, tag: str, ctor, kwargs: dict, batch: int,
+              want_launches: int) -> int:
+    """One CNN path in bf16 (the main path: one packed forward, counts
+    zeroed around it; then 3 timed), and its fp32 dense-vs-packed check.
+    Returns the main path's pattern_conv launches."""
+    model, art, t_setup = build_cnn(ctor, kwargs, "bfloat16")
+    s = art.summary()
+    print(f"[cnn] {tag} {kwargs['image_hwc']} batch {batch} bf16; "
+          f"init+prune+pack {t_setup:.2f} s; weight bytes dense "
+          f"{s['dense_bytes']} packed {s['packed_bytes']} "
+          f"({s['bytes_ratio']:.3f}x, {s['packed_leaves']}/"
+          f"{s['total_leaves']} leaves packed) ({smi})", flush=True)
+    check_exact("cnn", art)
+    tree = art.bind(model, packed=True)
+    x = model.synthetic_batch(torch.Generator(device="cuda").manual_seed(1),
+                              batch)
+    model.apply(tree, x)                                # warm-up
+    torch.cuda.synchronize()
+
+    reset_launches()                                    # the main path
+    logits = model.apply(tree, x)
+    torch.cuda.synchronize()
+    launches = pc_mod.LAUNCHES
+    if tuple(logits.shape) != (batch, model.num_classes) or not bool(
+            torch.isfinite(logits).all()):
+        fail(f"[cnn] {tag}: bad logits {tuple(logits.shape)}")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        model.apply(tree, x)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    fwd_ms = sorted(times)[1] * 1e3
+    print(f"[cnn] {tag}: pattern_conv launches per forward {launches} "
+          f"(want {want_launches}: one per stride-1 3x3 conv); bf16 forward "
+          f"{fwd_ms:.2f} ms (median of 3), {batch / (fwd_ms / 1e3):.1f} "
+          f"images/s", flush=True)
+    if launches != want_launches:
+        fail(f"[cnn] {tag}: {launches} pattern_conv launches, want "
+             f"{want_launches}")
+    del model, art, tree, x, logits
+    torch.cuda.empty_cache()
+
+    model, art, _ = build_cnn(ctor, kwargs, "float32")
+    x = model.synthetic_batch(torch.Generator(device="cuda").manual_seed(1),
+                              batch)
+    dense = model.apply(art.bind(model, packed=False), x)
+    packed = model.apply(art.bind(model, packed=True), x)
+    diff = (dense - packed).abs().max().item()
+    top2 = torch.topk(dense, 2, dim=1).values
+    sure = (top2[:, 0] - top2[:, 1]) > 2 * diff
+    same = bool((dense.argmax(1) == packed.argmax(1))[sure].all())
+    print(f"[cnn] {tag} fp32 dense-pruned (F.conv2d, no TF32) vs packed: "
+          f"max |logit diff| {diff:.3e} (logits up to "
+          f"{dense.abs().max().item():.3e}); top-1 identical on the "
+          f"{int(sure.sum())} of {batch} images whose dense top-2 gap "
+          f"exceeds twice that: {same}", flush=True)
+    if not same or not bool(torch.isfinite(packed).all()):
+        fail(f"[cnn] {tag}: fp32 packed top-1 differs from dense-pruned")
+    del model, art, x, dense, packed
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_column(smi: str) -> dict:
+    launches = drive_serve("column", smi, COLUMN_PCFG, "column_gemm")
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), param_dtype="float32",
+                              num_layers=COLUMN_IDENTITY_LAYERS)
+    token_identity("column", cfg, COLUMN_PCFG,
+                   f"; reduced depth: {COLUMN_IDENTITY_LAYERS} of 28 layers "
+                   "at full width")
+    return launches
+
+
+META = {
+    "pattern_gemm": ("src/repro_torch/kernels/csrc/pattern_gemm.cu",
+                     "src/repro/kernels/pattern_gemm.py:124"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:110"),
+    "column_gemm": ("src/repro_torch/kernels/csrc/column_gemm.cu",
+                    "src/repro/kernels/column_gemm.py:89"),
+    "pattern_conv": ("src/repro_torch/kernels/csrc/pattern_conv.cu",
+                     "src/repro/kernels/pattern_conv.py:128"),
+}
+
+
+def summarize(rows: list, launches: dict, runs: dict) -> list:
     out = []
-    for name, (source, replaces) in meta.items():
+    for name, (source, replaces) in META.items():
         mine = [r for r in rows if r["kernel"] == name]
         served = [r for r in mine if r["dtype"] == "bfloat16"]
         out.append({
@@ -428,8 +662,9 @@ def summarize(rows: list, launches: dict) -> list:
             "bound_by": max(("bytes", "operations"), key=lambda k: sum(
                 r["bound_ms"] for r in served if r["bound_by"] == k)),
             "library_ms": sum(r["library_ms"] for r in served),
-            "workload": "sum of one bf16 call at each served shape: "
-                        + ", ".join(r["shape"] for r in served),
+            "workload": "sum of one bf16 call at each shape of its path: "
+                        + ", ".join(r["shape"] for r in served)
+                        + "; launches: " + runs[name],
         })
     return out
 
@@ -439,12 +674,27 @@ def main() -> int:
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.no_grad():
-        rows = check_pattern_gemm(gen) + check_flash(gen)
+        rows = (check_pattern_gemm(gen) + check_flash(gen)
+                + check_pattern_conv(gen) + check_column_gemm(gen))
         launches = phase_serve(smi)
         torch.cuda.empty_cache()
         phase_identity()
+        torch.cuda.empty_cache()
+        conv = [phase_cnn(smi, *path) for path in CNN_PATHS]
+        column = phase_column(smi)
+    launches = {**launches, "pattern_conv": sum(conv),
+                "column_gemm": column["column_gemm"]}
+    runs = {
+        "pattern_gemm": "tile-pattern qwen2-1.5b serving 8 requests",
+        "flash_attention": "tile-pattern qwen2-1.5b serving 8 requests",
+        "pattern_conv": "one bf16 forward of VGG-16 at batch 32 "
+                        f"({conv[0]}) + one of ResNet-18 at batch 256 "
+                        f"({conv[1]})",
+        "column_gemm": "column-pruned qwen2-1.5b serving 8 requests",
+    }
     print(smi, flush=True)
-    print(json.dumps({"kernels": summarize(rows, launches)}), flush=True)
+    print(json.dumps({"kernels": summarize(rows, launches, runs)}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,16 +1,18 @@
 """Bring the JAX package's parameters and packed buffers into the port.
 
 The caller hands trees of numpy arrays (``jax.device_get`` of the
-reference's params, or its packed tree with buffers as numpy), keeping the
-reference's leading ``(L, ...)`` layer axis under ``blocks``; these
-functions return the port's trees, with one entry per layer. This module
+reference's params, or its packed tree with buffers as numpy). For an LM
+(``cfg`` given) the reference keeps a leading ``(L, ...)`` layer axis under
+``blocks`` and these functions return the port's trees with one entry per
+layer; a CNN's tree (``cfg`` None) has no stacked axis, its ``layers`` are
+already a list, and it converts leaf by leaf. This module
 imports neither jax nor ``repro``: a reference ``PackedTensor`` is read by
 its attributes (``scheme``, ``shape``, ``names``, ``buffers``, ``meta``).
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -37,10 +39,14 @@ def _is_reference_packed(x: Any) -> bool:
 def _convert(tree: Any, leaf_fn) -> Any:
     if isinstance(tree, dict):
         return {k: _convert(v, leaf_fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_convert(v, leaf_fn) for v in tree]
     return leaf_fn(tree)
 
 
-def _per_layer(tree: Any, cfg: ModelConfig, leaf_fn) -> Any:
+def _per_layer(tree: Any, cfg: Optional[ModelConfig], leaf_fn) -> Any:
+    if cfg is None:
+        return _convert(tree, lambda a: leaf_fn(a, None))
     out = {}
     for key, sub in tree.items():
         if key == "blocks":
@@ -51,15 +57,15 @@ def _per_layer(tree: Any, cfg: ModelConfig, leaf_fn) -> Any:
     return out
 
 
-def params_from_jax(np_tree: Any, cfg: ModelConfig,
+def params_from_jax(np_tree: Any, cfg: Optional[ModelConfig],
                     device: DeviceLike = None) -> Any:
-    """Reference params (numpy, blocks stacked) -> the port's params."""
+    """Reference params (numpy; an LM's blocks stacked) -> the port's."""
     dev = resolve_device(device)
     return _per_layer(np_tree, cfg, lambda a, layer: tensor_from_numpy(
         a if layer is None else np.asarray(a)[layer], dev))
 
 
-def packed_from_jax(np_tree: Any, cfg: ModelConfig,
+def packed_from_jax(np_tree: Any, cfg: Optional[ModelConfig],
                     device: DeviceLike = None) -> Any:
     """Reference packed params (buffers as numpy) -> the port's packed tree.
 

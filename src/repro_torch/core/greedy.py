@@ -2,14 +2,16 @@
 
 from __future__ import annotations
 
-from typing import Any
+from typing import TYPE_CHECKING, Any
 
 import torch
 
 from repro_torch.core.schemes import PruneConfig, build_specs, project_tree
 from repro_torch.device import DeviceLike, resolve_device, same_device
-from repro_torch.sparse.artifact import PrunedArtifact
 from repro_torch.utils.tree import tree_items
+
+if TYPE_CHECKING:
+    from repro_torch.sparse.artifact import PrunedArtifact
 
 
 @torch.no_grad()
@@ -20,6 +22,10 @@ def greedy_prune(params: Any, config: PruneConfig, *,
     Returns the artifact directly (the reference returns a ``PruneResult``
     whose ``to_artifact()`` builds it); masks for retraining are not kept.
     """
+    # imported here: sparse -> kernels.pattern_conv -> core.projections
+    # would otherwise come back round to this module while it loads
+    from repro_torch.sparse.artifact import PrunedArtifact
+
     dev = resolve_device(device)
     for path, leaf in tree_items(params):
         if not same_device(leaf.device, dev):

@@ -62,12 +62,16 @@ class LayerSpec:
         return self._project_pq(w)
 
     def _project_pq(self, w: torch.Tensor) -> torch.Tensor:
+        if self.scheme == "column":
+            return projections.project_column(w, alpha=self.alpha,
+                                              group=self.column_group)
         if self.scheme == "tile_pattern":
             return projections.project_tile_pattern(
                 w, block_p=self.tile_block_p, group_q=self.tile_group_q,
                 keep=self.tile_keep)
-        raise NotImplementedError(
-            f"scheme {self.scheme!r} is not ported yet (tile_pattern only)")
+        return projections.project(w, self.scheme, alpha=self.alpha,
+                                   conv_shape=self.conv_shape,
+                                   keep=self.pattern_keep)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,8 +99,7 @@ class PruneConfig:
         for pat, ov in self.overrides.items():
             if re.fullmatch(pat, path):
                 kw.update(ov)
-        if kw["scheme"] in ("pattern", "pattern_shared", "kernel_pattern",
-                            "connectivity"):
+        if kw["scheme"] in projections.KERNEL_SCHEMES:
             if len(shape) == 4:
                 kw.setdefault("conv_shape", tuple(shape))
             elif "conv_shape" not in kw:
@@ -111,8 +114,19 @@ def build_specs(params: Any, config: PruneConfig) -> Any:
         params)
 
 
+def _project_leaf(w: torch.Tensor, spec: Optional[LayerSpec]) -> torch.Tensor:
+    if spec is None:
+        return w
+    if (spec.conv_shape is None and w.ndim > 2
+            and spec.scheme not in projections.KERNEL_SCHEMES):
+        # a >2-D leaf under a GEMM scheme (a conv weight pruned by column,
+        # say) is projected slice by slice along its first axis, as the
+        # reference's vmap over a stacked leaf does
+        return torch.stack([spec.project(s) for s in w.unbind(0)])
+    return spec.project(w)
+
+
 def project_tree(params: Any, specs: Any) -> Any:
     """Project every prunable leaf onto its set (spec None: identity)."""
-    return tree_map_with_path(
-        lambda path, w, spec: w if spec is None else spec.project(w),
-        params, specs)
+    return tree_map_with_path(lambda path, w, spec: _project_leaf(w, spec),
+                              params, specs)

@@ -1,0 +1,28 @@
+"""Data-free synthetic inputs (mirrors ``repro/core/synthetic.py``).
+
+The paper's generator: every pixel drawn from the discrete Uniform[0, 255]
+distribution, independent of any client data. Drawn from a
+``torch.Generator``, so the values match the reference's distribution,
+not its bits.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+
+
+def synthetic_images(gen: torch.Generator, batch: int,
+                     hwc: Tuple[int, int, int] = (32, 32, 3),
+                     normalize: bool = True, *,
+                     device: DeviceLike = None) -> torch.Tensor:
+    """(batch, H, W, C) fp32 Uniform[0, 255] pixels, scaled to [0, 1] when
+    ``normalize``. ``gen`` must live on ``device``."""
+    dev = resolve_device(device)
+    pix = torch.randint(0, 256, (batch, *hwc), generator=gen, device=dev,
+                        dtype=torch.int32)
+    x = pix.to(torch.float32)
+    return x / 255.0 if normalize else x

@@ -41,6 +41,13 @@ SIGNATURES: Dict[str, Tuple[str, List]] = {
     "flash_attention": ("flash_attention_launch",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I,
                          _P]),
+    # x, w_packed, kept_idx, bias, out, ws, M, Q, K, P, ksplit, is_bf16,
+    # act, stream
+    "column_gemm": ("column_gemm_launch",
+                    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    # x, w_packed, taps, bias, out, B, H, W, C, A, is_bf16, act, stream
+    "pattern_conv": ("pattern_conv_launch",
+                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
 }
 
 _FNS: Dict[str, ctypes._CFuncPtr] = {}

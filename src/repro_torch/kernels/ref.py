@@ -6,6 +6,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -13,6 +14,27 @@ NEG_INF = -1e30
 def ref_gemm(x: torch.Tensor, w_dense: torch.Tensor) -> torch.Tensor:
     """y = x @ W with the (pruned, still-dense) weight matrix (Q, P)."""
     return (x.to(torch.float32) @ w_dense.to(torch.float32)).to(x.dtype)
+
+
+ref_pattern_gemm = ref_gemm
+ref_column_gemm = ref_gemm
+
+
+def ref_conv3x3(x: torch.Tensor, w4_pruned: torch.Tensor) -> torch.Tensor:
+    """Dense stride-1 SAME conv in fp32 with the (pruned, still-dense)
+    weight: x (B, H, W, C) NHWC, w (A, C, 3, 3) OIHW -> (B, H, W, A)."""
+    y = F.conv2d(x.to(torch.float32).permute(0, 3, 1, 2),
+                 w4_pruned.to(torch.float32), padding=1)
+    return y.permute(0, 2, 3, 1).contiguous().to(x.dtype)
+
+
+def mask_channel_patterns(w4: torch.Tensor, pat_ids: torch.Tensor,
+                          patterns: torch.Tensor) -> torch.Tensor:
+    """Zero w4 (A, C, 3, 3) outside each channel's library pattern."""
+    pats = torch.as_tensor(patterns, dtype=torch.bool, device=w4.device)
+    mask = pats[torch.as_tensor(pat_ids, device=w4.device).long()]
+    return torch.where(mask.reshape(1, w4.shape[1], 3, 3), w4,
+                       torch.zeros((), dtype=w4.dtype, device=w4.device))
 
 
 def ref_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

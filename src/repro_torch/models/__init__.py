@@ -1,3 +1,4 @@
+from repro_torch.models.cnn import ResNet, VGG, resnet18, resnet50_basic, vgg16
 from repro_torch.models.transformer import LM
 
-__all__ = ["LM"]
+__all__ = ["LM", "ResNet", "VGG", "resnet18", "resnet50_basic", "vgg16"]

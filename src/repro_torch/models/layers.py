@@ -21,6 +21,16 @@ def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
+def _dense_epilogue(y: torch.Tensor, bias: Optional[torch.Tensor],
+                    activation: Optional[str]) -> torch.Tensor:
+    """act(y + bias) for a product taken with raw (unpacked) weights: the
+    epilogue runs in fp32 on the product already rounded to its dtype, and
+    is rounded back, as the reference's ``_dense_epilogue`` does."""
+    if bias is None and activation is None:
+        return y
+    return apply_epilogue(y.to(torch.float32), bias, activation).to(y.dtype)
+
+
 def dense_apply(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None,
                 activation: Optional[str] = None) -> torch.Tensor:
     """y = act(x @ w + bias) for a dense tensor OR a ``PackedTensor``.
@@ -35,10 +45,7 @@ def dense_apply(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None,
         y = dispatch_matmul(x.reshape(-1, x.shape[-1]), w, bias=bias,
                             activation=activation)
         return y.reshape(lead + (y.shape[-1],))
-    y = torch.matmul(x, w)
-    if bias is None and activation is None:
-        return y
-    return apply_epilogue(y.to(torch.float32), bias, activation).to(y.dtype)
+    return _dense_epilogue(torch.matmul(x, w), bias, activation)
 
 
 # ---------------------------------------------------------------------------

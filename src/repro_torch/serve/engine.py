@@ -9,8 +9,9 @@ Empty slots of a short chunk sample token 0. Each request's tokens are
 trimmed to its own ``max_new_tokens`` and at its ``eos_id``. Results come
 back in request order.
 
-With ``packed=True`` and a ``PrunedArtifact`` every pruned GEMM runs the
-``pattern_gemm`` kernel; ``packed=False`` serves the dense pruned weights.
+With ``packed=True`` and a ``PrunedArtifact`` every pruned GEMM runs its
+scheme's packed kernel (``pattern_gemm`` for tile_pattern, ``column_gemm``
+for column); ``packed=False`` serves the dense pruned weights.
 """
 
 from __future__ import annotations

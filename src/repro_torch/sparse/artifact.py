@@ -1,7 +1,7 @@
 """PrunedArtifact: the hand-off from pruning to serving.
 
-Reduced from ``repro/sparse/artifact.py`` to ``pack`` and ``bind``: save,
-load, tune and the privacy report are not ported yet.
+Reduced from ``repro/sparse/artifact.py`` to ``pack``, ``bind`` and
+``summary``: save, load, tune and the privacy report are not ported yet.
 
     artifact = greedy_prune(params, config)      # dense, exactly sparse
     artifact = artifact.pack()                   # PackedTensor leaves
@@ -32,9 +32,12 @@ class PrunedArtifact:
     bind_report: Optional[Dict[str, Any]] = None
 
     @torch.no_grad()
-    def pack(self, *, device: DeviceLike = None) -> "PrunedArtifact":
+    def pack(self, *, verify: bool = False,
+             device: DeviceLike = None) -> "PrunedArtifact":
         """Compress every packable leaf through the scheme registry, on
-        ``device``. Leaves without a packed form stay dense."""
+        ``device``. Leaves without a packed form stay dense. ``verify``
+        unpacks every packed leaf and raises unless it is exactly the
+        dense leaf."""
         dev = resolve_device(device)
 
         def pack_leaf(path, w, spec):
@@ -43,7 +46,14 @@ class PrunedArtifact:
             if spec is None:
                 return w
             pt = handler_for(spec.scheme).pack(w, spec)
-            return w if pt is None else pt
+            if pt is None:
+                return w
+            if verify and not torch.equal(
+                    handler_for(pt.scheme).to_dense(pt).to(torch.float32),
+                    w.to(torch.float32)):
+                raise AssertionError(f"pack/unpack mismatch for scheme "
+                                     f"{pt.scheme} on leaf {path}")
+            return pt
 
         packed = tree_map_with_path(pack_leaf, self.params, self.specs)
         return dataclasses.replace(self, packed=packed)
@@ -51,8 +61,11 @@ class PrunedArtifact:
     def bind(self, model: Any, *, packed: bool = True) -> Any:
         """The params tree ``model`` runs with, checked against its shapes.
 
-        A packed leaf that fails ``validate_packed`` is served from the
-        dense params instead and recorded in ``bind_report``.
+        Leaves the model cannot run packed (``unpackable_leaf_paths``,
+        e.g. ResNet's strided convs) are unpacked here, once, instead of
+        inside every forward. A packed leaf that fails ``validate_packed``
+        is served from the dense params instead and recorded in
+        ``bind_report``.
         """
         if packed and self.packed is None:
             self.packed = self.pack(device=model.device).packed
@@ -60,10 +73,14 @@ class PrunedArtifact:
         self.bind_report = {"fallbacks": {}}
         if packed:
             dense = dict(tree_items(self.params))
+            unpackable = set(getattr(model, "unpackable_leaf_paths",
+                                     lambda: ())())
 
             def check_leaf(path, x):
                 if not is_packed(x):
                     return x
+                if path in unpackable:
+                    return handler_for(x.scheme).to_dense(x)
                 why = validate_packed(x)
                 if why is None:
                     return x
@@ -91,3 +108,13 @@ class PrunedArtifact:
 
     def dense_bytes(self) -> int:
         return tree_packed_bytes(self.params)
+
+    def summary(self) -> Dict[str, Any]:
+        """Compression accounting: bytes and leaf counts, packed vs dense."""
+        leaves = ([leaf for _, leaf in tree_items(self.packed)]
+                  if self.packed is not None else [])
+        dense_b, packed_b = self.dense_bytes(), self.packed_bytes()
+        return {"dense_bytes": dense_b, "packed_bytes": packed_b,
+                "bytes_ratio": dense_b / max(packed_b, 1),
+                "packed_leaves": sum(is_packed(leaf) for leaf in leaves),
+                "total_leaves": len(leaves)}

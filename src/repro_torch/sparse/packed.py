@@ -5,9 +5,15 @@ Mirrors ``repro/sparse/packed.py``. Buffers per scheme:
   tile_pattern   w_packed (nb, Kp, bp)  kept lanes, one contiguous panel
                                         per output block of bp columns
                  lane_idx (nb, Kp)      int32 source row of each packed row
+  column         w_packed (K, P)        the surviving contraction rows
+                 kept_idx (K,)          int32 source row of each packed row
+  pattern        w_packed (4C, A)       each channel's 4 kept taps, all
+                                        filters (conv weight (A, C, 3, 3))
+                 taps (C, 4)            int32 flat tap (0..8) of each slot
 
-``shape`` is the logical dense (in, out) shape the buffers replace. The
-port keeps per-layer weights, so buffers never carry a layer axis.
+``shape`` is the logical dense shape the buffers replace: (in, out) for a
+GEMM weight, (A, C, 3, 3) for a conv. The port keeps per-layer weights,
+so buffers never carry a layer axis.
 """
 
 from __future__ import annotations
@@ -57,7 +63,12 @@ def is_packed(x: Any) -> bool:
 
 
 # index-table buffer -> bound derived from the dense shape, per scheme
-_INDEX_BOUNDS = {"tile_pattern": ("lane_idx", lambda shape: shape[-2])}
+_INDEX_BOUNDS = {
+    "tile_pattern": ("lane_idx", lambda shape: shape[-2]),
+    "column": ("kept_idx", lambda shape: shape[-2]),
+    "pattern": ("taps", lambda shape: 9),
+    "pattern_shared": ("taps", lambda shape: 9),
+}
 
 
 def validate_packed(pt: PackedTensor) -> Optional[str]:

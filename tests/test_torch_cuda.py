@@ -14,10 +14,12 @@ variants, block_p 32/64/128, every epilogue, ragged S, GQA, windows.
 import pytest
 import torch
 
-from repro_torch.core.projections import project_tile_pattern
+from repro_torch.core.projections import project, project_column, project_tile_pattern
+from repro_torch.kernels import column_gemm as cg
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import pattern_conv as pc
 from repro_torch.kernels import pattern_gemm as pg
-from repro_torch.kernels.ref import ref_gemm
+from repro_torch.kernels.ref import ref_conv3x3, ref_gemm
 
 ACTS = (None, "relu", "silu", "gelu")
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -79,6 +81,79 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype):
                                    atol=tol)
 
 
+def _packed_conv(g, A, C, dtype, cuda):
+    w4 = torch.randn(A, C, 3, 3, generator=g, device=cuda) * (2 / (9 * C)) ** 0.5
+    w4 = project(w4, "pattern_shared", alpha=0.5).to(dtype)
+    wp, taps = pc.pack_pattern_conv(w4, pc.assign_channel_patterns(w4))
+    return w4, wp, taps
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pattern_conv_kernel_matches_plain(cuda, dtype):
+    tol = TOL[dtype]
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for B, H, W, C, A in ((2, 9, 20, 3, 64), (3, 7, 7, 16, 40),
+                          (9, 4, 4, 32, 128), (3, 1, 1, 8, 64),
+                          (1, 17, 33, 12, 136), (2, 14, 14, 64, 256)):
+        w4, wp, taps = _packed_conv(g, A, C, dtype, cuda)
+        x = torch.randn(B, H, W, C, generator=g, device=cuda).to(dtype)
+        b = (torch.randn(A, generator=g, device=cuda) * 0.1).to(dtype)
+        for act in ACTS:
+            got = pc.pattern_conv(x, wp, taps, b, activation=act)
+            want = pc.pattern_conv_ref(x, wp, taps, b, activation=act)
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            oracle = ref_conv3x3(x, w4)          # fp32 conv, no TF32
+        torch.testing.assert_close(pc.pattern_conv(x, wp, taps).float(),
+                                   oracle.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_column_gemm_kernel_matches_plain(cuda, dtype):
+    tol = TOL[dtype]
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for Q, P, alpha in ((300, 256, 0.37), (1536, 200, 0.5), (64, 1000, 0.5),
+                        (2048, 1536, 0.5)):
+        w = torch.randn(Q, P, generator=g, device=cuda) / Q ** 0.5
+        w = project_column(w.T, alpha=alpha).T.contiguous().to(dtype)
+        wp, kept = cg.pack_columns(w)
+        b = (torch.randn(P, generator=g, device=cuda) * 0.1).to(dtype)
+        for M in (1, 4, 9, 16, 17, 130):
+            x = torch.randn(M, Q, generator=g, device=cuda).to(dtype)
+            for act in ACTS:
+                got = cg.column_gemm(x, wp, kept, b, activation=act)
+                want = cg.column_gemm_ref(x, wp, kept, b, activation=act)
+                torch.testing.assert_close(got.float(), want.float(),
+                                           rtol=tol, atol=tol)
+            assert torch.allclose(cg.column_gemm(x, wp, kept).float(),
+                                  ref_gemm(x, w).float(), rtol=tol, atol=tol)
+
+
+def test_conv_and_column_reject_bad_operands(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    _, wp, taps = _packed_conv(g, 64, 8, torch.float32, cuda)
+    x = torch.zeros(1, 4, 4, 8, device=cuda)
+    with pytest.raises(TypeError):
+        pc.pattern_conv(x, wp, taps.long())
+    with pytest.raises(TypeError):
+        pc.pattern_conv(x.bfloat16(), wp, taps)
+    with pytest.raises(ValueError):
+        pc.pattern_conv(x, wp, taps[:4])
+    with pytest.raises(ValueError):
+        pc.pattern_conv(x.permute(0, 2, 1, 3), wp, taps)
+    w = torch.zeros(16, 8, device=cuda)
+    w[::2] = 1.0
+    wp, kept = cg.pack_columns(w)
+    xm = torch.zeros(4, 16, device=cuda)
+    with pytest.raises(TypeError):
+        cg.column_gemm(xm, wp, kept.long())
+    with pytest.raises(TypeError):
+        cg.column_gemm(xm.bfloat16(), wp, kept)
+    with pytest.raises(ValueError):
+        cg.column_gemm(xm, wp, kept[:3])
+
+
 def test_launch_counters_count_kernel_launches_only(cuda):
     x = torch.randn(4, 64, device=cuda)
     w = project_tile_pattern(torch.randn(128, 64, device=cuda),
@@ -88,3 +163,15 @@ def test_launch_counters_count_kernel_launches_only(cuda):
     pg.pattern_gemm(x, wpb, li)
     pg.pattern_gemm_ref(x, wpb, li)
     assert pg.LAUNCHES == before + 1
+    wp, kept = cg.pack_columns(project_column(w.T, alpha=0.5).T)
+    before = cg.LAUNCHES
+    cg.column_gemm(x, wp.contiguous(), kept)
+    cg.column_gemm_ref(x, wp, kept)
+    assert cg.LAUNCHES == before + 1
+    g = torch.Generator(device=cuda).manual_seed(0)
+    _, wp, taps = _packed_conv(g, 64, 8, torch.float32, cuda)
+    xc = torch.randn(2, 5, 5, 8, device=cuda)
+    before = pc.LAUNCHES
+    pc.pattern_conv(xc, wp, taps)
+    pc.pattern_conv_ref(xc, wp, taps)
+    assert pc.LAUNCHES == before + 1

@@ -35,7 +35,8 @@ def test_no_jax_or_reference_imports(path):
 
 def test_engine_import_pulls_in_no_jax():
     code = ("import sys, repro_torch.serve.engine, repro_torch.convert, "
-            "repro_torch.core, repro_torch.kernels._build; "
+            "repro_torch.core, repro_torch.kernels._build, "
+            "repro_torch.models.cnn; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -68,3 +69,27 @@ def test_entry_points_refuse_a_missing_card():
         art.pack()
     with pytest.raises(RuntimeError):
         ServeEngine(model, art, batch_size=2, max_seq_len=16)
+
+
+def test_cnn_entry_points_refuse_a_missing_card():
+    """The CNN constructors, the synthetic images and ``pack`` want the
+    card by default, as ``LM`` does."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    from repro_torch.core import PruneConfig, greedy_prune
+    from repro_torch.core.synthetic import synthetic_images
+    from repro_torch.models import resnet18, vgg16
+
+    kw = dict(width_mult=0.125, image_hwc=(8, 8, 3))
+    for ctor in (vgg16, resnet18):
+        with pytest.raises(RuntimeError):
+            ctor(**kw)
+    with pytest.raises(RuntimeError):
+        synthetic_images(torch.Generator(), 2, (8, 8, 3))
+    model = vgg16(**kw, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    art = greedy_prune(params, PruneConfig(scheme="pattern_shared"),
+                       device="cpu")
+    with pytest.raises(RuntimeError):
+        art.pack()
+    assert art.pack(device="cpu").summary()["packed_leaves"] == 13
