@@ -14,14 +14,20 @@ result line is printed:
               the shapes of the paths below, in bf16 and fp32, with the
               reference's tolerances (``tests/test_kernels.py::_tol``:
               fp32 2e-5, bf16 2e-2, as ``torch.allclose`` rtol = atol);
-              kernel, plain-version and one library call's times.
+              kernel, plain-version and one library call's device times
+              (event pairs queued behind a device sleep, so they hold no
+              host enqueue time); the kernel variant each call took and,
+              where a GEMM took the wgmma variant, the WMMA tile's time at
+              the same shape (``earlier_ms``).
 4. serve    — qwen2-1.5b at full width (28 layers, d_model 1536, vocab
               151 936, bf16), seeded random weights, greedy tile-pattern
               prune (4 of 8 lanes, block_p 128), packed, served by
               ``ServeEngine(packed=True, batch_size=4, max_seq_len=544)``
               for 8 requests (4 x 512-token and 4 x 128-token prompts, 32
               new tokens each). Launch counts are zeroed just before the
-              served run and read just after.
+              served run and read just after. Each chunk's prefill and a
+              decode step are profiled (wall clock against device busy
+              time and the kernels that hold it).
 5. identity — the same model in fp32, served dense-pruned and packed: the
               greedy tokens must be identical.
 6. cnn      — VGG-16 (ImageNet head, 224 x 224, batch 32) and ResNet-18
@@ -39,8 +45,13 @@ result line is printed:
               dense-pruned against packed greedy tokens at 4 layers of full
               width, which must be identical.
 8. report   — one ``{"kernels": [...]}`` JSON line covering all four
-              kernels, the card's name and power limit, then as the last
-              line ``{"ok": true, "device": {...}}``.
+              kernels (each a sum over the bf16 shapes its served path
+              launches; the GEMMs' ``lm_head`` at M = 512 and 2048, which
+              prefill never launches, listed apart under ``not_on_path``,
+              and their per-layer sums at the prefill chunks' M under
+              ``per_layer_m512`` and ``per_layer_m2048``), the
+              card's name and power limit, then as the last line
+              ``{"ok": true, "device": {...}}``.
 
 Imports nothing of ``jax`` or ``repro``.
 """
@@ -86,6 +97,8 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 L2_FLUSH_BYTES = 64 << 20          # > the 50 MB L2: every timed call starts cold
+SLEEP_HZ = 2.0e9                   # >= the H100's top SM clock: a device sleep
+                                   # of n cycles lasts at least n / SLEEP_HZ s
 
 # (name, Q, P, bias, activation) — every distinct qwen2-1.5b packed GEMM
 QWEN2_GEMMS = (
@@ -97,7 +110,8 @@ QWEN2_GEMMS = (
     ("w_down", 8960, 1536, False, None),
     ("lm_head", 1536, 151936, False, None),
 )
-GEMM_MS = (4, 2048)                 # decode (M = batch) and prefill (4 x 512)
+GEMM_MS = (4, 512, 2048)            # decode (M = batch); prefill chunks of
+                                    # 4 x 128 and 4 x 512 tokens
 FLASH_SHAPES = dict(B=4, H=12, KV=2, hd=128)
 FLASH_SEQS = (128, 200, 512)
 # (batch, H = W, C, A): every distinct stride-1 3x3 conv of VGG-16 at
@@ -135,12 +149,20 @@ _FLUSH = None
 
 def timed_ms(fn, iters: int = 10) -> float:
     """Mean device ms of ``fn`` over ``iters`` calls, each after an L2 flush
-    (CUDA events around the call only)."""
+    (CUDA events around the call only). The timed calls queue behind a
+    device-side sleep longer than the host takes to enqueue them, so the
+    card never waits on the host inside an event pair."""
     global _FLUSH
     if _FLUSH is None:
         _FLUSH = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _FLUSH.zero_()
+    fn()
+    enqueue_s = time.perf_counter() - t0        # host time to enqueue one
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int((2 * iters * enqueue_s + 2e-3) * SLEEP_HZ))
     pairs = []
     for _ in range(iters):
         _FLUSH.zero_()
@@ -223,13 +245,19 @@ def check_pattern_gemm(gen) -> list:
                     x, wpb, li, b, activation=act), 20)
                 plain = timed_ms(lambda: pg_mod.pattern_gemm_ref(
                     x, wpb, li, b, activation=act), 3)
+                variant = pg_mod.tiled_variant(M, Q, wpb.shape[1], dtype)
+                earlier = None                  # the WMMA tile at this shape
+                if variant == "wgmma":
+                    earlier = timed_ms(lambda: pg_mod._launch(
+                        x, wpb, li, b, act, "wmma"), 20)
                 lib = timed_ms(lambda: torch.matmul(x, w), 20)
                 nb, Kp, bp = wpb.shape
                 t_b, by = bound(nbytes(x, wpb, li, b, y),
                                 2.0 * M * Kp * nb * bp, dtype)
                 rows.append(dict(kernel="pattern_gemm", shape=f"{name} M={M}",
                                  dtype=str(dtype).split(".")[-1],
-                                 max_abs_err=err, ms=ms, plain_ms=plain,
+                                 variant=variant, max_abs_err=err, ms=ms,
+                                 earlier_ms=earlier, plain_ms=plain,
                                  bound_ms=t_b, bound_by=by, library_ms=lib))
                 print("[kernels] " + json.dumps(rows[-1]), flush=True)
             del w, wpb, li
@@ -261,7 +289,8 @@ def check_flash(gen) -> list:
             t_b, by = bound(nbytes(q, k, v, o), 4.0 * B * H * hd * pairs, dtype)
             rows.append(dict(kernel="flash_attention", shape=f"B={B} S={S} "
                              f"H={H} KV={KV} hd={hd} causal",
-                             dtype=str(dtype).split(".")[-1], max_abs_err=err,
+                             dtype=str(dtype).split(".")[-1], variant="simt",
+                             max_abs_err=err,
                              ms=ms, plain_ms=plain, bound_ms=t_b, bound_by=by,
                              library_ms=lib))
             print("[kernels] " + json.dumps(rows[-1]), flush=True)
@@ -300,6 +329,8 @@ def check_pattern_conv(gen) -> list:
             rows.append(dict(kernel="pattern_conv",
                              shape=f"B={B} {H}x{H} {C}->{A}",
                              dtype=str(dtype).split(".")[-1],
+                             variant="wmma" if dtype == torch.bfloat16
+                             else "simt",
                              max_abs_err=err, ms=ms, plain_ms=plain,
                              bound_ms=t_b, bound_by=by, library_ms=lib))
             print("[kernels] " + json.dumps(rows[-1]), flush=True)
@@ -332,13 +363,19 @@ def check_column_gemm(gen) -> list:
                     x, wp, kept, b, activation=act), 20)
                 plain = timed_ms(lambda: cg_mod.column_gemm_ref(
                     x, wp, kept, b, activation=act), 3)
+                variant = cg_mod.tiled_variant(M, *wp.shape, dtype)
+                earlier = None                  # the WMMA tile at this shape
+                if variant == "wgmma":
+                    earlier = timed_ms(lambda: cg_mod._launch(
+                        x, wp, kept, b, act, "wmma"), 20)
                 lib = timed_ms(lambda: torch.matmul(x, w), 20)
                 K = wp.shape[0]
                 t_b, by = bound(nbytes(x, wp, kept, b, y), 2.0 * M * K * P,
                                 dtype)
                 rows.append(dict(kernel="column_gemm", shape=f"{name} M={M}",
                                  dtype=str(dtype).split(".")[-1],
-                                 max_abs_err=err, ms=ms, plain_ms=plain,
+                                 variant=variant, max_abs_err=err, ms=ms,
+                                 earlier_ms=earlier, plain_ms=plain,
                                  bound_ms=t_b, bound_by=by, library_ms=lib))
                 print("[kernels] " + json.dumps(rows[-1]), flush=True)
             del w, wp, kept
@@ -462,9 +499,14 @@ def drive_serve(tag: str, smi: str, pcfg, gemm: str) -> dict:
         if pre[gemm] == 0 or pre["flash_attention"] == 0 or dec[gemm] == 0:
             fail(f"kernels not launched on the served path at S={S}: "
                  f"prefill {pre}, decode {dec}")
+        profile(tag, f"prefill (S={S} chunk)", lambda: eng.prefill(prompts))
     if not all(launches.values()):
         fail(f"a kernel never launched on the main path: {launches}")
-    profile_decode(tag, eng, reqs[:4])
+    prompts, mask = eng.pad_prompts(reqs[:4])
+    cache, logits = eng.prefill(prompts)
+    tok = eng.sampler(logits) * mask[:, None]
+    profile(tag, "decode step (S=512 chunk)",
+            lambda: eng.decode(cache, tok, mask, 8), per=8)
     return launches
 
 
@@ -472,32 +514,31 @@ def phase_serve(smi: str) -> dict:
     return drive_serve("serve", smi, TILE_PCFG, "pattern_gemm")
 
 
-def profile_decode(tag: str, eng, chunk, steps: int = 8) -> None:
-    """Where a decode step's time goes: wall clock against the device's
-    busy time (sum of kernel self times under torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
+def profile(tag: str, what: str, fn, per: int = 1) -> None:
+    """Where the time of ``fn`` goes, per ``per`` (decode steps): wall
+    clock against the device's busy time (sum of kernel self times under
+    torch.profiler) and the kernels that hold most of it."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
 
-    prompts, mask = eng.pad_prompts(chunk)
-    cache, logits = eng.prefill(prompts)
-    tok = eng.sampler(logits) * mask[:, None]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with trace(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.decode(cache, tok, mask, steps)
+        fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / steps
+        wall = (time.perf_counter() - t0) / per
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-    launches = sum(e.count for e in kernels) / steps
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
-    print(f"[profile] {tag} decode step (profiled, S=512 chunk): wall "
-          f"{wall * 1e3:.2f} ms, device busy {busy:.2f} ms "
-          f"({100 * busy / (wall * 1e3):.1f}%), {launches:.0f} kernel "
-          f"launches; top device time: " + json.dumps(
-              {e.key[:60]: round(e.self_device_time_total / 1e3 / steps, 3)
-               for e in top}), flush=True)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / per
+    launches = sum(e.count for e in kernels) / per
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"[profile] {tag} {what}, profiled: wall {wall * 1e3:.2f} ms, "
+          f"device busy {busy:.2f} ms ({100 * busy / (wall * 1e3):.1f}%), "
+          f"{launches:.0f} kernel launches; top device ms (launches): "
+          + json.dumps({e.key[:60]: [round(e.self_device_time_total / 1e3
+                                           / per, 3), e.count // per]
+                        for e in top}), flush=True)
 
 
 def token_identity(tag: str, cfg, pcfg, note: str = "") -> None:
@@ -647,25 +688,49 @@ META = {
 }
 
 
+# LM.prefill computes logits of the last token only, so the served path
+# launches the LM head at M = batch, never at a prefill chunk's M
+OFF_PATH = ("lm_head M=512", "lm_head M=2048")
+# one decoder layer's packed GEMMs (wk and wv: two launches)
+LAYER_GEMMS = {"wq": 1, "wk/wv": 2, "wo": 1, "w_gate": 1, "w_up": 1,
+               "w_down": 1}
+TIMES = ("ms", "plain_ms", "bound_ms", "library_ms")
+
+
+def per_layer(rows: list, M: int) -> dict:
+    """One layer's sums of the bf16 GEMM rows at M (``earlier_ms``: the
+    WMMA tile's time at the same shapes, in this run)."""
+    mine = {r["shape"].split(" ")[0]: r for r in rows
+            if r["dtype"] == "bfloat16" and r["shape"].endswith(f" M={M}")}
+    return {k: sum(n * (mine[g][k] or 0.0) for g, n in LAYER_GEMMS.items())
+            for k in TIMES + ("earlier_ms",)}
+
+
 def summarize(rows: list, launches: dict, runs: dict) -> list:
     out = []
     for name, (source, replaces) in META.items():
         mine = [r for r in rows if r["kernel"] == name]
-        served = [r for r in mine if r["dtype"] == "bfloat16"]
-        out.append({
+        bf16 = [r for r in mine if r["dtype"] == "bfloat16"]
+        served = [r for r in bf16 if r["shape"] not in OFF_PATH]
+        entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": sum(r["ms"] for r in served),
-            "plain_ms": sum(r["plain_ms"] for r in served),
-            "bound_ms": sum(r["bound_ms"] for r in served),
+            **{k: sum(r[k] for r in served) for k in TIMES},
             "bound_by": max(("bytes", "operations"), key=lambda k: sum(
                 r["bound_ms"] for r in served if r["bound_by"] == k)),
-            "library_ms": sum(r["library_ms"] for r in served),
-            "workload": "sum of one bf16 call at each shape of its path: "
-                        + ", ".join(r["shape"] for r in served)
+            "workload": "sum of one bf16 call at each shape its served path "
+                        "launches: " + ", ".join(r["shape"] for r in served)
                         + "; launches: " + runs[name],
-        })
+        }
+        off = [r for r in bf16 if r["shape"] in OFF_PATH]
+        if off:
+            entry["not_on_path"] = [
+                {k: r[k] for k in ("shape", "variant", "earlier_ms", *TIMES)}
+                for r in off]
+            for M in GEMM_MS[1:]:
+                entry[f"per_layer_m{M}"] = per_layer(mine, M)
+        out.append(entry)
     return out
 
 

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers) and
 becomes ``build/repro_torch/<name>-<hash>.so`` at the repository root,
-keyed on a hash of the source and the compiler flags, so an edited
-source rebuilds and an unchanged one loads at once. Every pointer and the
-stream cross the boundary as ``c_void_p``; every C entry point returns
-the ``cudaError_t`` of ``cudaGetLastError()`` after its launch.
+keyed on a hash of the source, every shared header ``csrc/*.cuh`` and the
+compiler flags, so an edited source or header rebuilds and an unchanged
+one loads at once. Every pointer and the stream cross the boundary as
+``c_void_p``; every C entry point returns the ``cudaError_t`` of
+``cudaGetLastError()`` after its launch.
 
 Builds run only when a kernel is first launched (or ``build_all`` is
 called), never at import: the CPU-only test box has no nvcc. Sources are
@@ -33,18 +34,15 @@ _F = ctypes.c_float
 # C entry point of each source: (symbol, argtypes)
 SIGNATURES: Dict[str, Tuple[str, List]] = {
     # x, w_packed, lane_idx, bias, out, ws, M, Q, nb, Kp, bp, ksplit,
-    # is_bf16, act, stream
-    "pattern_gemm": ("pattern_gemm_launch",
-                     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                      _P]),
+    # variant, block_m, is_bf16, act, stream
+    "pattern_gemm": ("pattern_gemm_launch", [_P] * 6 + [_I] * 10 + [_P]),
     # q, k, v, out, B, S, H, KV, hd, scale, causal, window, is_bf16, stream
     "flash_attention": ("flash_attention_launch",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I,
                          _P]),
-    # x, w_packed, kept_idx, bias, out, ws, M, Q, K, P, ksplit, is_bf16,
-    # act, stream
-    "column_gemm": ("column_gemm_launch",
-                    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    # x, w_packed, kept_idx, bias, out, ws, xg, M, Q, K, P, ksplit, variant,
+    # block_m, is_bf16, act, stream
+    "column_gemm": ("column_gemm_launch", [_P] * 7 + [_I] * 9 + [_P]),
     # x, w_packed, taps, bias, out, B, H, W, C, A, is_bf16, act, stream
     "pattern_conv": ("pattern_conv_launch",
                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
@@ -61,9 +59,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of its source,
+    every header in ``csrc/`` and the flags."""
+    h = hashlib.sha256()
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Sequence[str] = tuple(SIGNATURES)) -> Dict[str, float]:

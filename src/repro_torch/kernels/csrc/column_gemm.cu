@@ -8,7 +8,8 @@
 // row-major, exactly as the reference stores them. x (M, Q) and out (M, P)
 // are row-major; bf16 or fp32 in, fp32 accumulate, and the bias/activation
 // epilogue runs on the fp32 accumulator before the single store. K and P
-// may be ragged: both edges are masked in the kernel.
+// may be ragged. The caller names the variant (`variant`), as
+// repro_torch/kernels/column_gemm.py:tiled_variant decides it.
 //
 // What bounds it on an H100: at decode (M = batch, a few rows) every packed
 // weight byte is read once for M FMAs, so the product is bound by the bytes
@@ -17,49 +18,28 @@
 // block and over blocks (about two blocks per SM), keeps the gathered x
 // slice in shared memory, and sums the K slices in a fixed order in a second
 // pass, so results do not depend on scheduling. At prefill (M = B*S in the
-// thousands) the product is compute-bound: the tiled variants stage a
-// 128-row A tile (the kept_idx gather is fused into this load, so no
-// gathered copy of x is ever built) and a K slice of w_packed in shared
-// memory, and run bf16 tensor-core MMAs (WMMA, fp32 accumulate; the next
-// slice loads into registers while they run) or, for fp32 inputs, fp32
-// FMAs so fp32 results stay fp32. The reference hoists the gather to XLA
-// and runs a dense MXU matmul; wgmma/TMA pipelining is left for a later
-// change.
+// thousands) the product is compute-bound and wants Hopper's wgmma at full
+// rate. The earlier WMMA tile fused the kept_idx gather into its A load and
+// lost 4-5x to cuBLAS: 2-byte loads through the index list, repeated in
+// every one of the P/128 column blocks (1187 at the LM head), a one-deep
+// register prefetch with two block barriers per 32-deep K step, mma.sync,
+// and a grid that swept all columns before the next row tile. So the bf16
+// variant now gathers once, as the reference does outside its kernel:
+// cg_gather writes xg = x[:, kept_idx] (M, K) with 16-byte stores (3 MB at
+// M = 2048, K = 768: microseconds against a GEMM of 0.1-0.5 ms), and a dense
+// wgmma GEMM (sm90_gemm.cuh) reads xg and w_packed by TMA into a 3- or
+// 4-stage mbarrier ring (two blocks share an SM), w_packed through wgmma's
+// transposed-B mode, writes its bf16 tile through shared memory by TMA
+// stores, and runs row tiles fastest so a weight larger than L2 streams
+// from HBM once. The
+// WMMA tile stays for P % 8 != 0 (TMA needs 16-byte row strides) and
+// unaligned operands; fp32 inputs take fp32 FMAs so fp32 results stay fp32.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include "sm90_gemm.cuh"
+
 #include <mma.h>
-#include <stdint.h>
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
-
-enum { ACT_NONE = 0, ACT_RELU = 1, ACT_SILU = 2, ACT_GELU = 3 };
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// act(acc + bias), the contract of repro_torch/kernels/epilogue.py
-// (gelu is the tanh approximation, as jax.nn.gelu)
-__device__ __forceinline__ float epilogue(float acc, float b, int act) {
-  acc += b;
-  switch (act) {
-    case ACT_RELU: return fmaxf(acc, 0.f);
-    case ACT_SILU: return acc / (1.f + expf(-acc));
-    case ACT_GELU: {
-      const float c = 0.7978845608028654f;   // sqrt(2/pi)
-      return 0.5f * acc * (1.f + tanhf(c * (acc + 0.044715f * acc * acc * acc)));
-    }
-    default: return acc;
-  }
-}
 
 // CPL consecutive values starting at p, as fp32; CPL * sizeof(T) is 16
 // bytes (one vector load) or CPL is 1
@@ -97,7 +77,6 @@ template <typename T> struct Row<T, 1> {
 // ksplit > 1 each K slice writes fp32 partials to `ws` (ksplit, M, P) and
 // cg_reduce adds them in a fixed order and applies the epilogue.
 constexpr int SK_WARPS = 8;
-constexpr int SK_MMAX = 16;
 constexpr int SK_KC = 128;
 
 template <typename T, int CPL, int MT>
@@ -183,7 +162,8 @@ cg_reduce(const float* __restrict__ ws, const T* __restrict__ bias,
   out[e] = from_f<T>(epilogue(s, b, act));
 }
 
-// ----------------------------------------------------------- tiled, bf16
+// ------------------------------------------------------ WMMA tile, bf16
+// For P % 8 != 0 and operands that are not 16-byte aligned.
 // Block (j, i): output rows [i*TMB, +TMB), columns [j*BN, +BN); 8 warps in
 // a 4 x 2 grid, warp (wr, wc) owning rows [32wr, +32) and columns
 // [wc*BN/2, +BN/2) as 2 x BN/32 WMMA accumulators. Each K step's gathered A
@@ -391,23 +371,96 @@ void launch_skinny(const void* x, const void* w, const int* kept,
   }
 }
 
+// ---------------------------------------------------------- gather, bf16
+// xg[m, k] = x[m, kept[k]] for k < K, 0 for K <= k < Kpad (Kpad % 8 == 0):
+// one 16-byte store of 8 consecutive k per thread.
+__global__ void __launch_bounds__(256)
+cg_gather(const bf16* __restrict__ x, const int* __restrict__ kept,
+          bf16* __restrict__ xg, int M, int Q, int K, int Kpad) {
+  const int chunks = Kpad / 8;
+  const size_t e = (size_t)blockIdx.x * 256 + threadIdx.x;
+  if (e >= (size_t)M * chunks) return;
+  const int m = (int)(e / chunks), k = (int)(e % chunks) * 8;
+  const bf16* xr = x + (size_t)m * Q;
+  uint4 v;
+  bf16* h = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+    h[t] = k + t < K ? xr[kept[k + t]] : __float2bfloat16(0.f);
+  *reinterpret_cast<uint4*>(xg + (size_t)m * Kpad + k) = v;
+}
+
+// wgmma variant: gather, then TMA maps over xg (K, M) and w_packed
+// (P, K, 1), innermost first; then the fixed-order reduce of a K split.
+cudaError_t launch_wgmma(const void* x, const void* w, const int* kept,
+                         const void* b, void* o, float* ws, void* xg, int M,
+                         int Q, int K, int P, int block_m, int ksplit,
+                         int act, cudaStream_t s) {
+  const int Kpad = (K + 7) / 8 * 8;
+  const size_t n_chunks = (size_t)M * (Kpad / 8);
+  cg_gather<<<(unsigned)((n_chunks + 255) / 256), 256, 0, s>>>(
+      (const bf16*)x, kept, (bf16*)xg, M, Q, K, Kpad);
+  CUtensorMap ta, tw;
+  const cuuint64_t ad[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t as[1] = {(cuuint64_t)Kpad * 2};
+  const cuuint32_t ab[2] = {sm90::BK, (cuuint32_t)block_m};
+  const cuuint64_t wd[3] = {(cuuint64_t)P, (cuuint64_t)K, 1};
+  const cuuint64_t wst[2] = {(cuuint64_t)P * 2, (cuuint64_t)K * P * 2};
+  const cuuint32_t wb[3] = {64, sm90::BK, 1};
+  if (!sm90::make_map(&ta, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, xg, ad, as,
+                      ab, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !sm90::make_map(&tw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, w, wd, wst, wb,
+                      CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  sm90::Args a;
+  a.x = (const bf16*)x; a.bias = (const bf16*)b; a.out = (bf16*)o;
+  a.ws = ksplit > 1 ? ws : nullptr;
+  a.M = M; a.Q = Q; a.K = K; a.P = P;
+  a.ksteps = (K + sm90::BK - 1) / sm90::BK;
+  a.kper = (a.ksteps + ksplit - 1) / ksplit;
+  a.panel = 0; a.act = act;
+  const int n_tiles = (P + 127) / 128;
+  const cudaError_t e =
+      block_m == 128
+          ? sm90::launch_gemm<128, 128, false>(ta, tw, ta, a, n_tiles, ksplit, s)
+          : sm90::launch_gemm<64, 128, false>(ta, tw, ta, a, n_tiles, ksplit, s);
+  if (e != cudaSuccess || ksplit == 1) return e;
+  const size_t n = (size_t)M * P;
+  cg_reduce<bf16><<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+      ws, (const bf16*)b, (bf16*)o, M, P, ksplit, act);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// bias may be null. For M <= 16 the K packed rows are split `ksplit` ways,
-// and ksplit > 1 needs an fp32 workspace `ws` of ksplit * M * P floats;
-// larger M ignores both. Returns cudaGetLastError().
+// bias may be null. `variant` is the route the caller chose (V_*;
+// column_gemm.py:tiled_variant): skinny for M <= 16, wgmma (bf16; K > 0,
+// P % 8 == 0, 16-byte aligned operands) with a `block_m` of 64 or 128 rows
+// and a scratch `xg` of M * roundup(K, 8) bf16, wmma (bf16) or simt (fp32).
+// skinny and wgmma split K `ksplit` ways, and ksplit > 1 needs an fp32
+// workspace `ws` of ksplit * M * P floats. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for arguments the variant does not take.
 extern "C" int column_gemm_launch(const void* x, const void* w_packed,
                                   const void* kept_idx, const void* bias,
-                                  void* out, void* ws, int M, int Q, int K,
-                                  int P, int ksplit, int is_bf16, int act,
+                                  void* out, void* ws, void* xg, int M, int Q,
+                                  int K, int P, int ksplit, int variant,
+                                  int block_m, int is_bf16, int act,
                                   void* stream) {
   if (M <= 0 || P <= 0 || K < 0 || Q <= 0)
     return (int)cudaErrorInvalidValue;
-  if (M <= SK_MMAX && (ksplit < 1 || ksplit > 65535 || (ksplit > 1 && !ws)))
+  if (ksplit < 1 || ksplit > 65535 || (ksplit > 1 && !ws))
     return (int)cudaErrorInvalidValue;
+  const bool ok =
+      variant == V_SKINNY ? M <= SK_MMAX
+      : variant == V_WGMMA ? M > SK_MMAX && is_bf16 && K > 0 && P % 8 == 0 &&
+                                 xg && (block_m == 64 || block_m == 128)
+      : variant == V_WMMA ? M > SK_MMAX && is_bf16 && ksplit == 1
+      : variant == V_SIMT ? M > SK_MMAX && !is_bf16 && ksplit == 1
+                          : false;
+  if (!ok) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int* kept = (const int*)kept_idx;
-  if (M <= SK_MMAX) {
+  if (variant == V_SKINNY) {
     if (is_bf16) {
       if (P % 8 == 0)
         launch_skinny<bf16, 8>(x, w_packed, kept, bias, out, (float*)ws, M, Q,
@@ -423,7 +476,12 @@ extern "C" int column_gemm_launch(const void* x, const void* w_packed,
         launch_skinny<float, 1>(x, w_packed, kept, bias, out, (float*)ws, M,
                                 Q, K, P, ksplit, act, s);
     }
-  } else if (is_bf16) {
+  } else if (variant == V_WGMMA) {
+    const cudaError_t e = launch_wgmma(x, w_packed, kept, bias, out,
+                                       (float*)ws, xg, M, Q, K, P, block_m,
+                                       ksplit, act, s);
+    if (e != cudaSuccess) return (int)e;
+  } else if (variant == V_WMMA) {
     const dim3 grid((P + 127) / 128, (M + TMB - 1) / TMB);
     if (P % 8 == 0)
       cg_wmma_bf16<128, true><<<grid, 256, 0, s>>>(

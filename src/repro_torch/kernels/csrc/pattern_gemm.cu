@@ -8,58 +8,42 @@
 // with lane_idx (nb, Kp) int32 naming the source row of x for each packed
 // row. x (M, Q) and out (M, P = nb*bp) are row-major; bf16 or fp32 in, fp32
 // accumulate, the bias/activation epilogue runs on the fp32 accumulator
-// before the single store.
+// before the single store. The caller names the variant (`variant`), as
+// repro_torch/kernels/pattern_gemm.py:tiled_variant decides it.
 //
 // What bounds it on an H100: at decode (M = batch, a few rows) every packed
-// weight byte is read once for a handful of FMAs — memory-bound, and with
+// weight byte is read once for a handful of FMAs: memory-bound, and with
 // few panels (12 for a 1536-wide output) latency-bound too. So the skinny
-// kernel spreads panels, column groups AND slices of the packed K rows over
+// variant spreads panels, column groups AND slices of the packed K rows over
 // blocks (about two blocks per SM), stages the gathered x slice in shared
-// memory with independent loads, and streams the panel with vector loads,
-// a warp reading whole 128-byte lines. At prefill (M = B*S in the thousands) the
-// work is compute-bound: the tiled kernels stage an A tile of rows (the
-// lane gather is fused into this load: x[m, lane_idx[j, k]] is read
-// straight from device memory, no gathered copy of x is ever built) and a
-// K-slice of the panel in shared memory, and run bf16 tensor-core MMAs
-// (WMMA, fp32 accumulate; the next slice loads while they run) or, for fp32
-// inputs, fp32 FMAs so fp32 results stay fp32.
-// The ragged M edge is masked in the kernel. wgmma/TMA pipelining is left
-// for a later change.
+// memory with independent loads, and streams the panel with vector loads.
+// At prefill (M = B*S in the thousands) the work is compute-bound (2 M Kp P
+// FLOPs against a few MB): it wants Hopper's wgmma at full rate, fed without
+// stalls. The earlier WMMA tile lost 4-5x to cuBLAS there, by gathering A
+// with one 2-byte load per element through the lane table, a one-deep
+// register prefetch with two block barriers per 32-deep K step, mma.sync
+// (which cannot reach Hopper's tensor-core rate) and a grid that swept every
+// panel before the next row tile (the LM head's weight streamed from HBM
+// once per row tile). The wgmma variant (sm90_gemm.cuh, GATHER mode) keeps
+// the gather fused but dense: a tile-pattern lane table is banded, so each
+// 64-deep K stage TMA-loads the 128 x columns its packed rows can read, the
+// panel slice and the stage's lane indices into a 2- or 3-stage mbarrier
+// ring fed by one producer thread (two blocks share an SM); each consumer thread picks its A
+// fragments from the staged band in shared memory (2-byte loads, which with
+// the band's 2x over-fetch keep it at about half of column_gemm's rate) and
+// runs wgmma m64n{bp}k16 from registers; the bf16 tile leaves through
+// shared memory by TMA stores. Row tiles run fastest in the grid, so a panel
+// streams from HBM once. Lanes off the band (a table from another packer)
+// are read from device memory, so any table is right.
+// The WMMA tile stays for shapes TMA cannot describe (Q % 8 or Kp % 4 not
+// 0, unaligned operands); fp32 inputs take fp32 FMAs so fp32 results stay
+// fp32.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include "sm90_gemm.cuh"
+
 #include <mma.h>
-#include <stdint.h>
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
-
-enum { ACT_NONE = 0, ACT_RELU = 1, ACT_SILU = 2, ACT_GELU = 3 };
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// act(acc + bias), the contract of repro_torch/kernels/epilogue.py
-// (gelu is the tanh approximation, as jax.nn.gelu)
-__device__ __forceinline__ float epilogue(float acc, float b, int act) {
-  acc += b;
-  switch (act) {
-    case ACT_RELU: return fmaxf(acc, 0.f);
-    case ACT_SILU: return acc / (1.f + expf(-acc));
-    case ACT_GELU: {
-      const float c = 0.7978845608028654f;   // sqrt(2/pi)
-      return 0.5f * acc * (1.f + tanhf(c * (acc + 0.044715f * acc * acc * acc)));
-    }
-    default: return acc;
-  }
-}
 
 // ---------------------------------------------------------------- skinny
 // M <= SK_MMAX (decode). Block (j, g, z): panel j, columns
@@ -72,7 +56,6 @@ __device__ __forceinline__ float epilogue(float acc, float b, int act) {
 // (ksplit, M, P) and pg_reduce adds them in a fixed order and applies the
 // epilogue, so results do not depend on scheduling.
 constexpr int SK_WARPS = 8;
-constexpr int SK_MMAX = 16;
 constexpr int SK_KC = 128;
 
 template <typename T, int CPL> struct Vec;
@@ -175,7 +158,9 @@ pg_reduce(const float* __restrict__ ws, const T* __restrict__ bias,
   out[e] = from_f<T>(epilogue(s, b, act));
 }
 
-// ----------------------------------------------------------- tiled, bf16
+// ------------------------------------------------------ WMMA tile, bf16
+// For shapes the wgmma variant's TMA maps cannot describe (Q % 8 != 0,
+// Kp % 4 != 0, operands not 16-byte aligned).
 // Block (j, i): output rows [i*TMB, +TMB) of panel j; 8 warps in a 4 x 2
 // grid, warp (wr, wc) owning rows [32wr, +32) and columns [wc*BN/2, +BN/2)
 // as 2 x BN/32 WMMA accumulators. Each K step's gathered A slice and panel
@@ -383,30 +368,98 @@ void launch_tiled(const void* x, const void* w, const int* li, const void* b,
   }
 }
 
+// wgmma variant: TMA maps over x (Q, M), the panels (bp, Kp, nb) and
+// lane_idx (Kp, nb), innermost first; then the fixed-order reduce of a K
+// split.
+template <int BN>
+cudaError_t launch_wgmma(const void* x, const void* w, const int* li,
+                         const void* b, void* o, float* ws, int M, int Q,
+                         int nb, int Kp, int block_m, int ksplit,
+                         int act, cudaStream_t s) {
+  constexpr int BI = BN < 64 ? BN : 64;
+  CUtensorMap tx, tw, tl;
+  const cuuint64_t xd[2] = {(cuuint64_t)Q, (cuuint64_t)M};
+  const cuuint64_t xs[1] = {(cuuint64_t)Q * 2};
+  const cuuint32_t xb[2] = {64, (cuuint32_t)block_m};
+  const cuuint64_t wd[3] = {BN, (cuuint64_t)Kp, (cuuint64_t)nb};
+  const cuuint64_t wst[2] = {BN * 2, (cuuint64_t)Kp * BN * 2};
+  const cuuint32_t wb[3] = {BI, sm90::BK, 1};
+  const cuuint64_t ld[2] = {(cuuint64_t)Kp, (cuuint64_t)nb};
+  const cuuint64_t ls[1] = {(cuuint64_t)Kp * 4};
+  const cuuint32_t lb[2] = {sm90::BK, 1};
+  if (!sm90::make_map(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, xd, xs, xb,
+                      CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !sm90::make_map(&tw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, w, wd, wst, wb,
+                      BI == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                               : CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !sm90::make_map(&tl, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, li, ld, ls, lb,
+                      CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
+  sm90::Args a;
+  a.x = (const bf16*)x; a.bias = (const bf16*)b; a.out = (bf16*)o;
+  a.ws = ksplit > 1 ? ws : nullptr;
+  a.M = M; a.Q = Q; a.K = Kp; a.P = nb * BN;
+  a.ksteps = (Kp + sm90::BK - 1) / sm90::BK;
+  a.kper = (a.ksteps + ksplit - 1) / ksplit;
+  a.panel = 1; a.act = act;
+  const cudaError_t e =
+      block_m == 128
+          ? sm90::launch_gemm<128, BN, true>(tx, tw, tl, a, nb, ksplit, s)
+          : sm90::launch_gemm<64, BN, true>(tx, tw, tl, a, nb, ksplit, s);
+  if (e != cudaSuccess || ksplit == 1) return e;
+  const int n = M * nb * BN;
+  pg_reduce<bf16><<<(n + 255) / 256, 256, 0, s>>>(ws, (const bf16*)b,
+                                                  (bf16*)o, M, nb * BN,
+                                                  ksplit, act);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// bias may be null; bp must be 32, 64 or 128. For M <= 16 the packed rows
-// are split `ksplit` ways, and ksplit > 1 needs an fp32 workspace `ws` of
-// ksplit * M * nb * bp floats; larger M ignores both. Returns
-// cudaGetLastError().
+// bias may be null; bp must be 32, 64 or 128. `variant` is the route the
+// caller chose (V_*; pattern_gemm.py:tiled_variant): skinny for M <= 16,
+// wgmma (bf16; Q % 8 == 0, Kp % 4 == 0, 16-byte aligned operands) with a
+// `block_m` of 64 or 128 rows, wmma (bf16) or simt (fp32). skinny and wgmma split
+// the packed rows `ksplit` ways, and ksplit > 1 needs an fp32 workspace `ws`
+// of ksplit * M * nb * bp floats. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for arguments the variant does not take.
 extern "C" int pattern_gemm_launch(const void* x, const void* w_packed,
                                    const void* lane_idx, const void* bias,
                                    void* out, void* ws, int M, int Q, int nb,
-                                   int Kp, int bp, int ksplit, int is_bf16,
-                                   int act, void* stream) {
+                                   int Kp, int bp, int ksplit, int variant,
+                                   int block_m, int is_bf16, int act,
+                                   void* stream) {
   if ((bp != 32 && bp != 64 && bp != 128) || M <= 0 || nb <= 0 || Kp <= 0)
     return (int)cudaErrorInvalidValue;
-  if (M <= SK_MMAX && (ksplit < 1 || ksplit > 65535 || (ksplit > 1 && !ws)))
+  if (ksplit < 1 || ksplit > 65535 || (ksplit > 1 && !ws))
     return (int)cudaErrorInvalidValue;
+  const bool ok =
+      variant == V_SKINNY ? M <= SK_MMAX
+      : variant == V_WGMMA ? M > SK_MMAX && is_bf16 && Q % 8 == 0 &&
+                                 Kp % 4 == 0 &&
+                                 (block_m == 64 || block_m == 128)
+      : variant == V_WMMA ? M > SK_MMAX && is_bf16 && ksplit == 1
+      : variant == V_SIMT ? M > SK_MMAX && !is_bf16 && ksplit == 1
+                          : false;
+  if (!ok) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int* li = (const int*)lane_idx;
-  if (M <= SK_MMAX) {
+  if (variant == V_SKINNY) {
     if (is_bf16)
       launch_skinny<bf16>(x, w_packed, li, bias, out, (float*)ws, M, Q, nb,
                           Kp, bp, ksplit, act, s);
     else
       launch_skinny<float>(x, w_packed, li, bias, out, (float*)ws, M, Q, nb,
                            Kp, bp, ksplit, act, s);
+  } else if (variant == V_WGMMA) {
+    cudaError_t e =
+        bp == 32 ? launch_wgmma<32>(x, w_packed, li, bias, out, (float*)ws, M,
+                                    Q, nb, Kp, block_m, ksplit, act, s)
+        : bp == 64 ? launch_wgmma<64>(x, w_packed, li, bias, out, (float*)ws,
+                                      M, Q, nb, Kp, block_m, ksplit, act, s)
+                   : launch_wgmma<128>(x, w_packed, li, bias, out, (float*)ws,
+                                       M, Q, nb, Kp, block_m, ksplit, act, s);
+    if (e != cudaSuccess) return (int)e;
   } else if (bp == 32) {
     launch_tiled<32>(x, w_packed, li, bias, out, M, Q, nb, Kp, is_bf16, act, s);
   } else if (bp == 64) {

@@ -8,9 +8,9 @@ and ``lane_idx`` (nb, Kp) int32, the source row of x for each packed row:
 
     y[:, panel j] = act(x[:, lane_idx[j]] @ w_packed[j] + bias[panel j])
 
-``pattern_gemm`` launches ``csrc/pattern_gemm.cu`` for CUDA tensors and
-runs ``pattern_gemm_ref`` for CPU tensors; it never falls back from one
-to the other.
+``pattern_gemm`` launches ``csrc/pattern_gemm.cu`` for CUDA tensors (the
+variant ``tiled_variant`` names) and runs ``pattern_gemm_ref`` for CPU
+tensors; it never falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.epilogue import ACT_CODES, apply_epilogue, check_activation
+from repro_torch.kernels.sm90 import BLOCK_K, SKINNY_M, VARIANTS, wgmma_plan
 
 # launches of the CUDA kernel since the last reset (plain int; the smoke
 # run zeroes it around the served path)
@@ -28,7 +29,6 @@ LAUNCHES = 0
 
 BLOCK_PS = (32, 64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
-SKINNY_M = 16              # the kernel's decode variant serves M <= this
 
 
 def skinny_ksplit(M: int, nb: int, Kp: int, bp: int, sm_count: int) -> int:
@@ -38,6 +38,22 @@ def skinny_ksplit(M: int, nb: int, Kp: int, bp: int, sm_count: int) -> int:
         return 1
     blocks = nb * max(1, bp // 64)
     return max(1, min(-(-2 * sm_count // blocks), Kp // 128))
+
+
+def tiled_variant(M: int, Q: int, Kp: int, dtype: torch.dtype,
+                  aligned: bool = True) -> str:
+    """The device kernel a CUDA call with x (M, Q) and Kp packed rows
+    launches: ``skinny`` (M <= 16, decode), ``simt`` (fp32), ``wgmma``
+    (bf16 whose x and lane_idx rows TMA can address: Q % 8 == 0,
+    Kp % 4 == 0, 16-byte ``aligned`` base pointers) or ``wmma`` (any other
+    bf16 call)."""
+    if M <= SKINNY_M:
+        return "skinny"
+    if dtype != torch.bfloat16:
+        return "simt"
+    if Q % 8 or Kp % 4 or not aligned:
+        return "wmma"
+    return "wgmma"
 
 
 def pack_tile_pattern(w: torch.Tensor, *, block_p: int = 128,
@@ -106,9 +122,10 @@ def pattern_gemm(x: torch.Tensor, w_packed: torch.Tensor,
                  activation: Optional[str] = None) -> torch.Tensor:
     """y = act(x @ W + bias) for x (M, Q) and a blocked packed W.
 
-    CPU tensors run ``pattern_gemm_ref``; CUDA tensors launch the kernel,
-    which takes any M, bf16 or fp32 (all operands one dtype, lane_idx
-    int32), block_p in {32, 64, 128}, and contiguous operands.
+    CPU tensors run ``pattern_gemm_ref``; CUDA tensors launch the kernel
+    ``tiled_variant`` names, which takes any M, bf16 or fp32 (all operands
+    one dtype, lane_idx int32), block_p in {32, 64, 128}, and contiguous
+    operands.
     """
     check_activation(activation)
     if x.ndim != 2 or w_packed.ndim != 3:
@@ -141,19 +158,39 @@ def pattern_gemm(x: torch.Tensor, w_packed: torch.Tensor,
         raise ValueError("pattern_gemm: operands must be contiguous")
     if w_packed.data_ptr() % 16:
         raise ValueError("pattern_gemm: w_packed must be 16-byte aligned")
+    return _launch(x, w_packed, lane_idx, bias, activation, tiled_variant(
+        M, Q, Kp, x.dtype, aligned=all(t.data_ptr() % 16 == 0
+                                       for t in (x, lane_idx))))
+
+
+def _launch(x: torch.Tensor, w_packed: torch.Tensor, lane_idx: torch.Tensor,
+            bias: Optional[torch.Tensor], activation: Optional[str],
+            variant: str) -> torch.Tensor:
+    """Launch the device kernel ``variant`` on checked CUDA operands; the C
+    entry point refuses a variant that does not take the call. Callers
+    other than ``pattern_gemm`` only hold one variant against another."""
+    if variant not in VARIANTS:
+        raise ValueError(f"pattern_gemm: unknown variant {variant!r}")
+    M, Q = x.shape
+    nb, Kp, bp = w_packed.shape
     out = torch.empty((M, nb * bp), dtype=x.dtype, device=x.device)
     if M == 0:
         return out
-    ksplit = skinny_ksplit(M, nb, Kp, bp, torch.cuda.get_device_properties(
-        x.device).multi_processor_count)
+    sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
+    block_m, ksplit = 0, 1
+    if variant == "skinny":
+        ksplit = skinny_ksplit(M, nb, Kp, bp, sm_count)
+    elif variant == "wgmma":
+        block_m, ksplit = wgmma_plan(M, nb, -(-Kp // BLOCK_K), sm_count)
     ws = (torch.empty((ksplit, M, nb * bp), dtype=torch.float32,
                       device=x.device) if ksplit > 1 else None)
     _build.launch(
         "pattern_gemm", x.data_ptr(), w_packed.data_ptr(),
         lane_idx.data_ptr(), bias.data_ptr() if bias is not None else None,
         out.data_ptr(), ws.data_ptr() if ws is not None else None, M, Q, nb,
-        Kp, bp, ksplit, int(x.dtype == torch.bfloat16),
-        ACT_CODES[activation], torch.cuda.current_stream(x.device).cuda_stream)
+        Kp, bp, ksplit, VARIANTS[variant], block_m,
+        int(x.dtype == torch.bfloat16), ACT_CODES[activation],
+        torch.cuda.current_stream(x.device).cuda_stream)
     global LAUNCHES
     LAUNCHES += 1
     return out

@@ -8,9 +8,12 @@ no jax, so it also runs on the card's machine, which has none:
 Tolerances are the reference's (``tests/test_kernels.py::_tol``): fp32
 2e-5, bf16 2e-2. Shapes cover every kernel variant: the decode variant
 with and without its K split (M <= 16), the ragged M edge of the tiled
-variants, block_p 32/64/128, every epilogue, ragged S, GQA, windows.
+variants, the wgmma variant at 64- and 128-row tiles with and without its
+K split, block_p 32/64/128, ragged K and P, a lane table that is not
+banded, every epilogue, ragged S, GQA, windows.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -175,3 +178,131 @@ def test_launch_counters_count_kernel_launches_only(cuda):
     pc.pattern_conv(xc, wp, taps)
     pc.pattern_conv_ref(xc, wp, taps)
     assert pc.LAUNCHES == before + 1
+
+
+WGMMA_MS = (17, 64, 100, 129, 2048)
+
+
+def _tile_packed(g, Q, P, bp, cuda):
+    w = (torch.randn(Q, P, generator=g, device=cuda) / Q ** 0.5).bfloat16()
+    w = project_tile_pattern(w.T, block_p=bp).T.contiguous()
+    return w, *pg.pack_tile_pattern_blocked(w, block_p=bp)
+
+
+def _check_pattern(x, wpb, li, b, act):
+    got = pg.pattern_gemm(x, wpb, li, b, activation=act)
+    want = pg.pattern_gemm_ref(x, wpb, li, b, activation=act)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("bp", [32, 64, 128])
+def test_pattern_gemm_wgmma_matches_plain(cuda, bp):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    Q, P = 768, 512                   # Kp = 384: six 64-deep K stages
+    _, wpb, li = _tile_packed(g, Q, P, bp, cuda)
+    b = (torch.randn(P, generator=g, device=cuda) * 0.1).bfloat16()
+    for M in WGMMA_MS:
+        assert pg.tiled_variant(M, Q, li.shape[1], torch.bfloat16) == "wgmma"
+        x = torch.randn(M, Q, generator=g, device=cuda).bfloat16()
+        for act in ACTS:
+            for bias in (b, None):
+                _check_pattern(x, wpb, li, bias, act)
+
+
+def test_pattern_gemm_wgmma_lane_table_not_banded(cuda):
+    """Sorted random lanes over all of x: most fall outside the staged
+    band and are read from device memory."""
+    rng = np.random.default_rng(0)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    Q, Kp, bp, nb = 1024, 320, 128, 3          # Kp % 64 != 0: ragged too
+    li = np.stack([np.sort(rng.choice(Q, Kp, replace=False))
+                   for _ in range(nb)]).astype(np.int32)
+    li = torch.from_numpy(li).to(cuda)
+    wpb = (torch.randn(nb, Kp, bp, generator=g, device=cuda) / Kp ** 0.5
+           ).bfloat16()
+    b = (torch.randn(nb * bp, generator=g, device=cuda) * 0.1).bfloat16()
+    for M in (17, 129, 2048):
+        x = torch.randn(M, Q, generator=g, device=cuda).bfloat16()
+        _check_pattern(x, wpb, li, b, "silu")
+        _check_pattern(x, wpb, li, None, None)
+
+
+def _check_column(x, wp, kept, b, act):
+    got = cg.column_gemm(x, wp, kept, b, activation=act)
+    want = cg.column_gemm_ref(x, wp, kept, b, activation=act)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("Q,P,alpha", [(1536, 256, 0.5),   # K = 768
+                                       (300, 520, 0.37),   # K = 111
+                                       (200, 136, 0.5)])   # K = 100
+def test_column_gemm_wgmma_matches_plain(cuda, Q, P, alpha):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    w = torch.randn(Q, P, generator=g, device=cuda) / Q ** 0.5
+    w = project_column(w.T, alpha=alpha).T.contiguous().bfloat16()
+    wp, kept = cg.pack_columns(w)
+    b = (torch.randn(P, generator=g, device=cuda) * 0.1).bfloat16()
+    for M in WGMMA_MS:
+        assert cg.tiled_variant(M, *wp.shape, torch.bfloat16) == "wgmma"
+        x = torch.randn(M, Q, generator=g, device=cuda).bfloat16()
+        for act in ACTS:
+            for bias in (b, None):
+                _check_column(x, wp, kept, bias, act)
+
+
+def test_column_gemm_ragged_p_routes_to_wmma(cuda):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    Q, P = 512, 1002                           # P % 8 != 0: no TMA map
+    w = torch.randn(Q, P, generator=g, device=cuda) / Q ** 0.5
+    w = project_column(w.T, alpha=0.5).T.contiguous().bfloat16()
+    wp, kept = cg.pack_columns(w)
+    b = (torch.randn(P, generator=g, device=cuda) * 0.1).bfloat16()
+    for M in (17, 129, 300):
+        assert cg.tiled_variant(M, *wp.shape, torch.bfloat16) == "wmma"
+        x = torch.randn(M, Q, generator=g, device=cuda).bfloat16()
+        for act in ACTS:
+            _check_column(x, wp, kept, b, act)
+
+
+def test_wmma_tile_matches_plain_where_wgmma_would_run(cuda):
+    """The WMMA tile (the route for shapes TMA cannot describe) held to the
+    plain versions at shapes the wgmma variant takes; a variant that does
+    not take the call raises."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    _, wpb, li = _tile_packed(g, 768, 512, 128, cuda)
+    w = torch.randn(768, 512, generator=g, device=cuda) / 768 ** 0.5
+    wp, kept = cg.pack_columns(
+        project_column(w.T, alpha=0.5).T.contiguous().bfloat16())
+    b = (torch.randn(512, generator=g, device=cuda) * 0.1).bfloat16()
+    for M in (17, 129, 2048):
+        x = torch.randn(M, 768, generator=g, device=cuda).bfloat16()
+        for act in ACTS:
+            torch.testing.assert_close(
+                pg._launch(x, wpb, li, b, act, "wmma").float(),
+                pg.pattern_gemm_ref(x, wpb, li, b, activation=act).float(),
+                rtol=2e-2, atol=2e-2)
+            torch.testing.assert_close(
+                cg._launch(x, wp, kept, b, act, "wmma").float(),
+                cg.column_gemm_ref(x, wp, kept, b, activation=act).float(),
+                rtol=2e-2, atol=2e-2)
+    with pytest.raises(RuntimeError):
+        pg._launch(x, wpb, li, None, None, "skinny")        # M = 2048
+    with pytest.raises(RuntimeError):
+        cg._launch(x, wp, kept, None, None, "simt")          # bf16 input
+
+
+def test_tiled_kernels_repeat_bit_equal(cuda):
+    """Two calls on the same inputs give the same bits, K split or not."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    _, wpb, li = _tile_packed(g, 1536, 256, 128, cuda)
+    w = torch.randn(1536, 1536, generator=g, device=cuda) / 1536 ** 0.5
+    wp, kept = cg.pack_columns(
+        project_column(w.T, alpha=0.5).T.contiguous().bfloat16())
+    for M in (17, 2048):       # pattern_gemm splits K at both (two panels)
+        x = torch.randn(M, 1536, generator=g, device=cuda).bfloat16()
+        assert torch.equal(pg.pattern_gemm(x, wpb, li),
+                           pg.pattern_gemm(x, wpb, li))
+        assert torch.equal(cg.column_gemm(x, wp, kept, activation="gelu"),
+                           cg.column_gemm(x, wp, kept, activation="gelu"))
