@@ -17,17 +17,24 @@ result line is printed:
               kernel, plain-version and one library call's device times
               (event pairs queued behind a device sleep, so they hold no
               host enqueue time); the kernel variant each call took and,
-              where a GEMM took the wgmma variant, the WMMA tile's time at
-              the same shape (``earlier_ms``).
+              where a call took a wgmma variant, the time of the route it
+              took before (``earlier_ms``: the GEMMs' and the conv's WMMA
+              tile, flash attention's SIMT kernel) at the same shape,
+              forced through the wrapper's ``_launch``. Flash attention
+              also runs a ragged S, a sliding window and a non-causal
+              call, each held to the plain version.
 4. serve    — qwen2-1.5b at full width (28 layers, d_model 1536, vocab
               151 936, bf16), seeded random weights, greedy tile-pattern
               prune (4 of 8 lanes, block_p 128), packed, served by
               ``ServeEngine(packed=True, batch_size=4, max_seq_len=544)``
               for 8 requests (4 x 512-token and 4 x 128-token prompts, 32
               new tokens each). Launch counts are zeroed just before the
-              served run and read just after. Each chunk's prefill and a
+              served run and read just after; every flash call of that
+              run, and of each chunk's prefill run apart, must take the
+              wgmma route. Each chunk's prefill and a
               decode step are profiled (wall clock against device busy
-              time and the kernels that hold it).
+              time, the kernels that hold it and the attention kernel's
+              share).
 5. identity — the same model in fp32, served dense-pruned and packed: the
               greedy tokens must be identical.
 6. cnn      — VGG-16 (ImageNet head, 224 x 224, batch 32) and ResNet-18
@@ -35,7 +42,9 @@ result line is printed:
               weights, pruned ``pattern_shared`` at alpha 0.25, packed and
               bound; counts zeroed just before one bf16 forward and read
               just after (one ``pattern_conv`` launch per stride-1 3x3
-              conv); the median of 3 timed bf16 forwards; then in fp32 the
+              conv, each on the route ``conv_variant`` names for it, and
+              at least one on the wgmma route); the median
+              of 3 timed bf16 forwards; then in fp32 the
               dense-pruned forward (``F.conv2d``, no TF32) against the
               packed one: max |logit difference| and top-1 identity on
               every image whose dense top-2 gap exceeds twice it.
@@ -49,7 +58,10 @@ result line is printed:
               launches; the GEMMs' ``lm_head`` at M = 512 and 2048, which
               prefill never launches, listed apart under ``not_on_path``,
               and their per-layer sums at the prefill chunks' M under
-              ``per_layer_m512`` and ``per_layer_m2048``), the
+              ``per_layer_m512`` and ``per_layer_m2048``; flash
+              attention's S = 200, window and non-causal rows apart too;
+              ``earlier_ms`` the same shapes on the routes they took
+              before their wgmma route), the
               card's name and power limit, then as the last line
               ``{"ok": true, "device": {...}}``.
 
@@ -113,7 +125,11 @@ QWEN2_GEMMS = (
 GEMM_MS = (4, 512, 2048)            # decode (M = batch); prefill chunks of
                                     # 4 x 128 and 4 x 512 tokens
 FLASH_SHAPES = dict(B=4, H=12, KV=2, hd=128)
-FLASH_SEQS = (128, 200, 512)
+# (S, causal, window): the served prefill chunks (S = 128, 512), the ragged
+# edge (S = 200), a sliding window and a non-causal call
+FLASH_CASES = ((128, True, None), (200, True, None), (512, True, None),
+               (512, True, 128), (512, False, None))
+FLASH_SERVED = (128, 512)
 # (batch, H = W, C, A): every distinct stride-1 3x3 conv of VGG-16 at
 # 224 x 224, batch 32, and of ResNet-18 (CIFAR stem) at 32 x 32, batch 256
 VGG16_CONVS = tuple((32, h, c, a) for h, c, a in (
@@ -255,6 +271,9 @@ def check_pattern_gemm(gen) -> list:
                 t_b, by = bound(nbytes(x, wpb, li, b, y),
                                 2.0 * M * Kp * nb * bp, dtype)
                 rows.append(dict(kernel="pattern_gemm", shape=f"{name} M={M}",
+                                 # LM.prefill computes the last token's
+                                 # logits only: the head runs at M = batch
+                                 on_path=name != "lm_head" or M == 4,
                                  dtype=str(dtype).split(".")[-1],
                                  variant=variant, max_abs_err=err, ms=ms,
                                  earlier_ms=earlier, plain_ms=plain,
@@ -269,29 +288,55 @@ def check_flash(gen) -> list:
     B, H, KV, hd = (FLASH_SHAPES[k] for k in ("B", "H", "KV", "hd"))
     for dtype in (torch.bfloat16, torch.float32):
         tol = TOL[dtype]
-        for S in FLASH_SEQS:
+        for S, causal, window in FLASH_CASES:
             q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
             k = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(dtype)
             v = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(dtype)
-            o = fa_mod.flash_attention(q, k, v, causal=True)
+            kw = dict(causal=causal, window=window)
+            o = fa_mod.flash_attention(q, k, v, **kw)
             torch.cuda.synchronize()
-            r = fa_mod.flash_attention_ref(q, k, v, causal=True)
+            r = fa_mod.flash_attention_ref(q, k, v, **kw)
             err = (o.float() - r.float()).abs().max().item()
             if not torch.allclose(o.float(), r.float(), rtol=tol, atol=tol):
-                fail(f"flash_attention S={S} {dtype}: max err {err}")
-            ms = timed_ms(lambda: fa_mod.flash_attention(q, k, v, causal=True))
+                fail(f"flash_attention S={S} {kw} {dtype}: max err {err}")
+            variant = fa_mod.flash_variant(S, hd, dtype, window, causal)
+            earlier = None                  # the SIMT kernel at this shape
+            if variant == "wgmma":
+                simt = fa_mod._launch(q, k, v, causal, window, None, "simt")
+                torch.cuda.synchronize()
+                if not torch.allclose(simt.float(), r.float(), rtol=tol,
+                                      atol=tol):
+                    fail(f"flash_attention simt S={S} {kw}: max err "
+                         f"{(simt.float() - r.float()).abs().max().item()}")
+                earlier = timed_ms(lambda: fa_mod._launch(
+                    q, k, v, causal, window, None, "simt"))
+            ms = timed_ms(lambda: fa_mod.flash_attention(q, k, v, **kw))
             plain = timed_ms(lambda: fa_mod.flash_attention_ref(
-                q, k, v, causal=True), 3)
+                q, k, v, **kw), 3)
+            pos = torch.arange(S, device="cuda")
+            seen = torch.ones((S, S), dtype=torch.bool, device="cuda")
+            if causal:
+                seen &= pos[:, None] >= pos[None, :]
+            if window is not None:
+                seen &= pos[:, None] - pos[None, :] < window
+            pairs = int(seen.sum())                 # (q, k) pairs computed
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            lib = timed_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True))
-            pairs = S * (S + 1) / 2                     # causal (q, k) pairs
+            if window is None:
+                lib = timed_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True))
+            else:                          # SDPA takes a window as a mask
+                lib = timed_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=seen, enable_gqa=True))
             t_b, by = bound(nbytes(q, k, v, o), 4.0 * B * H * hd * pairs, dtype)
-            rows.append(dict(kernel="flash_attention", shape=f"B={B} S={S} "
-                             f"H={H} KV={KV} hd={hd} causal",
-                             dtype=str(dtype).split(".")[-1], variant="simt",
-                             max_abs_err=err,
-                             ms=ms, plain_ms=plain, bound_ms=t_b, bound_by=by,
+            shape = (f"B={B} S={S} H={H} KV={KV} hd={hd} "
+                     + ("causal" if causal else "non-causal")
+                     + (f" window={window}" if window else ""))
+            rows.append(dict(kernel="flash_attention", shape=shape,
+                             on_path=causal and window is None
+                             and S in FLASH_SERVED,
+                             dtype=str(dtype).split(".")[-1], variant=variant,
+                             max_abs_err=err, ms=ms, earlier_ms=earlier,
+                             plain_ms=plain, bound_ms=t_b, bound_by=by,
                              library_ms=lib))
             print("[kernels] " + json.dumps(rows[-1]), flush=True)
     return rows
@@ -318,6 +363,11 @@ def check_pattern_conv(gen) -> list:
                 fail(f"pattern_conv B={B} H={H} C={C} A={A} {dtype}: max "
                      f"err {err}")
             del r
+            variant = pc_mod.conv_variant(C, A, dtype)
+            earlier = None                  # the WMMA tile at this shape
+            if variant == "wgmma":
+                earlier = timed_ms(lambda: pc_mod._launch(
+                    x, wp, taps, b, "relu", "wmma"))
             ms = timed_ms(lambda: pc_mod.pattern_conv(
                 x, wp, taps, b, activation="relu"))
             plain = timed_ms(lambda: pc_mod.pattern_conv_ref(
@@ -327,11 +377,10 @@ def check_pattern_conv(gen) -> list:
             t_b, by = bound(nbytes(x, wp, taps, b, y),
                             2.0 * B * H * H * 4 * C * A, dtype)
             rows.append(dict(kernel="pattern_conv",
-                             shape=f"B={B} {H}x{H} {C}->{A}",
+                             shape=f"B={B} {H}x{H} {C}->{A}", on_path=True,
                              dtype=str(dtype).split(".")[-1],
-                             variant="wmma" if dtype == torch.bfloat16
-                             else "simt",
-                             max_abs_err=err, ms=ms, plain_ms=plain,
+                             variant=variant, max_abs_err=err, ms=ms,
+                             earlier_ms=earlier, plain_ms=plain,
                              bound_ms=t_b, bound_by=by, library_ms=lib))
             print("[kernels] " + json.dumps(rows[-1]), flush=True)
             del x, y, w4, wp, taps
@@ -373,6 +422,9 @@ def check_column_gemm(gen) -> list:
                 t_b, by = bound(nbytes(x, wp, kept, b, y), 2.0 * M * K * P,
                                 dtype)
                 rows.append(dict(kernel="column_gemm", shape=f"{name} M={M}",
+                                 # LM.prefill computes the last token's
+                                 # logits only: the head runs at M = batch
+                                 on_path=name != "lm_head" or M == 4,
                                  dtype=str(dtype).split(".")[-1],
                                  variant=variant, max_abs_err=err, ms=ms,
                                  earlier_ms=earlier, plain_ms=plain,
@@ -396,6 +448,8 @@ KERNEL_MODS = {"pattern_gemm": pg_mod, "flash_attention": fa_mod,
 def reset_launches() -> None:
     for mod in KERNEL_MODS.values():
         mod.LAUNCHES = 0
+    for mod in (fa_mod, pc_mod):
+        mod.ROUTE_LAUNCHES.update(dict.fromkeys(mod.ROUTE_LAUNCHES, 0))
 
 
 def launch_counts(names) -> dict:
@@ -461,7 +515,12 @@ def drive_serve(tag: str, smi: str, pcfg, gemm: str) -> dict:
     wall = time.perf_counter() - t0
     launches = launch_counts(names)
     print(f"[{tag}] generate(8 requests) {wall * 1e3:.1f} ms; launches "
-          f"{json.dumps(launches)}", flush=True)
+          f"{json.dumps(launches)}; flash_attention by route "
+          f"{json.dumps(fa_mod.ROUTE_LAUNCHES)}", flush=True)
+    if (launches["flash_attention"] == 0 or fa_mod.ROUTE_LAUNCHES["wgmma"]
+            != launches["flash_attention"]):
+        fail(f"[{tag}] generate launched flash_attention off the wgmma "
+             f"route: {fa_mod.ROUTE_LAUNCHES}")
     for r in results:
         if len(r.tokens) != 32 or not all(0 <= t < cfg.vocab_size
                                           for t in r.tokens):
@@ -473,6 +532,9 @@ def drive_serve(tag: str, smi: str, pcfg, gemm: str) -> dict:
         cache, logits = eng.prefill(prompts)
         torch.cuda.synchronize()
         pre = launch_counts(names)
+        if fa_mod.ROUTE_LAUNCHES["wgmma"] != pre["flash_attention"]:
+            fail(f"prefill at S={S} launched flash_attention off the wgmma "
+                 f"route: {fa_mod.ROUTE_LAUNCHES}")
         if not bool(torch.isfinite(logits).all()):
             fail(f"non-finite prefill logits at S={S}")
         reset_launches()
@@ -533,12 +595,17 @@ def profile(tag: str, what: str, fn, per: int = 1) -> None:
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / per
     launches = sum(e.count for e in kernels) / per
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    attn = [e for e in kernels if "flash" in e.key]
+
+    def ms(events):
+        return {e.key[:60]: [round(e.self_device_time_total / 1e3 / per, 3),
+                             e.count // per] for e in events}
+
     print(f"[profile] {tag} {what}, profiled: wall {wall * 1e3:.2f} ms, "
           f"device busy {busy:.2f} ms ({100 * busy / (wall * 1e3):.1f}%), "
           f"{launches:.0f} kernel launches; top device ms (launches): "
-          + json.dumps({e.key[:60]: [round(e.self_device_time_total / 1e3
-                                           / per, 3), e.count // per]
-                        for e in top}), flush=True)
+          + json.dumps(ms(top)) + "; attention: " + json.dumps(ms(attn)),
+          flush=True)
 
 
 def token_identity(tag: str, cfg, pcfg, note: str = "") -> None:
@@ -601,6 +668,18 @@ def build_cnn(ctor, kwargs: dict, dtype: str):
     return model, art, time.perf_counter() - t0
 
 
+def conv_routes(tree) -> dict:
+    """The pattern_conv launches per route one forward of the bound ``tree``
+    makes: one per packed (stride-1 3x3) conv, on its ``conv_variant``."""
+    want = dict.fromkeys(pc_mod.CONV_ROUTES, 0)
+    for _, pt in tree_items(tree):
+        if is_packed(pt) and handler_for(pt.scheme).conv is not None:
+            wp = pt.buf("w_packed")
+            want[pc_mod.conv_variant(wp.shape[0] // 4, wp.shape[1],
+                                     wp.dtype)] += 1
+    return want
+
+
 def phase_cnn(smi: str, tag: str, ctor, kwargs: dict, batch: int,
               want_launches: int) -> int:
     """One CNN path in bf16 (the main path: one packed forward, counts
@@ -615,6 +694,7 @@ def phase_cnn(smi: str, tag: str, ctor, kwargs: dict, batch: int,
           f"{s['total_leaves']} leaves packed) ({smi})", flush=True)
     check_exact("cnn", art)
     tree = art.bind(model, packed=True)
+    want_routes = conv_routes(tree)
     x = model.synthetic_batch(torch.Generator(device="cuda").manual_seed(1),
                               batch)
     model.apply(tree, x)                                # warm-up
@@ -624,6 +704,7 @@ def phase_cnn(smi: str, tag: str, ctor, kwargs: dict, batch: int,
     logits = model.apply(tree, x)
     torch.cuda.synchronize()
     launches = pc_mod.LAUNCHES
+    routes = dict(pc_mod.ROUTE_LAUNCHES)
     if tuple(logits.shape) != (batch, model.num_classes) or not bool(
             torch.isfinite(logits).all()):
         fail(f"[cnn] {tag}: bad logits {tuple(logits.shape)}")
@@ -635,12 +716,17 @@ def phase_cnn(smi: str, tag: str, ctor, kwargs: dict, batch: int,
         times.append(time.perf_counter() - t0)
     fwd_ms = sorted(times)[1] * 1e3
     print(f"[cnn] {tag}: pattern_conv launches per forward {launches} "
-          f"(want {want_launches}: one per stride-1 3x3 conv); bf16 forward "
+          f"(want {want_launches}: one per stride-1 3x3 conv; by route "
+          f"{json.dumps(routes)}, want {json.dumps(want_routes)}); bf16 "
+          f"forward "
           f"{fwd_ms:.2f} ms (median of 3), {batch / (fwd_ms / 1e3):.1f} "
           f"images/s", flush=True)
     if launches != want_launches:
         fail(f"[cnn] {tag}: {launches} pattern_conv launches, want "
              f"{want_launches}")
+    if routes != want_routes or routes["wgmma"] == 0:
+        fail(f"[cnn] {tag}: pattern_conv launches by route {routes}, want "
+             f"{want_routes} (conv_variant of each packed conv)")
     del model, art, tree, x, logits
     torch.cuda.empty_cache()
 
@@ -688,9 +774,6 @@ META = {
 }
 
 
-# LM.prefill computes logits of the last token only, so the served path
-# launches the LM head at M = batch, never at a prefill chunk's M
-OFF_PATH = ("lm_head M=512", "lm_head M=2048")
 # one decoder layer's packed GEMMs (wk and wv: two launches)
 LAYER_GEMMS = {"wq": 1, "wk/wv": 2, "wo": 1, "w_gate": 1, "w_up": 1,
                "w_down": 1}
@@ -711,23 +794,28 @@ def summarize(rows: list, launches: dict, runs: dict) -> list:
     for name, (source, replaces) in META.items():
         mine = [r for r in rows if r["kernel"] == name]
         bf16 = [r for r in mine if r["dtype"] == "bfloat16"]
-        served = [r for r in bf16 if r["shape"] not in OFF_PATH]
+        served = [r for r in bf16 if r["on_path"]]
         entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             **{k: sum(r[k] for r in served) for k in TIMES},
+            # the same shapes on their routes before wgmma, timed here
+            "earlier_ms": sum(r["ms"] if r["earlier_ms"] is None
+                              else r["earlier_ms"] for r in served),
+            "variants": sorted({r["variant"] for r in served}),
             "bound_by": max(("bytes", "operations"), key=lambda k: sum(
                 r["bound_ms"] for r in served if r["bound_by"] == k)),
             "workload": "sum of one bf16 call at each shape its served path "
                         "launches: " + ", ".join(r["shape"] for r in served)
                         + "; launches: " + runs[name],
         }
-        off = [r for r in bf16 if r["shape"] in OFF_PATH]
+        off = [r for r in bf16 if not r["on_path"]]
         if off:
             entry["not_on_path"] = [
                 {k: r[k] for k in ("shape", "variant", "earlier_ms", *TIMES)}
                 for r in off]
+        if name.endswith("_gemm"):
             for M in GEMM_MS[1:]:
                 entry[f"per_layer_m{M}"] = per_layer(mine, M)
         out.append(entry)
@@ -738,15 +826,24 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+
+    def timed(tag, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.empty_cache()
+        print(f"[time] {tag} {time.perf_counter() - t:.1f} s", flush=True)
+        return out
+
     with torch.no_grad():
-        rows = (check_pattern_gemm(gen) + check_flash(gen)
-                + check_pattern_conv(gen) + check_column_gemm(gen))
-        launches = phase_serve(smi)
-        torch.cuda.empty_cache()
-        phase_identity()
-        torch.cuda.empty_cache()
-        conv = [phase_cnn(smi, *path) for path in CNN_PATHS]
-        column = phase_column(smi)
+        rows = [r for check in (check_pattern_gemm, check_flash,
+                                check_pattern_conv, check_column_gemm)
+                for r in timed(check.__name__, check, gen)]
+        launches = timed("serve", phase_serve, smi)
+        timed("identity", phase_identity)
+        conv = [timed(path[0], phase_cnn, smi, *path) for path in CNN_PATHS]
+        column = timed("column", phase_column, smi)
+    print(f"[time] all phases {time.perf_counter() - t0:.1f} s", flush=True)
     launches = {**launches, "pattern_conv": sum(conv),
                 "column_gemm": column["column_gemm"]}
     runs = {

@@ -18,60 +18,47 @@
 // activation epilogue runs on the fp32 accumulator before the single NHWC
 // store.
 //
-// What bounds it on an H100: at batch 32 and 224 x 224 the 4C x A product is
-// large (2 * M * 4C * A is 53 GFLOP at conv1_2, 0.44 TFLOP over VGG-16's 13
-// convs) and the bf16 path is compute-bound on the tensor cores at every
-// VGG-16 shape but the first (C = 3); reading x once and writing y once is
-// the least traffic. The naive A load would be scattered 2-byte reads (K runs
-// channel-major and each channel has its own taps). So a block owns a 2-D
-// patch of output pixels (TH x TW of NIMG images, 128 pixels for bf16, 64
-// for fp32), and for each K step of CC = 8 channels it stages the patch plus
-// its one-pixel halo for those channels in shared memory with 16-byte loads
-// along C: each input pixel is read from device memory once per tile and
-// K step (the paper's load-redundancy elimination; the halo costs
-// (TH+2)(TW+2)/(TH*TW), 1.4x at 8 x 16). The 4 taps of each channel are then
-// picked out of shared memory into the A tile, which feeds bf16 WMMA
-// tensor-core MMAs (fp32 accumulate) or, for fp32, fp32 FMAs so fp32 results
-// stay fp32. The next step's halo and weight slice load into registers while
-// the current step computes. wgmma/TMA pipelining is left for a later
-// change. Ragged C (C = 3 at the first conv: K = 12), A below the tile width
-// and ragged image edges are all masked in the kernel; zero-weight pad slots
-// use tap 0 and contribute nothing.
+// What bounds it on an H100: reading x once and writing y once is the least
+// traffic, and the 4C x A product is 2 * M * 4C * A FLOPs (53 GFLOP at
+// VGG-16's conv1_2 at batch 32, 0.44 TFLOP over its 13 convs). At 224 x 224
+// and C = A = 64 the bytes set the bound (x 205 MB in, y 205 MB out:
+// 0.12 ms, against 0.054 ms of bf16 tensor-core FLOPs); the deeper layers
+// are closer to the FLOP bound. The naive A load would be scattered 2-byte
+// reads (K runs channel-major and each channel has its own taps), so every
+// route stages a block's 2-D patch of output pixels (TH x TW of NIMG
+// images) plus its one-pixel halo for a slice of channels in shared
+// memory, reads each input pixel from device memory once per tile and
+// channel slice (the paper's load-redundancy elimination), and picks each
+// packed row's tap out of the staged halo with one fixed shift per
+// (channel, tap). Three routes, chosen by the wrapper
+// (pattern_conv.py:conv_variant) and named by the caller:
+//
+//  - wgmma (bf16, C % 16 == 0, A % 8 == 0): one producer warp keeps a ring
+//    of 16-channel stages full by TMA (the halo as one 4-D box whose
+//    out-of-tensor zero fill is the SAME padding, and the stage's 64 packed
+//    weight rows); two consumer warpgroups of 64 pixels pick their wgmma
+//    A fragments out of the halo into registers and run wgmma RS against
+//    the weight rows read N-major (namespace pc90 below). One tile covers
+//    up to 256 output channels, so a halo is read from device memory once
+//    for A <= 256. The epilogue stages the tile and writes it with 4-D TMA
+//    stores; blocks are persistent, so the next tile's loads overlap it.
+//  - wmma (any other bf16 call: C = 3 at VGG-16's first conv and the
+//    ResNet-18 stem, ragged C or A): 128 pixels per block, 8-channel K
+//    steps staged with 16-byte loads along C into registers while the
+//    previous step computes, the A tile picked into shared memory and fed
+//    to WMMA tensor-core MMAs.
+//  - simt (fp32): the same staging with 64 pixels per block and fp32 FMAs,
+//    so fp32 results stay fp32.
+//
+// Ragged C and A below the tile width are masked in the kernels (or
+// zero-filled by TMA), as are ragged image and batch edges; zero-weight
+// pad slots use tap 0 and contribute nothing.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <mma.h>
-#include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
-
-enum { ACT_NONE = 0, ACT_RELU = 1, ACT_SILU = 2, ACT_GELU = 3 };
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// act(acc + bias), the contract of repro_torch/kernels/epilogue.py
-// (gelu is the tanh approximation, as jax.nn.gelu)
-__device__ __forceinline__ float epilogue(float acc, float b, int act) {
-  acc += b;
-  switch (act) {
-    case ACT_RELU: return fmaxf(acc, 0.f);
-    case ACT_SILU: return acc / (1.f + expf(-acc));
-    case ACT_GELU: {
-      const float c = 0.7978845608028654f;   // sqrt(2/pi)
-      return 0.5f * acc * (1.f + tanhf(c * (acc + 0.044715f * acc * acc * acc)));
-    }
-    default: return acc;
-  }
-}
 
 constexpr int CC = 8;            // input channels per K step
 constexpr int TK = 4 * CC;       // packed rows per K step
@@ -430,19 +417,323 @@ long long patch_count(int B, int H, int W, int TH, int TW, int NIMG) {
          ((B + NIMG - 1) / NIMG);
 }
 
+// ----------------------------------------------------------------- wgmma
+// BM = 128 output pixels (a TH x TW x NIMG patch, planned by the wrapper:
+// pattern_conv.py:conv_plan) x BN output channels per tile: two consumer
+// warpgroups of 64 pixels and one producer warp. Each ring stage holds
+// CK = 16 input channels: the weight rows [4 c0, 4 c0 + 64) x BN, read
+// N-major by wgmma (64-column boxes, 128-byte swizzle, as the GEMM core),
+// and the (TH+2) x (TW+2) x NIMG halo of the patch for those channels, as
+// two 4-D TMA boxes of 8 channels over (C, W, H, B) whose start (c0 + 8h,
+// w0 - 1, h0 - 1, b0) lets TMA's zero fill of everything outside the
+// tensor be the SAME padding. 16-byte halo pixels (not 32) put the 8
+// pixels a warp's picks start from on 8 different bank groups.
+// Blocks are persistent (as many as fit the card, each walking tiles
+// blockIdx.x, + gridDim.x, ...) and the ring runs on across tiles, so the
+// producer loads the next tile while the consumers store this one: at
+// C = 64 a tile is only four stages deep.
+namespace pc90 {
+
+using namespace sm90;
+
+constexpr int CK = 16;             // input channels per ring stage
+constexpr int HC = 8;              // channels per halo box: 16-byte pixels
+constexpr int KR = 4 * CK;         // packed rows per stage: four k16 steps
+constexpr int BM = 128;            // output pixels per tile
+constexpr int THREADS = 2 * 128 + 32;
+constexpr int MAX_SLOTS = 512;     // halo pixels per stage at most
+constexpr int MAX_STAGES = 6;
+
+struct Args {
+  const bf16* bias;                // (A,) or null
+  const int* taps;                 // (C, 4)
+  int C, A, act;
+  int TH, TW, NIMG;                // the output patch of a tile
+  int tiles_w, tiles_h, n_tiles;   // patch grid; BN-wide channel tiles
+  int tiles;                       // tiles in all
+  int stages, box_bytes, half, stage_bytes;  // half: 2nd box's offset
+};
+
+// blocks sharing an SM: three at BN = 64 and two at BN = 128 (one block's
+// epilogue and picks then overlap another's MMAs); BN = 256 has the SM to
+// itself (its accumulator alone is 128 registers a thread). Each gets an
+// equal share of the SM's 228 KB of shared memory, less the 1 KB the
+// runtime reserves per block.
+template <int BN> constexpr int blocks_per_sm() {
+  return BN == 256 ? 1 : BN == 128 ? 2 : 3;
+}
+template <int BN> constexpr int smem_budget() {
+  return 228 * 1024 / blocks_per_sm<BN>() - 1024;
+}
+
+template <int BN>
+__global__ void __launch_bounds__(THREADS, blocks_per_sm<BN>())
+pc_wgmma(const __grid_constant__ CUtensorMap tm_x,
+         const __grid_constant__ CUtensorMap tm_w,
+         const __grid_constant__ CUtensorMap tm_o, const Args a) {
+  constexpr int W_BYTES = BN * KR * 2;   // BN / 64 boxes of 8 KB
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ring = smem;
+  uint8_t* epi = ring + a.stages * a.stage_bytes;      // BM x BN bf16 tile
+  uint16_t* sh = reinterpret_cast<uint16_t*>(epi + BM * BN * 2);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sh + 4 * a.C);
+  uint64_t* empty = full + a.stages;
+
+  // tile `id` -> its channel tile (fastest: tiles in flight share a halo)
+  // and its patch origin
+  struct Tile { int n0, w0, h0, b0; };
+  auto tile_of = [&](int id) {
+    Tile t;
+    t.n0 = (id % a.n_tiles) * BN;
+    id /= a.n_tiles;
+    t.w0 = (id % a.tiles_w) * a.TW;
+    id /= a.tiles_w;
+    t.h0 = (id % a.tiles_h) * a.TH;
+    t.b0 = (id / a.tiles_h) * a.NIMG;
+    return t;
+  };
+  const int tid = threadIdx.x;
+  const int HW = a.TW + 2, nsteps = a.C / CK;
+
+  // per packed row (channel row / 4, tap taps[row]): the byte offset of its
+  // input from a pixel's own halo slot, one fixed shift
+  for (int e = tid; e < 4 * a.C; e += THREADS) {
+    const int tp = a.taps[e];
+    const int c = (e >> 2) & (CK - 1);
+    sh[e] = (uint16_t)((((tp / 3) * HW + tp % 3) << 4) + (c / HC) * a.half +
+                       (c % HC) * 2);
+  }
+  if (tid == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);              // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 256) {                         // producer warp
+    if (tid == 256) {
+      int gs = 0;                           // ring steps issued, all tiles
+      for (int id = blockIdx.x; id < a.tiles; id += gridDim.x) {
+        const Tile t = tile_of(id);
+        for (int i = 0; i < nsteps; ++i, ++gs) {
+          const int st = gs % a.stages;
+          if (gs >= a.stages) mbar_wait(&empty[st], ((gs / a.stages) - 1) & 1);
+          uint8_t* ws = ring + st * a.stage_bytes;
+          mbar_expect_tx(&full[st], W_BYTES + 2 * a.box_bytes);
+#pragma unroll
+          for (int hb = 0; hb < CK / HC; ++hb)
+            tma_4d(ws + W_BYTES + hb * a.half, &tm_x, &full[st],
+                   i * CK + hb * HC, t.w0 - 1, t.h0 - 1, t.b0);
+#pragma unroll
+          for (int hb = 0; hb < BN / 64; ++hb)
+            tma_2d(ws + hb * 64 * KR * 2, &tm_w, &full[st], t.n0 + 64 * hb,
+                   i * KR);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg owns patch pixels [64 wg, +64); thread (warp, g,
+  // q) holds pixels m and m + 8 of the fragments. A pixel past the patch
+  // reads slot 0: computed, never stored.
+  const int wg = tid >> 7, t = tid & 127;
+  const int warp = t >> 5, lane = t & 31, g = lane >> 2, q = lane & 3;
+  const int m = wg * 64 + warp * 16 + g;
+  auto slot = [&](int p) -> int {
+    if (p >= a.NIMG * a.TH * a.TW) return 0;
+    const int img = p / (a.TH * a.TW), r = (p / a.TW) % a.TH, c = p % a.TW;
+    return ((img * (a.TH + 2) + r) * HW + c) << 4;
+  };
+  const int base0 = slot(m), base1 = slot(m + 8);
+  auto release = [&](int gs) {             // ring step gs consumed
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[gs % a.stages]);
+  };
+  float acc[BN / 2];
+  uint32_t fa[2][4];
+  int gs = 0;                               // ring steps consumed, all tiles
+  for (int id = blockIdx.x; id < a.tiles; id += gridDim.x) {
+    const Tile tl = tile_of(id);
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+
+    // Each k16 step j of a stage: packed rows 16j + 2q + {0, 1} (channel
+    // 4j + q/2, taps 2(q%2) + {0, 1}) and the same 8 rows on (channel
+    // 4j + 2 + q/2) are this thread's A-fragment columns; one 32-bit load
+    // brings both taps' shifts. Fragments are double-buffered per k16
+    // step: the wgmma of step j reads buffer j & 1 while step j + 1 fills
+    // the other.
+    for (int i = 0; i < nsteps; ++i, ++gs) {
+      const int st = gs % a.stages;
+      mbar_wait(&full[st], (gs / a.stages) & 1);
+      const uint8_t* ws = ring + st * a.stage_bytes;
+      const uint8_t* halo = ws + W_BYTES;
+      const uint16_t* shs = sh + i * KR;
+      auto px = [&](int base, uint32_t off) -> uint32_t {
+        return *reinterpret_cast<const uint16_t*>(halo + base + off);
+      };
+#pragma unroll
+      for (int j = 0; j < KR / 16; ++j) {
+        uint32_t (&f)[4] = fa[j & 1];
+        const uint32_t sa =
+            *reinterpret_cast<const uint32_t*>(shs + 16 * j + 2 * q);
+        const uint32_t sb =
+            *reinterpret_cast<const uint32_t*>(shs + 16 * j + 8 + 2 * q);
+        f[0] = px(base0, sa & 0xffff) | (px(base0, sa >> 16) << 16);
+        f[1] = px(base1, sa & 0xffff) | (px(base1, sa >> 16) << 16);
+        f[2] = px(base0, sb & 0xffff) | (px(base0, sb >> 16) << 16);
+        f[3] = px(base1, sb & 0xffff) | (px(base1, sb >> 16) << 16);
+        wgmma_fence();
+        wgmma_rs<BN>(acc, f, make_desc(smem_u32(ws) + j * 16 * 128,
+                                       64 * KR * 2, 1024, 1));
+        wgmma_commit();
+        wgmma_wait<1>();                   // the previous k16 step is done
+        if (j == 0 && i > 0) release(gs - 1);
+      }
+    }
+    wgmma_wait<0>();
+    fence_acc<BN>(acc);
+    release(gs - 1);
+
+    // epilogue: act(acc + bias) on the fp32 accumulator, the bf16 tile
+    // staged in 64-column boxes of BM rows, 128-byte swizzled, then one 4-D
+    // TMA store per box over (A, W, H, B), which clips the patch at the
+    // image, batch and channel edges. The first barrier also waits for the
+    // previous tile's stores to have read the staging tile.
+    named_sync(1, 256);
+#pragma unroll
+    for (int c8 = 0; c8 < BN / 8; ++c8) {
+      const int col = tl.n0 + 8 * c8 + 2 * q;
+      float bv0 = 0.f, bv1 = 0.f;
+      if (a.bias && col < a.A) {           // A % 8 == 0: col + 1 < A too
+        bv0 = to_f(a.bias[col]);
+        bv1 = to_f(a.bias[col + 1]);
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = m + 8 * hh;
+        *reinterpret_cast<uint32_t*>(epi + (c8 >> 3) * BM * 128 + r * 128 +
+                                     (((c8 & 7) ^ g) << 4) + 4 * q) =
+            pack_bf16(epilogue(acc[4 * c8 + 2 * hh], bv0, a.act),
+                      epilogue(acc[4 * c8 + 2 * hh + 1], bv1, a.act));
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    named_sync(1, 256);
+    if (tid == 0) {
+#pragma unroll
+      for (int hb = 0; hb < BN / 64; ++hb)
+        if (tl.n0 + 64 * hb < a.A)
+          tma_store_4d(&tm_o, epi + hb * BM * 128, tl.n0 + 64 * hb, tl.w0,
+                       tl.h0, tl.b0);
+      tma_store_wait();
+    }
+  }
+}
+
+template <int BN>
+int launch(const void* x, const void* w, const int* taps, const void* bias,
+           void* o, int B, int H, int W, int C, int A, int TH, int TW,
+           int NIMG, int act, cudaStream_t s) {
+  Args a;
+  a.bias = (const bf16*)bias; a.taps = taps;
+  a.C = C; a.A = A; a.act = act;
+  a.TH = TH; a.TW = TW; a.NIMG = NIMG;
+  a.tiles_w = (W + TW - 1) / TW; a.tiles_h = (H + TH - 1) / TH;
+  a.n_tiles = (A + BN - 1) / BN;
+  const long long tiles = (long long)a.tiles_w * a.tiles_h *
+                          ((B + NIMG - 1) / NIMG) * a.n_tiles;
+  a.tiles = (int)tiles;
+  a.box_bytes = NIMG * (TH + 2) * (TW + 2) * HC * 2;
+  a.half = (a.box_bytes + 127) & ~127;
+  a.stage_bytes = (BN * KR * 2 + 2 * a.half + 1023) & ~1023;
+  const int fixed = 1024 + BM * BN * 2 + 8 * C + 16 * MAX_STAGES;
+  a.stages = min(MAX_STAGES, (smem_budget<BN>() - fixed) / a.stage_bytes);
+  const int smem = fixed + a.stages * a.stage_bytes;
+  if (a.stages < 2 || tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  // x (C, W, H, B) in halo boxes; w_packed (A, 4C) and out (A, W, H, B) in
+  // 64-column 128-byte-swizzled boxes
+  CUtensorMap tx, tw, to;
+  const cuuint64_t xd[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
+                            (cuuint64_t)B};
+  const cuuint64_t xs[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
+                            (cuuint64_t)H * W * C * 2};
+  const cuuint32_t xb[4] = {HC, (cuuint32_t)TW + 2, (cuuint32_t)TH + 2,
+                            (cuuint32_t)NIMG};
+  const cuuint64_t wd[2] = {(cuuint64_t)A, (cuuint64_t)4 * C};
+  const cuuint64_t wst[1] = {(cuuint64_t)A * 2};
+  const cuuint32_t wb[2] = {64, KR};
+  const cuuint64_t od[4] = {(cuuint64_t)A, (cuuint64_t)W, (cuuint64_t)H,
+                            (cuuint64_t)B};
+  const cuuint64_t os[3] = {(cuuint64_t)A * 2, (cuuint64_t)W * A * 2,
+                            (cuuint64_t)H * W * A * 2};
+  const cuuint32_t ob[4] = {64, (cuuint32_t)TW, (cuuint32_t)TH,
+                            (cuuint32_t)NIMG};
+  if (!make_map(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, x, xd, xs, xb,
+                CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !make_map(&tw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, wd, wst, wb,
+                CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_map(&to, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, o, od, os, ob,
+                CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = pc_wgmma<BN>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int grid = (int)min(tiles, (long long)per_sm * sms);
+  kernel<<<grid, THREADS, smem, s>>>(tx, tw, to, a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace pc90
+
 }  // namespace
 
-// bias may be null. Returns cudaGetLastError().
+// bias may be null. `variant` is the route the caller chose (V_*;
+// pattern_conv.py:conv_variant): wgmma (bf16, C % 16 == 0, A % 8 == 0,
+// 16-byte aligned operands) over tiles of TH x TW x NIMG pixels (at most
+// pc90::BM, and pc90::MAX_SLOTS halo pixels) and BN channels (64, 128 or
+// 256; pattern_conv.py:conv_plan), wmma (any bf16 call) or simt
+// (fp32); wmma and simt plan their own patches and ignore TH..BN. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for arguments the variant
+// does not take.
 extern "C" int pattern_conv_launch(const void* x, const void* w_packed,
                                    const void* taps, const void* bias,
                                    void* out, int B, int H, int W, int C,
-                                   int A, int is_bf16, int act, void* stream) {
+                                   int A, int is_bf16, int act, int variant,
+                                   int TH, int TW, int NIMG, int BN,
+                                   void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || A <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int* t = (const int*)taps;
+  if (variant == V_WGMMA) {
+    if (!is_bf16 || C % pc90::CK || A % 8 || TH < 1 || TW < 1 || NIMG < 1 ||
+        TH * TW * NIMG > pc90::BM ||
+        NIMG * (TH + 2) * (TW + 2) > pc90::MAX_SLOTS || NIMG > 256 ||
+        TW + 2 > 256 || TH + 2 > 256)
+      return (int)cudaErrorInvalidValue;
+    switch (BN) {
+      case 64: return pc90::launch<64>(x, w_packed, t, bias, out, B, H, W, C, A, TH, TW, NIMG, act, s);
+      case 128: return pc90::launch<128>(x, w_packed, t, bias, out, B, H, W, C, A, TH, TW, NIMG, act, s);
+      case 256: return pc90::launch<256>(x, w_packed, t, bias, out, B, H, W, C, A, TH, TW, NIMG, act, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (variant != (is_bf16 ? V_WMMA : V_SIMT)) return (int)cudaErrorInvalidValue;
   const bool vec = C % 8 == 0;
-  int TH, TW, NIMG;
   if (is_bf16) {
     patch_shape(TMB, H, W, &TH, &TW, &NIMG);
     const long long n = patch_count(B, H, W, TH, TW, NIMG);

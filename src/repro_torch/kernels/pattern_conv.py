@@ -10,14 +10,16 @@ pattern shared over the filters). Packed, the conv weight (A, C, 3, 3) is
 
 and the stride-1 SAME conv is ``act(xg @ w_packed + bias)`` with xg the
 (B*H*W, 4C) matrix of each pixel's kept taps, channel-major (``c*4 + j``).
-``pattern_conv`` launches ``csrc/pattern_conv.cu`` for CUDA tensors, which
-never builds xg (the tap gather happens in its A-tile load), and runs
-``pattern_conv_ref`` for CPU tensors; it never falls back from one to the
-other. Activations are NHWC, as in the reference.
+``pattern_conv`` launches ``csrc/pattern_conv.cu`` for CUDA tensors (the
+route ``conv_variant`` names, the wgmma route's tiles from ``conv_plan``),
+which never builds xg (the tap gather happens as the A operand is loaded),
+and runs ``pattern_conv_ref`` for CPU tensors; it never falls back from
+one to the other. Activations are NHWC, as in the reference.
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Optional, Tuple
 
 import torch
@@ -26,12 +28,65 @@ import torch.nn.functional as F
 from repro_torch.core.projections import pattern_library
 from repro_torch.kernels import _build
 from repro_torch.kernels.epilogue import ACT_CODES, apply_epilogue, check_activation
+from repro_torch.kernels.sm90 import VARIANTS
 
 # launches of the CUDA kernel since the last reset (plain int; the smoke
 # run zeroes it around each driven path)
 LAUNCHES = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
+CONV_ROUTES = ("wgmma", "wmma", "simt")
+# launches per route (plain ints, counted with LAUNCHES)
+ROUTE_LAUNCHES = dict.fromkeys(CONV_ROUTES, 0)
+# the wgmma route's tiles (csrc/pattern_conv.cu, namespace pc90)
+STAGE_CHANNELS = 16        # input channels per ring stage: C % this == 0
+BLOCK_PIXELS = 128         # output pixels per tile (two warpgroups)
+HALO_PIXELS = 512          # halo pixels a stage may hold
+CHANNEL_TILES = (64, 128, 256)
+
+
+def conv_variant(C: int, A: int, dtype: torch.dtype) -> str:
+    """The device kernel a CUDA call with C input and A output channels
+    launches: ``wgmma`` (bf16 whose x TMA can cut into 16-channel halo
+    boxes and whose w_packed and out rows it can address: C % 16 == 0,
+    A % 8 == 0), ``wmma`` (any other bf16 call: the C = 3 first conv of
+    VGG-16 and the ResNet-18 stem) or ``simt`` (fp32)."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    if C % STAGE_CHANNELS or A % 8:
+        return "wmma"
+    return "wgmma"
+
+
+@lru_cache(maxsize=None)
+def conv_plan(B: int, H: int, W: int, A: int,
+              sm_count: int) -> Tuple[int, int, int, int]:
+    """(TH, TW, NIMG, BN) of the wgmma route: each tile is a patch of
+    TH x TW pixels in NIMG images (at most BLOCK_PIXELS, its halo at most
+    HALO_PIXELS) times BN output channels.
+
+    The patch is the one that covers the batch in the fewest tiles, ties
+    to the smallest halo (224 x 224: 16 x 8; 28 x 28: 4 x 4 in eight
+    images). BN covers A in one tile where it can (up to 256), so each
+    halo is read from device memory once; it halves while the tiles would
+    leave an SM without one.
+    """
+    best = None
+    for tw in range(1, min(W, BLOCK_PIXELS) + 1):
+        for th in range(1, min(H, BLOCK_PIXELS // tw) + 1):
+            halo = (th + 2) * (tw + 2)
+            nimg = min(B, BLOCK_PIXELS // (tw * th), HALO_PIXELS // halo)
+            if nimg < 1:
+                continue
+            tiles = -(-W // tw) * -(-H // th) * -(-B // nimg)
+            key = (tiles, nimg * halo)
+            if best is None or key < best[0]:
+                best = (key, (th, tw, nimg))
+    (tiles, _), (th, tw, nimg) = best
+    bn = next(n for n in CHANNEL_TILES if n >= min(A, CHANNEL_TILES[-1]))
+    while bn > CHANNEL_TILES[0] and tiles * -(-A // bn) < sm_count:
+        bn //= 2
+    return th, tw, nimg, bn
 
 
 def assign_channel_patterns(w4: torch.Tensor,
@@ -142,14 +197,35 @@ def pattern_conv(x: torch.Tensor, w_packed: torch.Tensor, taps: torch.Tensor,
     if x.data_ptr() % 16 or w_packed.data_ptr() % 16:
         raise ValueError("pattern_conv: x and w_packed must be 16-byte "
                          "aligned")
+    return _launch(x, w_packed, taps, bias, activation,
+                   conv_variant(C, A, x.dtype))
+
+
+def _launch(x: torch.Tensor, w_packed: torch.Tensor, taps: torch.Tensor,
+            bias: Optional[torch.Tensor], activation: Optional[str],
+            variant: str) -> torch.Tensor:
+    """Launch the device kernel ``variant`` on checked CUDA operands (one
+    launch per call); the C entry point refuses a variant that does not
+    take the call. Callers other than ``pattern_conv`` only hold one route
+    against another."""
+    if variant not in CONV_ROUTES:
+        raise ValueError(f"pattern_conv: unknown variant {variant!r}")
+    B, H, W, C = x.shape
+    A = w_packed.shape[1]
     out = torch.empty((B, H, W, A), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    plan = (0, 0, 0, 0)
+    if variant == "wgmma":
+        plan = conv_plan(B, H, W, A, torch.cuda.get_device_properties(
+            x.device).multi_processor_count)
     _build.launch(
         "pattern_conv", x.data_ptr(), w_packed.data_ptr(), taps.data_ptr(),
         bias.data_ptr() if bias is not None else None, out.data_ptr(), B, H,
         W, C, A, int(x.dtype == torch.bfloat16), ACT_CODES[activation],
+        VARIANTS[variant], *plan,
         torch.cuda.current_stream(x.device).cuda_stream)
     global LAUNCHES
     LAUNCHES += 1
+    ROUTE_LAUNCHES[variant] += 1
     return out

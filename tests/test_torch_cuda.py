@@ -10,7 +10,10 @@ Tolerances are the reference's (``tests/test_kernels.py::_tol``): fp32
 with and without its K split (M <= 16), the ragged M edge of the tiled
 variants, the wgmma variant at 64- and 128-row tiles with and without its
 K split, block_p 32/64/128, ragged K and P, a lane table that is not
-banded, every epilogue, ragged S, GQA, windows.
+banded, every epilogue, ragged S, GQA, windows; flash attention's wgmma
+route at 64- and 128-row blocks and its simt route; the conv's wgmma
+route over small and large images, narrow and wide channel tiles, and its
+wmma route at C = 3.
 """
 
 import numpy as np
@@ -306,3 +309,112 @@ def test_tiled_kernels_repeat_bit_equal(cuda):
                            pg.pattern_gemm(x, wpb, li))
         assert torch.equal(cg.column_gemm(x, wp, kept, activation="gelu"),
                            cg.column_gemm(x, wp, kept, activation="gelu"))
+
+
+# (B, S, H, KV, hd, causal, window): the served shape, ragged S, GQA
+# ratios 1, 2 and 6 at hd 64, windows, not causal
+FLASH_WGMMA_CASES = (
+    (4, 512, 12, 2, 128, True, None),
+    (4, 70, 12, 2, 128, True, None),
+    (4, 200, 12, 2, 128, True, None),
+    (2, 130, 4, 4, 64, True, None),
+    (2, 130, 4, 2, 64, True, None),
+    (1, 300, 12, 2, 64, True, None),
+    (2, 200, 6, 3, 128, True, 50),
+    (1, 260, 4, 2, 64, True, 100),
+    (2, 200, 6, 2, 64, False, None),
+    (1, 130, 4, 2, 128, False, 40),
+)
+
+
+def _qkv(g, B, S, H, KV, hd, cuda, dtype=torch.bfloat16):
+    return (torch.randn(B, S, n, hd, generator=g, device=cuda).to(dtype)
+            for n in (H, KV, KV))
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,window", FLASH_WGMMA_CASES)
+def test_flash_wgmma_matches_plain(cuda, B, S, H, KV, hd, causal, window):
+    """The wgmma route (64- or 128-row blocks, as flash_plan picks) and the
+    simt route forced at the same shape, both against the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(S + H)
+    q, k, v = _qkv(g, B, S, H, KV, hd, cuda)
+    assert fa.flash_variant(S, hd, q.dtype, window, causal) == "wgmma"
+    want = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    simt = fa._launch(q, k, v, causal, window, None, "simt")
+    torch.testing.assert_close(simt.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_flash_wgmma_refuses_what_it_does_not_take(cuda):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = _qkv(g, 1, 64, 2, 1, 128, cuda, torch.float32)
+    with pytest.raises(RuntimeError):
+        fa._launch(q, k, v, True, None, None, "wgmma")          # fp32
+    q, k, v = _qkv(g, 1, 64, 2, 1, 32, cuda)
+    with pytest.raises(RuntimeError):
+        fa._launch(q, k, v, True, None, None, "wgmma")          # hd 32
+
+
+CONV_WGMMA_IMAGES = ((3, 1, 1), (9, 4, 4), (5, 7, 7), (2, 14, 14),
+                     (1, 224, 224))
+
+
+@pytest.mark.parametrize("C,A", [(16, 40), (64, 64), (512, 512)])
+def test_pattern_conv_wgmma_matches_plain(cuda, C, A):
+    """Against the plain version (every epilogue) and the fp32 oracle, at
+    1 x 1 to 224 x 224 images, an A below the 64-wide channel tile, one
+    channel tile and a split over two or more."""
+    g = torch.Generator(device=cuda).manual_seed(C + A)
+    w4, wp, taps = _packed_conv(g, A, C, torch.bfloat16, cuda)
+    b = (torch.randn(A, generator=g, device=cuda) * 0.1).bfloat16()
+    assert pc.conv_variant(C, A, torch.bfloat16) == "wgmma"
+    for B, H, W in CONV_WGMMA_IMAGES:
+        x = torch.randn(B, H, W, C, generator=g, device=cuda).bfloat16()
+        for act in ACTS:
+            got = pc.pattern_conv(x, wp, taps, b, activation=act)
+            want = pc.pattern_conv_ref(x, wp, taps, b, activation=act)
+            torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                       atol=2e-2)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            oracle = ref_conv3x3(x, w4)          # fp32 conv, no TF32
+        torch.testing.assert_close(pc.pattern_conv(x, wp, taps).float(),
+                                   oracle.float(), rtol=2e-2, atol=2e-2)
+
+
+def test_pattern_conv_wmma_route(cuda):
+    """C = 3 (VGG-16's first conv, the ResNet-18 stem) stays on the WMMA
+    tile; the WMMA tile also holds at a shape the wgmma route takes; the
+    wgmma route refuses C = 3."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    for C, A, (B, H, W) in ((3, 64, (2, 32, 32)), (3, 64, (1, 224, 224)),
+                            (64, 128, (2, 14, 14))):
+        _, wp, taps = _packed_conv(g, A, C, torch.bfloat16, cuda)
+        b = (torch.randn(A, generator=g, device=cuda) * 0.1).bfloat16()
+        x = torch.randn(B, H, W, C, generator=g, device=cuda).bfloat16()
+        want = pc.pattern_conv_ref(x, wp, taps, b, activation="relu")
+        if C == 3:
+            assert pc.conv_variant(C, A, torch.bfloat16) == "wmma"
+            got = pc.pattern_conv(x, wp, taps, b, activation="relu")
+            with pytest.raises(RuntimeError):
+                pc._launch(x, wp, taps, b, "relu", "wgmma")
+        else:
+            got = pc._launch(x, wp, taps, b, "relu", "wmma")
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+
+
+def test_flash_and_conv_wgmma_repeat_bit_equal(cuda):
+    """Two calls on the same inputs give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    for S in (128, 512):
+        q, k, v = _qkv(g, 4, S, 12, 2, 128, cuda)
+        assert torch.equal(fa.flash_attention(q, k, v),
+                           fa.flash_attention(q, k, v))
+    for C, A, H in ((64, 64, 56), (512, 512, 14)):
+        _, wp, taps = _packed_conv(g, A, C, torch.bfloat16, cuda)
+        x = torch.randn(8, H, H, C, generator=g, device=cuda).bfloat16()
+        assert torch.equal(pc.pattern_conv(x, wp, taps, activation="relu"),
+                           pc.pattern_conv(x, wp, taps, activation="relu"))
