@@ -25,16 +25,28 @@ result line is printed:
               call, each held to the plain version.
 4. serve    — qwen2-1.5b at full width (28 layers, d_model 1536, vocab
               151 936, bf16), seeded random weights, greedy tile-pattern
-              prune (4 of 8 lanes, block_p 128), packed, served by
-              ``ServeEngine(packed=True, batch_size=4, max_seq_len=544)``
-              for 8 requests (4 x 512-token and 4 x 128-token prompts, 32
-              new tokens each). Launch counts are zeroed just before the
-              served run and read just after; every flash call of that
-              run, and of each chunk's prefill run apart, must take the
-              wgmma route. Each chunk's prefill and a
-              decode step are profiled (wall clock against device busy
-              time, the kernels that hold it and the attention kernel's
-              share).
+              prune (4 of 8 lanes, block_p 128), packed, saved to a
+              temporary directory and loaded back on the card (save and
+              load seconds, bytes on disk; every leaf bit-equal), then
+              served by the launcher's engine (``launch.serve.make_engine``:
+              ``batch_size=4, max_seq_len=544``, CUDA graphs for decode
+              and each prompt length's prefill, captured first) for 8
+              requests (4 x 512-token and 4 x 128-token prompts, 32 new
+              tokens each). Launch counts (graph replays add what their
+              capture recorded) are zeroed just before the served run and
+              read just after; every flash call must take the wgmma route.
+              The tokens must equal those of the in-memory artifact; a
+              seeded temperature request must get the same tokens in two
+              batch compositions. Each chunk then runs through the graphs
+              and through ``LM.prefill`` / ``LM.decode_many`` called
+              eagerly: logits and tokens bit-identical, wall times (median
+              of 3) eager against graph, launches per graph run, the
+              engine's one graph memory pool (and what each capture
+              added to it), and profiles (wall clock against device busy
+              time, the kernels that hold it) of both prefills and, at
+              S = 512, of both decodes; in each profile the launches the
+              wrappers counted (graph replays included) must equal the
+              trace's launches of their device functions.
 5. identity — the same model in fp32, served dense-pruned and packed: the
               greedy tokens must be identical.
 6. cnn      — VGG-16 (ImageNet head, 224 x 224, batch 32) and ResNet-18
@@ -48,11 +60,11 @@ result line is printed:
               dense-pruned forward (``F.conv2d``, no TF32) against the
               packed one: max |logit difference| and top-1 identity on
               every image whose dense top-2 gap exceeds twice it.
-7. column   — qwen2-1.5b pruned by column at alpha 0.5, packed and served
-              as in phase 4 (``column_gemm`` on every packed GEMM, prefill
-              and decode), counts zeroed around the served run; then fp32
-              dense-pruned against packed greedy tokens at 4 layers of full
-              width, which must be identical.
+7. column   — qwen2-1.5b pruned by column at alpha 0.5, packed, saved,
+              loaded and served as in phase 4 (``column_gemm`` on every
+              packed GEMM, prefill and decode); then fp32 dense-pruned
+              against packed greedy tokens at 4 layers of full width,
+              which must be identical.
 8. report   — one ``{"kernels": [...]}`` JSON line covering all four
               kernels (each a sum over the bf16 shapes its served path
               launches; the GEMMs' ``lm_head`` at M = 512 and 2048, which
@@ -77,6 +89,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -97,9 +110,11 @@ from repro_torch.kernels import column_gemm as cg_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import pattern_conv as pc_mod  # noqa: E402
 from repro_torch.kernels import pattern_gemm as pg_mod  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models import LM, resnet18, vgg16  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
-from repro_torch.sparse import is_packed  # noqa: E402
+from repro_torch.serve.sampler import fold_key_grid  # noqa: E402
+from repro_torch.sparse import PrunedArtifact, is_packed  # noqa: E402
 from repro_torch.sparse.registry import handler_for  # noqa: E402
 from repro_torch.utils.tree import tree_items  # noqa: E402
 
@@ -492,21 +507,187 @@ def check_exact(tag: str, art) -> None:
         fail(f"[{tag}] a packed leaf does not encode its pruned weight")
 
 
+def disk_bytes(directory: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(directory) for f in files)
+
+
+def median_s(fn, reps: int = 3) -> float:
+    """Median wall seconds of ``fn`` (a synchronize after each call)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[len(times) // 2]
+
+
+def leaf_equal(a, b) -> bool:
+    if is_packed(a) or is_packed(b):
+        return (is_packed(a) and is_packed(b) and a.names == b.names
+                and tuple(a.shape) == tuple(b.shape)
+                and all(x.dtype == y.dtype and torch.equal(x, y)
+                        for x, y in zip(a.buffers, b.buffers)))
+    if a is None or b is None:
+        return a is None and b is None
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def save_and_load(tag: str, art, cfg):
+    """Save ``art`` to a temporary directory, load it back on the card
+    (every buffer's CRC32 checked) and hold every leaf to the original."""
+    with tempfile.TemporaryDirectory(prefix="artifact-") as d:
+        path = os.path.join(d, "artifact")
+        t0 = time.perf_counter()
+        art.save(path)
+        t_save = time.perf_counter() - t0
+        size = disk_bytes(path)
+        t0 = time.perf_counter()
+        loaded = PrunedArtifact.load(path, cfg=cfg)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    pairs = []
+    for name in ("params", "packed", "masks"):
+        back = dict(tree_items(getattr(loaded, name)))   # keys sorted on disk
+        pairs += [(p, a, back.get(p)) for p, a in tree_items(getattr(art,
+                                                                     name))]
+    same = [p for p, a, b in pairs if leaf_equal(a, b)]
+    print(f"[{tag}] artifact saved in {t_save:.2f} s, {size} bytes on disk; "
+          f"loaded on the card in {t_load:.2f} s; leaves bit-equal after "
+          f"the round trip (params, packed, masks): {len(same)}/"
+          f"{len(pairs)}", flush=True)
+    if len(same) != len(pairs):
+        fail(f"[{tag}] leaves differ after save and load: "
+             f"{[p for p, _, _ in pairs if p not in same][:6]}")
+    return loaded
+
+
+def eager_against_graph(tag: str, eng, chunk, S: int, gemm: str) -> dict:
+    """One chunk through the engine's graphs and through ``LM.prefill`` /
+    ``LM.decode_many`` called eagerly: bit-identical logits and tokens,
+    then wall time of each (median of 3) and launches per graph run."""
+    model, params = eng.model, eng.params
+    names = (gemm, "flash_attention")
+    prompts, mask = eng.pad_prompts(chunk)
+    eng.set_rows(chunk, mask)
+    keys = fold_key_grid(eng.rows["keys"], torch.zeros_like(
+        eng.rows["keys"]), 32)
+    logits = eng.prefill(prompts)[1].clone()
+    cache, want = model.prefill(params, prompts, eng.max_seq_len)
+    tok0 = eng.sample(logits, keys[0])
+    toks = eng.decode(tok0, 31).clone()
+    _, rest = model.decode_many(params, cache, tok0, 31, sampler=eng.sample,
+                                keys=keys[1:])
+    same = (torch.equal(logits, want), torch.equal(
+        toks, torch.cat([tok0, rest], dim=1)))
+    print(f"[{tag}] chunk S={S}: graph against eager, prefill logits "
+          f"bit-identical {same[0]}, decode tokens (31 steps) bit-identical "
+          f"{same[1]}", flush=True)
+    if not all(same):
+        fail(f"[{tag}] S={S}: the graphs disagree with the eager path")
+    reset_launches()
+    eng.prefill(prompts)
+    torch.cuda.synchronize()
+    pre = launch_counts(names)
+    if fa_mod.ROUTE_LAUNCHES["wgmma"] != pre["flash_attention"]:
+        fail(f"prefill at S={S} launched flash_attention off the wgmma "
+             f"route: {fa_mod.ROUTE_LAUNCHES}")
+    reset_launches()
+    eng.decode(tok0, 31)
+    torch.cuda.synchronize()
+    dec = launch_counts(names)
+    if pre[gemm] == 0 or pre["flash_attention"] == 0 or dec[gemm] == 0:
+        fail(f"kernels not launched on the served path at S={S}: "
+             f"prefill {pre}, decode {dec}")
+
+    def eager_decode():
+        model.decode_many(params, cache, tok0, 31, sampler=eng.sample,
+                          keys=keys[1:])
+
+    def graph_decode():
+        eng.decode(tok0, 31)
+
+    t = {"prefill_eager_ms": median_s(lambda: model.prefill(
+             params, prompts, eng.max_seq_len)) * 1e3,
+         "prefill_graph_ms": median_s(lambda: eng.prefill(prompts)) * 1e3}
+    model.prefill(params, prompts, eng.max_seq_len, cache=cache)
+    t["decode_eager_ms_per_step"] = median_s(eager_decode) * 1e3 / 31
+    eng.prefill(prompts)
+    t["decode_graph_ms_per_step"] = median_s(graph_decode) * 1e3 / 31
+    t["decode_graph_tok_s"] = 4 / (t["decode_graph_ms_per_step"] / 1e3)
+    split = dict(t, prefill_graph_launches=pre, decode_graph_launches=dec)
+    print(f"[{tag}] chunk S={S}: " + json.dumps(split), flush=True)
+    profile(tag, f"prefill (S={S} chunk), eager", lambda: model.prefill(
+        params, prompts, eng.max_seq_len), names=names)
+    profile(tag, f"prefill (S={S} chunk), graph", lambda: eng.prefill(prompts),
+            names=names)
+    if S == 512:
+        model.prefill(params, prompts, eng.max_seq_len, cache=cache)
+        profile(tag, "decode step (S=512 chunk), eager",
+                lambda: model.decode_many(params, cache, tok0, 8,
+                                          sampler=eng.sample, keys=keys[1:9]),
+                per=8, names=(gemm,))
+        eng.prefill(prompts)
+        profile(tag, "decode step (S=512 chunk), graph",
+                lambda: eng.decode(tok0, 8), per=8, names=(gemm,))
+    return split
+
+
+def seeded_across_batches(tag: str, eng, reqs) -> None:
+    """A seeded temperature request served in two batch compositions (other
+    batch-mates, temperatures and seeds, one with an empty slot): its
+    tokens must agree."""
+    seeded = dataclasses.replace(reqs[4], uid=100, temperature=0.8,
+                                 seed=2024)
+    mates_a = [dataclasses.replace(r, uid=101 + i)
+               for i, r in enumerate(reqs[5:7])]
+    mates_b = [dataclasses.replace(reqs[7], uid=110, temperature=1.2)]
+    a = eng.generate([seeded] + mates_a)[0].tokens
+    b = eng.generate([seeded] + mates_b)[0].tokens
+    print(f"[{tag}] seeded temperature request (T=0.8, seed 2024) in two "
+          f"batch compositions: tokens identical {a == b} ({len(a)} tokens, "
+          f"first {a[:6]})", flush=True)
+    if a != b or len(a) != 32:
+        fail(f"[{tag}] a seeded request's tokens depend on its batch-mates")
+
+
 def drive_serve(tag: str, smi: str, pcfg, gemm: str) -> dict:
-    """Serve qwen2-1.5b packed under ``pcfg``: the main path (8 requests,
-    counts zeroed around it), then each chunk's prefill and decode apart.
-    Returns the main path's launch counts."""
+    """Serve qwen2-1.5b packed under ``pcfg`` from an artifact saved to disk
+    and loaded back, through the launcher's engine (CUDA graphs): the main
+    path (8 requests, counts zeroed around it), token identity with the
+    in-memory artifact, a seeded temperature request, then each chunk
+    eager against graph. Returns the main path's launch counts."""
     names = (gemm, "flash_attention")
     cfg = get_config("qwen2-1.5b")
-    art, _, eng, t_setup = build_engine(cfg, pcfg)
+    model = LM(cfg)
+    t0 = time.perf_counter()
+    art = greedy_prune(model.init(torch.Generator(device="cuda").manual_seed(
+        0)), pcfg).pack()
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
     reqs = make_requests(cfg.vocab_size)
     print(f"[{tag}] qwen2-1.5b L={cfg.num_layers} d_model={cfg.d_model} "
           f"vocab={cfg.vocab_size} {cfg.param_dtype}; init+prune+pack "
           f"{t_setup:.2f} s; weight bytes dense {art.dense_bytes()} packed "
           f"{art.packed_bytes()} ({smi})", flush=True)
     check_exact(tag, art)
-    eng.generate(reqs[:1])                              # warm-up
+    loaded = save_and_load(tag, art, cfg)
+    engine = lambda a: launch_serve.make_engine(model, a, batch=4,  # noqa: E731
+                                                max_seq=544, packed=True)
+    eng = engine(loaded)
+    t0 = time.perf_counter()
+    for r in (reqs[0], reqs[4]):          # captures: decode, S = 512 and 128
+        eng.generate([r])
     torch.cuda.synchronize()
+    print(f"[{tag}] graphs captured in {time.perf_counter() - t0:.2f} s "
+          f"(first use); one shared pool of {eng.graph_pool.reserved} bytes, "
+          f"reserved by each capture in turn: prefill S=512, decode, "
+          f"prefill S=128 " + json.dumps(
+              [eng.prefill_graphs[512].graph.pool_bytes,
+               eng.decode_graph.graph.pool_bytes,
+               eng.prefill_graphs[128].graph.pool_bytes]), flush=True)
 
     reset_launches()                                    # the main path
     t0 = time.perf_counter()
@@ -515,60 +696,29 @@ def drive_serve(tag: str, smi: str, pcfg, gemm: str) -> dict:
     wall = time.perf_counter() - t0
     launches = launch_counts(names)
     print(f"[{tag}] generate(8 requests) {wall * 1e3:.1f} ms; launches "
-          f"{json.dumps(launches)}; flash_attention by route "
-          f"{json.dumps(fa_mod.ROUTE_LAUNCHES)}", flush=True)
+          f"(graph replays counted) {json.dumps(launches)}; flash_attention "
+          f"by route {json.dumps(fa_mod.ROUTE_LAUNCHES)}", flush=True)
     if (launches["flash_attention"] == 0 or fa_mod.ROUTE_LAUNCHES["wgmma"]
             != launches["flash_attention"]):
         fail(f"[{tag}] generate launched flash_attention off the wgmma "
              f"route: {fa_mod.ROUTE_LAUNCHES}")
+    if not all(launches.values()):
+        fail(f"a kernel never launched on the main path: {launches}")
     for r in results:
         if len(r.tokens) != 32 or not all(0 <= t < cfg.vocab_size
                                           for t in r.tokens):
             fail(f"request {r.uid}: bad tokens {r.tokens[:8]}...")
-
+    in_memory = [r.tokens for r in engine(art).generate(reqs)]
+    same = in_memory == [r.tokens for r in results]
+    print(f"[{tag}] tokens of the loaded artifact identical to the "
+          f"in-memory artifact's: {same}", flush=True)
+    if not same:
+        fail(f"[{tag}] the loaded artifact serves other tokens")
+    del art
+    torch.cuda.empty_cache()
+    seeded_across_batches(tag, eng, reqs)
     for S, chunk in ((128, reqs[4:]), (512, reqs[:4])):
-        prompts, mask = eng.pad_prompts(chunk)
-        reset_launches()
-        cache, logits = eng.prefill(prompts)
-        torch.cuda.synchronize()
-        pre = launch_counts(names)
-        if fa_mod.ROUTE_LAUNCHES["wgmma"] != pre["flash_attention"]:
-            fail(f"prefill at S={S} launched flash_attention off the wgmma "
-                 f"route: {fa_mod.ROUTE_LAUNCHES}")
-        if not bool(torch.isfinite(logits).all()):
-            fail(f"non-finite prefill logits at S={S}")
-        reset_launches()
-        tok0 = eng.sampler(logits) * mask[:, None]
-        eng.decode(cache, tok0, mask, 31)
-        torch.cuda.synchronize()
-        dec = launch_counts(names)
-        t_pre, t_dec = [], []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            cache, logits = eng.prefill(prompts)
-            torch.cuda.synchronize()
-            t_pre.append(time.perf_counter() - t0)
-            t0 = time.perf_counter()
-            eng.decode(cache, eng.sampler(logits) * mask[:, None], mask, 31)
-            torch.cuda.synchronize()
-            t_dec.append(time.perf_counter() - t0)
-        pre_ms = sorted(t_pre)[1] * 1e3
-        step_ms = sorted(t_dec)[1] * 1e3 / 31
-        split = dict(prefill_ms=pre_ms, decode_ms_per_step=step_ms,
-                     decode_tok_s=4 / (step_ms / 1e3),
-                     prefill_launches=pre, decode_launches=dec)
-        print(f"[{tag}] chunk S={S}: " + json.dumps(split), flush=True)
-        if pre[gemm] == 0 or pre["flash_attention"] == 0 or dec[gemm] == 0:
-            fail(f"kernels not launched on the served path at S={S}: "
-                 f"prefill {pre}, decode {dec}")
-        profile(tag, f"prefill (S={S} chunk)", lambda: eng.prefill(prompts))
-    if not all(launches.values()):
-        fail(f"a kernel never launched on the main path: {launches}")
-    prompts, mask = eng.pad_prompts(reqs[:4])
-    cache, logits = eng.prefill(prompts)
-    tok = eng.sampler(logits) * mask[:, None]
-    profile(tag, "decode step (S=512 chunk)",
-            lambda: eng.decode(cache, tok, mask, 8), per=8)
+        eager_against_graph(tag, eng, chunk, S, gemm)
     return launches
 
 
@@ -576,26 +726,45 @@ def phase_serve(smi: str) -> dict:
     return drive_serve("serve", smi, TILE_PCFG, "pattern_gemm")
 
 
-def profile(tag: str, what: str, fn, per: int = 1) -> None:
+# each launch of a wrapper runs exactly one of these device functions (a
+# K-split reduce or a column gather beside it is not counted)
+TRACED_KERNEL = {
+    "pattern_gemm": r"(^|[ :])(pg_skinny|pg_wmma_bf16|pg_simt_f32|gemm_bf16)"
+                    r"[<(]",
+    "column_gemm": r"(^|[ :])(cg_skinny|cg_wmma_bf16|cg_simt_f32|gemm_bf16)"
+                   r"[<(]",
+    "flash_attention": r"(^|[ :])(flash_fwd|flash_wgmma)[<(]",
+}
+
+
+def profile(tag: str, what: str, fn, per: int = 1,
+            names: tuple = ()) -> None:
     """Where the time of ``fn`` goes, per ``per`` (decode steps): wall
     clock against the device's busy time (sum of kernel self times under
-    torch.profiler) and the kernels that hold most of it."""
+    torch.profiler) and the kernels that hold most of it. For each kernel
+    in ``names`` the launches its wrapper counted during ``fn`` (graph
+    replays included) must equal the trace's launches of its device
+    functions."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
 
     torch.cuda.synchronize()
+    reset_launches()
     with trace(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / per
+    counted = launch_counts(names)
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / per
     launches = sum(e.count for e in kernels) / per
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     attn = [e for e in kernels if "flash" in e.key]
+    traced = {n: sum(e.count for e in kernels
+                     if re.search(TRACED_KERNEL[n], e.key)) for n in names}
 
     def ms(events):
         return {e.key[:60]: [round(e.self_device_time_total / 1e3 / per, 3),
@@ -604,8 +773,12 @@ def profile(tag: str, what: str, fn, per: int = 1) -> None:
     print(f"[profile] {tag} {what}, profiled: wall {wall * 1e3:.2f} ms, "
           f"device busy {busy:.2f} ms ({100 * busy / (wall * 1e3):.1f}%), "
           f"{launches:.0f} kernel launches; top device ms (launches): "
-          + json.dumps(ms(top)) + "; attention: " + json.dumps(ms(attn)),
-          flush=True)
+          + json.dumps(ms(top)) + "; attention: " + json.dumps(ms(attn))
+          + f"; launches counted {json.dumps(counted)}, traced "
+          + json.dumps(traced), flush=True)
+    if counted != traced or not all(traced.values()):
+        fail(f"[{tag}] {what}: counted launches {counted} are not the "
+             f"trace's {traced}")
 
 
 def token_identity(tag: str, cfg, pcfg, note: str = "") -> None:

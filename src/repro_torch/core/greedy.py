@@ -6,6 +6,7 @@ from typing import TYPE_CHECKING, Any
 
 import torch
 
+from repro_torch.core.masks import masks_from_specs
 from repro_torch.core.schemes import PruneConfig, build_specs, project_tree
 from repro_torch.device import DeviceLike, resolve_device, same_device
 from repro_torch.utils.tree import tree_items
@@ -20,7 +21,7 @@ def greedy_prune(params: Any, config: PruneConfig, *,
     """Project every prunable tensor onto its set, data-free, on ``device``.
 
     Returns the artifact directly (the reference returns a ``PruneResult``
-    whose ``to_artifact()`` builds it); masks for retraining are not kept.
+    whose ``to_artifact()`` builds it), masks for retraining included.
     """
     # imported here: sparse -> kernels.pattern_conv -> core.projections
     # would otherwise come back round to this module while it loads
@@ -32,6 +33,7 @@ def greedy_prune(params: Any, config: PruneConfig, *,
             raise ValueError(f"param {path} is on {leaf.device}, not {dev}")
     specs = build_specs(params, config)
     pruned = project_tree(params, specs)
-    return PrunedArtifact(pruned, specs,
+    return PrunedArtifact(params=pruned, masks=masks_from_specs(pruned, specs),
+                          specs=specs,
                           meta={"privacy": {"data": "none",
                                             "method": "greedy_magnitude"}})

@@ -85,11 +85,12 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
-    """Inverse frequencies (head_dim // 2,) fp32."""
+    """Inverse frequencies (head_dim // 2,) fp32 (built on the device, with
+    no host-to-device copy, so a CUDA graph can capture it)."""
     exponents = torch.arange(0, head_dim, 2, dtype=torch.float32,
                              device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exponents)
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                      device=device), exponents)
 
 
 def rope_tables(positions: torch.Tensor, head_dim: int, theta: float

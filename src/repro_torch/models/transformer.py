@@ -185,10 +185,20 @@ class LM:
                                    device=self.device)}
 
     @torch.no_grad()
-    def prefill(self, params, tokens: torch.Tensor, seq_len: int):
-        """Run the prompt, build the cache -> (cache, last-token logits)."""
+    def prefill(self, params, tokens: torch.Tensor, seq_len: int,
+                cache: Optional[Dict[str, Any]] = None):
+        """Run the prompt, build the cache -> (cache, last-token logits).
+
+        With ``cache`` (one of ``init_cache(B, seq_len)``) the prompt is
+        written into it IN PLACE (slots past the prompt marked empty)
+        instead of a new one: a captured decode graph keeps reading the
+        same tensors.
+        """
         B, S = tokens.shape
-        cache = self.init_cache(B, seq_len)
+        if cache is None:
+            cache = self.init_cache(B, seq_len)
+        else:
+            cache["slot_pos"].fill_(-1)
         if S > cache["slot_pos"].shape[1]:
             raise ValueError(f"prompt_len={S} exceeds cache capacity="
                              f"{cache['slot_pos'].shape[1]}")
@@ -204,8 +214,9 @@ class LM:
     @torch.no_grad()
     def decode_step(self, params, cache: Dict[str, Any],
                     tokens: torch.Tensor):
-        """One decode step for tokens (B, 1); updates ``cache`` in place
-        (its k/v/slot_pos tensors) and returns (cache, logits (B, 1, V))."""
+        """One decode step for tokens (B, 1); updates ``cache`` IN PLACE
+        (k/v/slot_pos and pos: the same tensors, so a captured graph of
+        this step replays on them) -> (cache, logits (B, 1, V))."""
         cfg = self.config
         x = self.embed_inputs(params, tokens)
         B = x.shape[0]
@@ -226,24 +237,32 @@ class LM:
             x = x + dense_apply(attn.reshape(B, 1, cfg.attn_dim),
                                 bp["attn"]["wo"])
             x = self._mlp(bp, x)
-        cache["pos"] = pos + 1
+        pos.add_(1)
         h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return cache, self.lm_logits(params, h)
 
     @torch.no_grad()
     def decode_many(self, params, cache: Dict[str, Any],
                     tokens: torch.Tensor, num_steps: int,
-                    sampler: Optional[Callable] = None):
+                    sampler: Optional[Callable] = None,
+                    keys: Optional[torch.Tensor] = None):
         """``num_steps`` decode steps, each sampling the next token on the
         device and feeding it back; no host sync. Returns (cache, tokens
-        (B, num_steps)), column 0 being the token after ``tokens``."""
+        (B, num_steps)), column 0 being the token after ``tokens``.
+
+        ``keys``: optional per-step keys, leading dim ``num_steps`` (e.g.
+        ``sampler.fold_key_grid``); then the sampler is called as
+        ``sampler(logits, keys[step])``, so a stochastic sampler draws a
+        fresh stream each step.
+        """
         if sampler is None:
             from repro_torch.serve.sampler import greedy_sample
             sampler = greedy_sample
         out = []
         tok = tokens
-        for _ in range(num_steps):
+        for step in range(num_steps):
             cache, logits = self.decode_step(params, cache, tok)
-            tok = sampler(logits)
+            tok = sampler(logits) if keys is None else sampler(logits,
+                                                              keys[step])
             out.append(tok)
         return cache, torch.cat(out, dim=1)

@@ -1,32 +1,55 @@
-"""PrunedArtifact: the hand-off from pruning to serving.
-
-Reduced from ``repro/sparse/artifact.py`` to ``pack``, ``bind`` and
-``summary``: save, load, tune and the privacy report are not ported yet.
+"""PrunedArtifact: the hand-off from pruning to serving (mirrors
+``repro/sparse/artifact.py``).
 
     artifact = greedy_prune(params, config)      # dense, exactly sparse
     artifact = artifact.pack()                   # PackedTensor leaves
+    artifact.save("/ckpt/pruned")                # the reference's format
+    ...
+    artifact = PrunedArtifact.load("/ckpt/pruned", cfg=cfg)   # on the card
     tree     = artifact.bind(model, packed=True)  # what the LM runs on
+
+On disk an artifact is the reference's: ``params/``, ``masks/`` and
+``packed/`` checkpoint directories (``checkpoint.save_pytree``) and
+``artifact.json`` (schema version, the path-keyed ``LayerSpec`` table,
+``meta``). An LM's trees are written in the reference's stacked layout
+(``convert.tree_to_jax``), so each package loads what the other saved.
+The tuner and the privacy report are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch.checkpoint import ArtifactError, load_pytree, save_pytree
+from repro_torch.checkpoint import verify_checkpoint
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.schemes import LayerSpec
 from repro_torch.device import DeviceLike, resolve_device, same_device
 from repro_torch.sparse.packed import is_packed, tree_packed_bytes, validate_packed
 from repro_torch.sparse.registry import handler_for
-from repro_torch.utils.tree import tree_items, tree_map_with_path
+from repro_torch.utils.tree import reference_path, tree_items, tree_map_with_path
+
+ARTIFACT_JSON = "artifact.json"
+# artifact.json layout version (the reference's; separate from the
+# checkpoint manifest's schema_version)
+ARTIFACT_SCHEMA_VERSION = 2
 
 
 @dataclasses.dataclass
 class PrunedArtifact:
     params: Any                      # dense, exactly-sparse weights
+    masks: Any                       # {0, 1} per pruned leaf, None elsewhere
     specs: Any                       # LayerSpec | None per leaf
     meta: Dict[str, Any] = dataclasses.field(default_factory=dict)
     packed: Optional[Any] = None     # params with PackedTensor leaves
+    # set by ``load``: the directory it came from (``verify_integrity``
+    # re-checks its bytes). Not persisted.
+    source_dir: Optional[str] = None
     # set by ``bind``: packed leaves that failed validation and are served
     # dense instead ({"fallbacks": {path: reason}})
     bind_report: Optional[Dict[str, Any]] = None
@@ -118,3 +141,141 @@ class PrunedArtifact:
                 "bytes_ratio": dense_b / max(packed_b, 1),
                 "packed_leaves": sum(is_packed(leaf) for leaf in leaves),
                 "total_leaves": len(leaves)}
+
+    # ---------------------------------------------------------- persistence
+
+    def save(self, directory: str) -> None:
+        """Write the artifact under ``directory`` in the reference's layout:
+        ``params/``, ``masks/``, ``packed/`` (each an atomic checkpoint)
+        and ``artifact.json``."""
+        from repro_torch.convert import tree_to_jax   # convert imports sparse
+
+        os.makedirs(directory, exist_ok=True)
+        save_pytree(os.path.join(directory, "params"), tree_to_jax(self.params))
+        save_pytree(os.path.join(directory, "masks"),
+                    tree_to_jax(self.masks) if self.masks is not None else {})
+        if self.packed is not None:
+            save_pytree(os.path.join(directory, "packed"),
+                        tree_to_jax(self.packed))
+        spec_table: Dict[str, Any] = {}
+        for path, spec in tree_items(self.specs):
+            spec_table[reference_path(path)] = (
+                None if spec is None else dataclasses.asdict(spec))
+        doc = {"schema_version": ARTIFACT_SCHEMA_VERSION, "specs": spec_table,
+               "meta": self.meta, "packed": self.packed is not None}
+        tmp = os.path.join(directory, ARTIFACT_JSON + ".tmp")
+        with open(tmp, "w") as f:
+            json.dump(doc, f, indent=1)
+        os.replace(tmp, os.path.join(directory, ARTIFACT_JSON))
+
+    @classmethod
+    def load(cls, directory: str, *, cfg: Optional[ModelConfig] = None,
+             device: DeviceLike = None) -> "PrunedArtifact":
+        """Rebuild an artifact saved by either package, its buffers on
+        ``device`` (default: the card). ``cfg`` is an LM's config (its
+        blocks are stacked on disk); None for a CNN.
+
+        Every way a damaged directory can fail (missing or truncated
+        ``artifact.json``, a future schema, a missing, truncated or
+        bit-flipped buffer, trees that do not fit ``cfg``) raises
+        ``ArtifactError`` naming the path and the field.
+        """
+        from repro_torch.convert import packed_from_jax   # imports sparse
+
+        dev = resolve_device(device)
+        apath = os.path.join(directory, ARTIFACT_JSON)
+        try:
+            with open(apath) as f:
+                doc = json.load(f)
+        except FileNotFoundError:
+            raise ArtifactError("artifact.json not found", path=apath,
+                                field="artifact.json") from None
+        except (json.JSONDecodeError, UnicodeDecodeError) as e:
+            raise ArtifactError(f"artifact.json is not valid JSON: {e}",
+                                path=apath, field="artifact.json") from None
+        if not isinstance(doc, dict):
+            raise ArtifactError("artifact.json is not a JSON object",
+                                path=apath, field="artifact.json")
+        version = doc.get("schema_version", 1)
+        if not isinstance(version, int) or version > ARTIFACT_SCHEMA_VERSION:
+            raise ArtifactError(
+                f"artifact schema_version {version!r} is newer than this "
+                f"build supports ({ARTIFACT_SCHEMA_VERSION})",
+                path=apath, field="schema_version")
+
+        def port_tree(sub: str) -> Any:
+            """A saved (stacked) tree, per layer on ``dev``."""
+            d = os.path.join(directory, sub)
+            tree = load_pytree(d, device="cpu")
+            try:
+                return packed_from_jax(tree, cfg, dev)
+            except (IndexError, KeyError, TypeError, ValueError,
+                    AttributeError) as e:
+                raise ArtifactError(
+                    f"{sub} tree does not fit the config "
+                    f"({type(e).__name__}: {e})", path=d, field=sub) from e
+
+        params = port_tree("params")
+        masks_flat: Dict[str, torch.Tensor] = {}
+        mask_dir = os.path.join(directory, "masks")
+        if os.path.isdir(mask_dir):
+            for path, m in tree_items(load_pytree(mask_dir, device="cpu")):
+                if isinstance(m, torch.Tensor):
+                    masks_flat[path] = m
+
+        def mask_at(path, _w):
+            m = masks_flat.get(reference_path(path))
+            if m is None:
+                return None
+            if cfg is not None and path.startswith("blocks/"):
+                m = m[int(path.split("/")[1])]
+            return m.contiguous().to(dev)
+
+        # masks and specs congruent with params: absent paths are None
+        masks = tree_map_with_path(mask_at, params)
+        spec_table = doc.get("specs", {})
+
+        def spec_at(path, _w):
+            d = spec_table.get(reference_path(path))
+            if d is None:
+                return None
+            if d.get("conv_shape") is not None:
+                d = dict(d, conv_shape=tuple(d["conv_shape"]))
+            try:
+                return LayerSpec(**d)
+            except TypeError as e:
+                raise ArtifactError(f"bad LayerSpec for {path}: {e}",
+                                    path=apath, field=f"specs.{path}") from e
+
+        specs = tree_map_with_path(spec_at, params)
+        packed = None
+        if doc.get("packed") and os.path.isdir(os.path.join(directory,
+                                                            "packed")):
+            packed = port_tree("packed")
+        return cls(params=params, masks=masks, specs=specs,
+                   meta=doc.get("meta", {}), packed=packed,
+                   source_dir=directory)
+
+    def verify_integrity(self) -> Dict[str, Any]:
+        """Health check: re-verify the CRC32 of every saved buffer (when
+        the artifact came from disk; ``ArtifactError`` on corruption) and
+        ``validate_packed`` every in-memory packed leaf (faults returned,
+        not raised: ``bind`` serves those leaves dense). Returns ``{"disk":
+        {subdir: stats}, "packed_ok": n, "packed_bad": {path: reason}}``."""
+        report: Dict[str, Any] = {"disk": {}, "packed_ok": 0,
+                                  "packed_bad": {}}
+        if self.source_dir is not None:
+            for sub in ("params", "masks", "packed"):
+                d = os.path.join(self.source_dir, sub)
+                if os.path.isdir(d):
+                    report["disk"][sub] = verify_checkpoint(d)
+        if self.packed is not None:
+            for path, leaf in tree_items(self.packed):
+                if not is_packed(leaf):
+                    continue
+                why = validate_packed(leaf)
+                if why is None:
+                    report["packed_ok"] += 1
+                else:
+                    report["packed_bad"][path] = why
+        return report

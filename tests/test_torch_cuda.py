@@ -418,3 +418,164 @@ def test_flash_and_conv_wgmma_repeat_bit_equal(cuda):
         x = torch.randn(8, H, H, C, generator=g, device=cuda).bfloat16()
         assert torch.equal(pc.pattern_conv(x, wp, taps, activation="relu"),
                            pc.pattern_conv(x, wp, taps, activation="relu"))
+
+
+# ------------------------------------------------- CUDA graphs of serving
+
+from repro_torch.configs.base import ModelConfig  # noqa: E402
+from repro_torch.core import PruneConfig, greedy_prune  # noqa: E402
+from repro_torch.models import LM  # noqa: E402
+from repro_torch.serve import Request, ServeEngine  # noqa: E402
+from repro_torch.serve.sampler import (  # noqa: E402
+    fold_key_grid,
+    mix64,
+    uniform_bits,
+)
+
+# head_dim 64 and bf16: prefill attention on flash's wgmma route
+GRAPH_CFG = ModelConfig(name="graph", family="dense", num_layers=2,
+                        d_model=256, num_heads=4, num_kv_heads=2,
+                        head_dim=64, d_ff=512, vocab_size=1024,
+                        qkv_bias=True, param_dtype="bfloat16")
+GRAPH_PCFG = PruneConfig(scheme="tile_pattern", overrides={
+    ".*": {"tile_block_p": 128, "tile_group_q": 8, "tile_keep": 4}})
+
+
+@pytest.fixture(scope="module")
+def lm_art():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: CUDA graphs run only there")
+    model = LM(GRAPH_CFG, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    return model, greedy_prune(params, GRAPH_PCFG).pack()
+
+
+def _requests(n, S, *, temperature=None, seed=None, first=0):
+    g = torch.Generator().manual_seed(first)
+    return [Request(uid=first + i, prompt=torch.randint(
+        0, GRAPH_CFG.vocab_size, (S,), generator=g), max_new_tokens=12,
+        temperature=temperature, seed=None if seed is None else seed + i)
+        for i in range(n)]
+
+
+@pytest.mark.parametrize("temperature", [None, 0.8])
+def test_graphs_match_eager_prefill_and_decode_many(lm_art, temperature):
+    """Prefill-graph logits and decode-graph tokens (greedy, and seeded
+    temperature) bit-identical to eager ``LM.prefill`` and
+    ``LM.decode_many`` on the same chunk; one empty slot."""
+    model, art = lm_art
+    eng = ServeEngine(model, art, packed=True, batch_size=4, max_seq_len=64)
+    reqs = _requests(3, 16, temperature=temperature, seed=5)
+    prompts, mask = eng.pad_prompts(reqs)
+    eng.set_rows(reqs, mask)
+    _, logits = eng.prefill(prompts)
+    cache, want_logits = model.prefill(eng.params, prompts, 64)
+    assert torch.equal(logits, want_logits)
+    keys = fold_key_grid(eng.rows["keys"], torch.zeros_like(
+        eng.rows["keys"]), 12)
+    tok0 = eng.sample(logits, keys[0])
+    got = eng.decode(tok0, 11).clone()
+    _, rest = model.decode_many(eng.params, cache, tok0, 11,
+                                sampler=eng.sample, keys=keys[1:])
+    assert torch.equal(got, torch.cat([tok0, rest], dim=1))
+    assert int(got[3].abs().sum()) == 0               # the empty slot
+
+
+def test_replay_after_a_new_prefill_of_another_chunk(lm_art):
+    model, art = lm_art
+    a, b = _requests(4, 24), _requests(3, 9, temperature=1.0, seed=7,
+                                       first=10)
+    eng = ServeEngine(model, art, packed=True, batch_size=4, max_seq_len=64)
+    eng.generate(a)
+    got = [r.tokens for r in eng.generate(b)]
+    fresh = ServeEngine(model, art, packed=True, batch_size=4, max_seq_len=64)
+    assert got == [r.tokens for r in fresh.generate(b)]
+    assert sorted(eng.prefill_graphs) == [9, 24]
+
+
+def test_bake_weights_refuses_swapped_params(lm_art):
+    """The weights are baked into the engine's graphs (the reference's
+    ``bake_weights``): serving other params raises."""
+    model, art = lm_art
+    reqs = _requests(2, 8)
+    eng = ServeEngine(model, art, packed=True, batch_size=4, max_seq_len=64)
+    eng.generate(reqs)
+    eng.params = art.bind(model, packed=False)
+    with pytest.raises(ValueError, match="baked"):
+        eng.generate(reqs)
+
+
+def test_prefill_graphs_share_one_pool_and_are_capped(lm_art):
+    """Eleven prompt lengths, longest first: the engine keeps the
+    ``MAX_PREFILL_GRAPHS`` most recent prefill graphs, the shared pool does
+    not grow past what the first chunk's captures reserved, and a length
+    whose graph was dropped is captured again to the same tokens."""
+    from repro_torch.serve.engine import MAX_PREFILL_GRAPHS
+
+    model, art = lm_art
+    eng = ServeEngine(model, art, packed=True, batch_size=4, max_seq_len=64)
+    lengths = list(range(40, 7, -3))
+    first = [r.tokens for r in eng.generate(_requests(3, lengths[0]))]
+    pool = eng.graph_pool.reserved
+    assert pool > 0
+    for S in lengths[1:]:
+        eng.generate(_requests(2, S, first=S))
+    assert list(eng.prefill_graphs) == lengths[-MAX_PREFILL_GRAPHS:]
+    assert eng.graph_pool.reserved == pool
+    assert [r.tokens for r in eng.generate(_requests(3, lengths[0]))] == first
+    assert list(eng.prefill_graphs) == (lengths[1 - MAX_PREFILL_GRAPHS:]
+                                        + lengths[:1])
+
+
+def test_seeded_request_reproduces_across_engine_seeds(lm_art):
+    """A seeded temperature request gives the same tokens on engines of
+    seed 0 and 1; its unseeded batch-mates draw from the engine's seed."""
+    model, art = lm_art
+    reqs = ([_requests(1, 16, temperature=0.9, seed=11)[0]]
+            + _requests(2, 16, temperature=1.0, first=20))
+    got = [[r.tokens for r in ServeEngine(
+        model, art, packed=True, batch_size=4, max_seq_len=64,
+        seed=seed).generate(reqs)] for seed in (0, 1)]
+    assert got[0][0] == got[1][0]
+    assert got[0][1:] != got[1][1:]
+
+
+def _zero_counts():
+    for m in (pg, fa, cg, pc):
+        m.LAUNCHES = 0
+    fa.ROUTE_LAUNCHES.update(dict.fromkeys(fa.ROUTE_LAUNCHES, 0))
+
+
+def test_graph_counted_launches_equal_eager_launches(lm_art):
+    model, art = lm_art
+    eng = ServeEngine(model, art, packed=True, batch_size=4, max_seq_len=64)
+    reqs = _requests(4, 32)
+    prompts, mask = eng.pad_prompts(reqs)
+    eng.set_rows(reqs, mask)
+    eng.prefill(prompts)                       # captures; counts warm-up
+    eng.decode(torch.zeros((4, 1), dtype=torch.int64, device="cuda"), 1)
+    _zero_counts()
+    cache, logits = model.prefill(eng.params, prompts, 64)
+    tok = logits.argmax(-1)
+    model.decode_step(eng.params, cache, tok)
+    eager = (pg.LAUNCHES, fa.LAUNCHES, dict(fa.ROUTE_LAUNCHES))
+    _zero_counts()
+    eng.prefill(prompts)
+    eng.decode(tok, 1)
+    torch.cuda.synchronize()
+    assert (pg.LAUNCHES, fa.LAUNCHES, dict(fa.ROUTE_LAUNCHES)) == eager
+    assert eager[1] == GRAPH_CFG.num_layers == eager[2]["wgmma"]
+    # per decode step: 7 GEMMs a layer and the head
+    before = pg.LAUNCHES
+    eng.decode_graph.graph.replay()
+    assert pg.LAUNCHES - before == 7 * GRAPH_CFG.num_layers + 1
+
+
+def test_sampler_integer_stream_is_the_same_on_cpu_and_card(cuda):
+    keys = torch.tensor([0, 1, -1, 1 << 62, -(1 << 63)], dtype=torch.int64)
+    assert torch.equal(mix64(keys.to(cuda)).cpu(), mix64(keys))
+    assert torch.equal(uniform_bits(keys.to(cuda), 4096).cpu(),
+                       uniform_bits(keys, 4096))
+    grid = fold_key_grid(keys, torch.arange(5), 7)
+    assert torch.equal(fold_key_grid(keys.to(cuda), torch.arange(5).to(cuda),
+                                     7).cpu(), grid)

@@ -36,7 +36,9 @@ def test_no_jax_or_reference_imports(path):
 def test_engine_import_pulls_in_no_jax():
     code = ("import sys, repro_torch.serve.engine, repro_torch.convert, "
             "repro_torch.core, repro_torch.kernels._build, "
-            "repro_torch.models.cnn; "
+            "repro_torch.models.cnn, repro_torch.checkpoint, "
+            "repro_torch.core.masks, repro_torch.serve.graphs, "
+            "repro_torch.serve.sampler, repro_torch.launch.serve; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -93,3 +95,35 @@ def test_cnn_entry_points_refuse_a_missing_card():
     with pytest.raises(RuntimeError):
         art.pack()
     assert art.pack(device="cpu").summary()["packed_leaves"] == 13
+
+
+def test_load_and_launcher_refuse_a_missing_card(tmp_path):
+    """``PrunedArtifact.load``, ``load_pytree`` and the serve launcher want
+    the card by default too; a CPU engine runs eagerly (graphs are a CUDA
+    feature)."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    from repro_torch.checkpoint import load_pytree
+    from repro_torch.configs import reduced_config
+    from repro_torch.core import PruneConfig, greedy_prune
+    from repro_torch.launch import serve
+    from repro_torch.models import LM
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.sparse import PrunedArtifact
+
+    cfg = reduced_config("qwen2-1.5b")
+    model = LM(cfg, device="cpu")
+    art = greedy_prune(model.init(torch.Generator().manual_seed(0)),
+                       PruneConfig(scheme="column", alpha=0.5), device="cpu")
+    art.save(str(tmp_path / "art"))
+    with pytest.raises(RuntimeError):
+        PrunedArtifact.load(str(tmp_path / "art"), cfg=cfg)
+    with pytest.raises(RuntimeError):
+        load_pytree(str(tmp_path / "art" / "params"))
+    with pytest.raises(RuntimeError):
+        serve.main(["--arch", "qwen2-1.5b", "--reduced"])
+    eng = ServeEngine(model, art, batch_size=2, max_seq_len=16, device="cpu")
+    eng.generate([Request(uid=0, prompt=[1, 2, 3], max_new_tokens=2)])
+    assert not eng.graphs and eng.graph_pool is None
+    loaded = PrunedArtifact.load(str(tmp_path / "art"), cfg=cfg, device="cpu")
+    assert loaded.summary()["total_leaves"] == 0 and loaded.packed is None

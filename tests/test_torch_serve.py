@@ -144,3 +144,97 @@ def test_packed_needs_an_artifact(both):
     with pytest.raises(TypeError):
         ServeEngine(tmodel, tart.params, batch_size=BATCH,
                     max_seq_len=MAX_SEQ, packed=True, device="cpu")
+
+
+def test_greedy_rows_of_a_temperature_chunk_match_reference(both):
+    """Rows at temperature None or 0 of a chunk that also samples (seeded
+    and unseeded rows) are the reference engine's greedy tokens."""
+    _, jengine, tart, tmodel, _ = both
+    prompts = _prompts()
+    want = [r.tokens for r in jengine.generate(
+        [JRequest(uid=i, prompt=jnp.asarray(p), max_new_tokens=m)
+         for i, (p, m) in enumerate(zip(prompts, MAX_NEW))])]
+    temps = (None, 0.8, 0.0, 1.5, None)
+    seeds = (None, 7, None, None, None)
+    reqs = [Request(uid=i, prompt=torch.from_numpy(p), max_new_tokens=m,
+                    temperature=t, seed=s)
+            for i, (p, m, t, s) in enumerate(zip(prompts, MAX_NEW, temps,
+                                                 seeds))]
+    engine = ServeEngine(tmodel, tart, batch_size=BATCH, max_seq_len=MAX_SEQ,
+                         packed=True, device="cpu")
+    got = [r.tokens for r in engine.generate(reqs)]
+    for i, t in enumerate(temps):
+        if t is None or t <= 0:
+            assert got[i] == want[i], i
+    assert [len(t) for t in got] == list(MAX_NEW)
+
+
+# ------------------------------------------------------------- the launcher
+
+LAUNCH = ["--arch", "qwen2-1.5b", "--reduced", "--requests", "5", "--batch",
+          "2", "--prompt-len", "6", "--max-new", "5", "--device", "cpu"]
+
+
+@pytest.fixture(scope="module")
+def saved_by_reference(tmp_path_factory):
+    """A tile-pattern packed reduced qwen2-1.5b artifact and its raw params,
+    both saved by the reference."""
+    from repro.checkpoint import save_pytree as j_save_pytree
+    from repro.configs import reduced_config as j_reduced_config
+
+    jcfg = j_reduced_config("qwen2-1.5b")
+    jmodel = build_model(jcfg)
+    params = jmodel.init(jax.random.PRNGKey(0))
+    jart = j_greedy_prune(params, JPruneConfig(
+        scheme="tile_pattern", exclude=tuple(J_EXCLUDE),
+        overrides={".*": {"tile_block_p": 32}})).to_artifact().pack()
+    root = tmp_path_factory.mktemp("launch")
+    jart.save(str(root / "artifact"))
+    j_save_pytree(str(root / "ckpt"), params)
+    return jmodel, params, str(root)
+
+
+def _reference_launcher_tokens(jmodel, params, packed, reqs):
+    """The reference launcher's engine (its defaults: max_seq 256) on the
+    port launcher's prompts."""
+    engine = JServeEngine(jmodel, params, batch_size=2, max_seq_len=256,
+                          packed=packed)
+    return [r.tokens for r in engine.generate(
+        [JRequest(uid=r.uid, prompt=jnp.asarray(r.prompt.numpy()),
+                  max_new_tokens=r.max_new_tokens) for r in reqs])]
+
+
+def test_launcher_serves_a_reference_artifact(saved_by_reference):
+    from repro.sparse import PrunedArtifact as JPrunedArtifact
+    from repro_torch.launch import serve
+
+    jmodel, _, root = saved_by_reference
+    got = serve.main(LAUNCH + ["--artifact", f"{root}/artifact", "--packed"])
+    reqs = serve.make_requests(5, 6, 5, jmodel.config.vocab_size)
+    want = _reference_launcher_tokens(
+        jmodel, JPrunedArtifact.load(f"{root}/artifact"), True, reqs)
+    assert [r.tokens for r in got] == want
+    assert [len(t) for t in want] == [5] * 5
+
+
+def test_launcher_restores_a_reference_checkpoint(saved_by_reference):
+    from repro_torch.launch import serve
+
+    jmodel, params, root = saved_by_reference
+    got = serve.main(LAUNCH + ["--ckpt", f"{root}/ckpt"])
+    reqs = serve.make_requests(5, 6, 5, jmodel.config.vocab_size)
+    assert [r.tokens for r in got] == _reference_launcher_tokens(
+        jmodel, params, False, reqs)
+
+
+def test_launcher_temperature_follows_its_seed(saved_by_reference):
+    from repro_torch.launch import serve
+
+    _, _, root = saved_by_reference
+    args = LAUNCH + ["--artifact", f"{root}/artifact", "--packed",
+                     "--temperature", "1.0"]
+    a = [r.tokens for r in serve.main(args + ["--seed", "3"])]
+    assert a == [r.tokens for r in serve.main(args + ["--seed", "3"])]
+    assert a != [r.tokens for r in serve.main(args + ["--seed", "4"])]
+    with pytest.raises(SystemExit):
+        serve.main(LAUNCH + ["--packed"])
