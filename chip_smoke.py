@@ -65,7 +65,44 @@ result line is printed:
               packed GEMM, prefill and decode); then fp32 dense-pruned
               against packed greedy tokens at 4 layers of full width,
               which must be identical.
-8. report   — one ``{"kernels": [...]}`` JSON line covering all four
+8. admm     — the paper's algorithm: qwen2-1.5b at full width (bf16,
+              seeded random teacher) pruned by layer-wise ADMM on
+              synthetic tokens (``PrivacyPreservingPruner`` with
+              ``launch.prune.prune_config_for(scheme="tile_pattern",
+              rate=2, iters=8, batch=16)``, ``LMAdapter(seq_len=64)``):
+              loss and residuals per iteration, seconds per iteration
+              (median of the last 6), peak device memory, one more
+              iteration profiled (device busy share) and one split by
+              phase (teacher pass, primal steps, projection + dual; each
+              phase must have been timed);
+              gates: finite metrics, exactly 4 of 8 lanes per tile in
+              every pruned leaf, ``privacy.data == "synthetic"``. The
+              greedy prune's layer-wise loss is printed beside ADMM's.
+              Then packed and served by the launcher's engine (4 x 128
+              prompt tokens, 16 new; counts zeroed around it): every
+              flash call on wgmma, no blockwise fallback, ``pattern_gemm``
+              launched, every packed leaf exact. In bf16 the primal
+              steps round back to the weights (the reference's dtype
+              rules), so at 4 layers the params are fp32: whole-model
+              ADMM (2 iterations, finite); a run stopped by its callback
+              after iteration 2 and resumed (checkpoints every 2), bit-
+              equal to an uninterrupted one, with some pruned leaf off
+              the greedy projection (the weights moved), and the greedy
+              loss printed beside ADMM's; ``launch.prune --reduced``
+              then ``launch.serve --reduced --artifact --packed`` as
+              subprocesses: both exit 0, serve prefilling through the
+              blockwise fallback (head_dim 16).
+9. admm_cnn — VGG-16 at full width (ImageNet head, 224 x 224, fp32)
+              pruned by layer-wise ADMM ``pattern_shared`` alpha 0.25
+              (batch 32, 4 iterations; some pruned leaf off the greedy
+              projection), retrained by 10 masked AdamW steps on
+              ``data.ClassificationPipeline`` batches of 10 classes:
+              masked-out weights stay exactly 0 and the loss falls by
+              at least 0.01 (mean of the last 3 against the first); packed, one bf16 forward with one
+              ``pattern_conv`` launch per stride-1 3x3 conv (counts zeroed
+              around it); the fp32 top-1 gate of ``[cnn]``. Seconds per
+              iteration and per step, peak memory.
+10. report  — one ``{"kernels": [...]}`` JSON line covering all four
               kernels (each a sum over the bf16 shapes its served path
               launches; the GEMMs' ``lm_head`` at M = 512 and 2048, which
               prefill never launches, listed apart under ``not_on_path``,
@@ -87,6 +124,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -100,6 +138,15 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import LayerSpec, PruneConfig, greedy_prune  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    LMAdapter,
+    PrivacyPreservingPruner,
+    as_key,
+    cross_entropy,
+    frobenius_distance,
+    make_retrain_step,
+)
+from repro_torch.core import admm as admm_mod  # noqa: E402
 from repro_torch.core.projections import (  # noqa: E402
     project,
     project_column,
@@ -110,13 +157,20 @@ from repro_torch.kernels import column_gemm as cg_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import pattern_conv as pc_mod  # noqa: E402
 from repro_torch.kernels import pattern_gemm as pg_mod  # noqa: E402
+from repro_torch.data import ClassificationPipeline, DataConfig  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
-from repro_torch.models import LM, resnet18, vgg16  # noqa: E402
+from repro_torch.launch.prune import prune_config_for  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.models import LM, attention, resnet18, vgg16  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
 from repro_torch.serve.sampler import fold_key_grid  # noqa: E402
 from repro_torch.sparse import PrunedArtifact, is_packed  # noqa: E402
 from repro_torch.sparse.registry import handler_for  # noqa: E402
-from repro_torch.utils.tree import tree_items  # noqa: E402
+from repro_torch.utils.tree import (  # noqa: E402
+    tree_items,
+    tree_leaves,
+    tree_map,
+)
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # H100 SXM data-sheet peaks (dense): HBM bytes/s; bf16 tensor-core and
@@ -465,6 +519,7 @@ def reset_launches() -> None:
         mod.LAUNCHES = 0
     for mod in (fa_mod, pc_mod):
         mod.ROUTE_LAUNCHES.update(dict.fromkeys(mod.ROUTE_LAUNCHES, 0))
+    attention.PREFILL_FALLBACKS = 0
 
 
 def launch_counts(names) -> dict:
@@ -697,11 +752,13 @@ def drive_serve(tag: str, smi: str, pcfg, gemm: str) -> dict:
     launches = launch_counts(names)
     print(f"[{tag}] generate(8 requests) {wall * 1e3:.1f} ms; launches "
           f"(graph replays counted) {json.dumps(launches)}; flash_attention "
-          f"by route {json.dumps(fa_mod.ROUTE_LAUNCHES)}", flush=True)
+          f"by route {json.dumps(fa_mod.ROUTE_LAUNCHES)}, blockwise "
+          f"fallbacks {attention.PREFILL_FALLBACKS}", flush=True)
     if (launches["flash_attention"] == 0 or fa_mod.ROUTE_LAUNCHES["wgmma"]
-            != launches["flash_attention"]):
+            != launches["flash_attention"] or attention.PREFILL_FALLBACKS):
         fail(f"[{tag}] generate launched flash_attention off the wgmma "
-             f"route: {fa_mod.ROUTE_LAUNCHES}")
+             f"route: {fa_mod.ROUTE_LAUNCHES}, "
+             f"{attention.PREFILL_FALLBACKS} blockwise fallbacks")
     if not all(launches.values()):
         fail(f"a kernel never launched on the main path: {launches}")
     for r in results:
@@ -935,6 +992,510 @@ def phase_column(smi: str) -> dict:
     return launches
 
 
+# ------------------------------------------------ the paper's ADMM pruning
+
+DEV = "cuda"
+ADMM_ITERS = 8            # prune_config_for(..., iters=8): rho steps every 2
+ADMM_BATCH, ADMM_SEQ = 16, 64
+ADMM_SERVE = dict(requests=4, prompt=128, new=16)
+ADMM_SHORT_LAYERS = 4     # whole-model, kill-and-resume: 4 of 28 layers
+# retraining draws its labels from the first 10 of the head's 1000 classes,
+# so 10 AdamW steps visibly lower the loss (from ln 1000); at lr 1e-3 the
+# full-width VGG-16's loss jumps between steps, at 3e-4 it falls steadily
+ADMM_CNN = dict(iters=4, batch=32, retrain_steps=10, retrain_lr=3e-4,
+                retrain_classes=10)
+ADMM_VGG = dict(num_classes=1000, image_hwc=(224, 224, 3))
+
+
+class Stop(Exception):
+    """The kill-and-resume check's callback stops its run with this."""
+
+
+def finite_history(tag: str, history: dict) -> None:
+    bad = {k: v for k, v in history.items()
+           if not all(math.isfinite(x) for x in v)}
+    if bad or not history["loss"]:
+        fail(f"[{tag}] non-finite or empty ADMM history: {bad or history}")
+
+
+def lanes_exact(tag: str, art, keep: int = 4, group: int = 8) -> int:
+    """Every pruned leaf keeps exactly ``keep`` of every ``group`` lanes in
+    each (block_p x group) tile of its paper view (out, in). Returns the
+    number of leaves checked."""
+    masks = dict(tree_items(art.masks))
+    n = 0
+    for path, spec in tree_items(art.specs):
+        if spec is None:
+            continue
+        m = masks[path].T                        # (P = out, Q = in)
+        P, Q = m.shape
+        lanes = m.reshape(P // spec.tile_block_p, spec.tile_block_p,
+                          Q // group, group).ne(0).any(dim=1).sum(dim=-1)
+        if not bool((lanes == keep).all()):
+            fail(f"[{tag}] {path}: lanes kept per tile {lanes.unique()}, "
+                 f"want exactly {keep} of {group}")
+        n += 1
+    return n
+
+
+def layerwise_distance(pruner, teacher, student, batch) -> float:
+    """Problem (3)'s loss summed over layers: each layer of ``student``
+    fed the student's previous output, against the teacher's output."""
+    adapter = pruner.adapter
+    acts = pruner.teacher_acts(teacher, batch)
+    x = adapter.embed(student, batch)
+    total = 0.0
+    for n in range(adapter.num_layers):
+        x = adapter.apply_layer(n, adapter.layer_params(student, n), x)
+        total += float(frobenius_distance(x, acts[n]))
+    return total
+
+
+def profiled_iteration(tag: str, pruner, params) -> dict:
+    """One layer-wise iteration (a fresh ``run_layerwise`` of 1): the
+    device busy share under torch.profiler (device activity only),
+    started by the fault hook and stopped by the callback so it holds that
+    iteration alone; then, in another such run, its wall split by phase
+    (a synchronize around each phase): the teacher pass, the per-layer
+    primal steps and the projection + dual steps (the rest: the student's
+    forward and the residuals)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+
+    # the device's kernels only: the host side of ~30 k launches would
+    # take the profiler longer to digest than the iteration takes
+    prof = trace(activities=[ProfilerActivity.CUDA])
+    mark = {}
+
+    def start(it, p, av):
+        torch.cuda.synchronize()
+        prof.start()
+        mark["t0"] = time.perf_counter()
+
+    def stop(it, metrics):
+        torch.cuda.synchronize()
+        mark["wall"] = time.perf_counter() - mark["t0"]
+        prof.stop()
+
+    pruner.run_layerwise(as_key(2), params, iterations=1, fault_hook=start,
+                         callback=stop)
+    wall = mark["wall"]
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+
+    clock = dict.fromkeys(("teacher", "primal", "project_dual"), 0.0)
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            clock[name] += time.perf_counter() - t
+            return out
+        return run
+
+    saved = (admm_mod.primal_step, admm_mod.proximal_step, admm_mod.dual_step)
+    admm_mod.primal_step = timed("primal", saved[0])
+    admm_mod.proximal_step = timed("project_dual", saved[1])
+    admm_mod.dual_step = timed("project_dual", saved[2])
+    pruner.teacher_acts = timed("teacher", pruner.teacher_acts)
+    try:
+        pruner.run_layerwise(as_key(2), params, iterations=1,
+                             fault_hook=start, callback=stop)
+    finally:
+        admm_mod.primal_step, admm_mod.proximal_step, admm_mod.dual_step = (
+            saved)
+        del pruner.teacher_acts
+    idle = [k for k, v in clock.items() if not v]
+    if idle:
+        fail(f"[{tag}] the split timed no call of {idle}: admm_iteration no "
+             f"longer calls the names this function wraps")
+    split = dict(clock, rest=mark["wall"] - sum(clock.values()))
+    return {"profiled_wall_s": wall, "device_busy_s": busy,
+            "busy_share": busy / wall,
+            "kernel_launches": sum(e.count for e in kernels),
+            "top_device_ms": {e.key[:50]: e.self_device_time_total / 1e3
+                              for e in top},
+            "split_wall_s": mark["wall"], "split_s": split}
+
+
+def admm_serve(tag: str, model, art) -> dict:
+    """The main path: the ADMM-pruned artifact packed, bound and served by
+    the launcher's engine (CUDA graphs); counts zeroed around the served
+    run. Every flash call on wgmma, no blockwise fallback, pattern_gemm
+    launched."""
+    cfg = model.config
+    g = torch.Generator().manual_seed(3)
+    reqs = [Request(uid=i, prompt=torch.randint(
+        0, cfg.vocab_size, (ADMM_SERVE["prompt"],), generator=g),
+        max_new_tokens=ADMM_SERVE["new"])
+        for i in range(ADMM_SERVE["requests"])]
+    eng = launch_serve.make_engine(
+        model, art, batch=4, packed=True,
+        max_seq=ADMM_SERVE["prompt"] + ADMM_SERVE["new"])
+    eng.generate(reqs[:1])                         # captures the graphs
+    torch.cuda.synchronize()
+    reset_launches()                               # the main path
+    t0 = time.perf_counter()
+    results = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(("pattern_gemm", "flash_attention"))
+    routes = dict(fa_mod.ROUTE_LAUNCHES,
+                  blockwise_fallbacks=attention.PREFILL_FALLBACKS)
+    print(f"[{tag}] served {len(reqs)} requests x {ADMM_SERVE['prompt']} "
+          f"prompt tokens x {ADMM_SERVE['new']} new in {wall * 1e3:.1f} ms; "
+          f"launches {json.dumps(launches)}; prefill attention by route "
+          f"{json.dumps(routes)}", flush=True)
+    if (launches["flash_attention"] == 0 or routes["wgmma"]
+            != launches["flash_attention"] or routes["blockwise_fallbacks"]):
+        fail(f"[{tag}] served prefill off flash's wgmma route: {routes}")
+    if launches["pattern_gemm"] == 0:
+        fail(f"[{tag}] pattern_gemm never launched: {launches}")
+    for r in results:
+        if len(r.tokens) != ADMM_SERVE["new"] or not all(
+                0 <= t < cfg.vocab_size for t in r.tokens):
+            fail(f"[{tag}] request {r.uid}: bad tokens {r.tokens[:8]}")
+    return launches
+
+
+def moved_from_greedy(tag: str, what: str, pruned, teacher, pcfg, *,
+                      gate: bool = True) -> None:
+    """Layer-wise fp32 ADMM moves the weights before its last projection
+    (from layer 1 on, the student's input is the pruned student's
+    output), so with ``gate`` some pruned leaf must differ from the
+    greedy (magnitude) projection of the teacher; if none does, the
+    primal steps did nothing. Whole-model ADMM starts at the teacher,
+    where the distillation gradient is 0 and rho's pull is below fp32's
+    resolution for its first iterations: a reading there."""
+    greedy = greedy_prune(teacher, pcfg, device=DEV)
+    want = dict(tree_items(greedy.params))
+    pruned_paths = [p for p, m in tree_items(greedy.masks) if m is not None]
+    got = dict(tree_items(pruned))
+    moved = sum(not torch.equal(got[p], want[p]) for p in pruned_paths)
+    print(f"[{tag}] {what}: {moved} of {len(pruned_paths)} pruned leaves "
+          f"differ from the greedy projection of the teacher", flush=True)
+    if gate and not moved:
+        fail(f"[{tag}] {what}: the primal steps moved no weight")
+
+
+def kill_and_resume(tag: str, model, params) -> None:
+    """4 iterations, a checkpoint every 2: a run stopped by its callback
+    after iteration 2 and resumed must end bit-equal (params, Z, U, key,
+    history) to an uninterrupted run, whose weights moved (fp32)."""
+    import filecmp
+
+    pcfg = prune_config_for(scheme="tile_pattern", rate=2, iters=4,
+                            batch=ADMM_BATCH)
+
+    def stop(it, metrics):
+        if it == 1:
+            raise Stop
+
+    with tempfile.TemporaryDirectory(prefix="admm-ckpt-") as d:
+        def run(sub, **kw):
+            pr = PrivacyPreservingPruner(LMAdapter(model, seq_len=ADMM_SEQ),
+                                         pcfg)
+            return pr.run(as_key(1), params, save_every=2,
+                          checkpoint_dir=os.path.join(d, sub), **kw)
+
+        t0 = time.perf_counter()
+        whole = run("a")
+        t_run = time.perf_counter() - t0
+        try:
+            run("b", callback=stop)
+            fail(f"[{tag}] the stopping callback did not stop the run")
+        except Stop:
+            pass
+        resumed = run("b", resume=True)
+        secs = time.perf_counter() - t0
+        # the final steps' leaf files, byte for byte, and their extras
+        final = [os.path.join(d, sub, "step_000000004") for sub in "ab"]
+        files = sorted(f for f in os.listdir(final[0]) if f.endswith(".npy"))
+        extras = [json.load(open(os.path.join(f, "manifest.json")))["extra"]
+                  for f in final]
+        same = (files == sorted(f for f in os.listdir(final[1])
+                                if f.endswith(".npy"))
+                and all(filecmp.cmp(os.path.join(final[0], f),
+                                    os.path.join(final[1], f), shallow=False)
+                        for f in files)
+                and extras[0] == extras[1]
+                and whole.history == resumed.history)
+        size = disk_bytes(final[0])
+    print(f"[{tag}] kill after iteration 2 and resume (4 iterations, "
+          f"checkpoint every 2, {size} bytes a step): params, Z, U, key and "
+          f"history bit-equal to the uninterrupted run: {same} "
+          f"({len(files)} leaf files; 3 runs {secs:.1f} s, the "
+          f"uninterrupted one {t_run:.1f} s)", flush=True)
+    if not same:
+        fail(f"[{tag}] the resumed run differs from the uninterrupted one")
+    moved_from_greedy(tag, "layer-wise, 4 iterations", whole.params, params,
+                      pcfg)
+    batch = LMAdapter(model, seq_len=ADMM_SEQ).synthetic_batch(
+        torch.Generator(device=DEV).manual_seed(9), ADMM_BATCH)
+    pruner = PrivacyPreservingPruner(LMAdapter(model, seq_len=ADMM_SEQ),
+                                     pcfg)
+    d_admm = layerwise_distance(pruner, params, whole.params, batch)
+    d_greedy = layerwise_distance(
+        pruner, params, greedy_prune(params, pcfg, device=DEV).params, batch)
+    print(f"[{tag}] fp32, {model.config.num_layers} layers: layer-wise "
+          f"distillation loss on one synthetic batch ADMM {d_admm:.6g}, "
+          f"greedy magnitude {d_greedy:.6g} (a reading, not a gate)",
+          flush=True)
+
+
+def launcher_pair(tag: str) -> None:
+    """``launch.prune --reduced`` then ``launch.serve --reduced --artifact
+    --packed`` as subprocesses on the card: both exit 0, and the reduced
+    config's head_dim 16 prefills through the blockwise fallback."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")] + [p for p in os.environ.get(
+            "PYTHONPATH", "").split(os.pathsep) if p]))
+    with tempfile.TemporaryDirectory(prefix="admm-launch-") as d:
+        art = os.path.join(d, "artifact")
+        cmds = (["repro_torch.launch.prune", "--arch", "qwen2-1.5b",
+                 "--reduced", "--scheme", "tile_pattern", "--rate", "2",
+                 "--tile-block", "32", "--iters", "2", "--out",
+                 os.path.join(d, "out"), "--artifact-out", art],
+                ["repro_torch.launch.serve", "--arch", "qwen2-1.5b",
+                 "--reduced", "--artifact", art, "--packed", "--requests",
+                 "2", "--max-new", "6"])
+        outs = []
+        for cmd in cmds:
+            t0 = time.perf_counter()
+            out = subprocess.run([sys.executable, "-m", *cmd], env=env,
+                                 capture_output=True, text=True,
+                                 timeout=300)
+            print(f"[{tag}] python -m {' '.join(cmd[:1])} --reduced: exit "
+                  f"{out.returncode} in {time.perf_counter() - t0:.1f} s; "
+                  f"{out.stdout.strip().splitlines()[-2:]}", flush=True)
+            if out.returncode != 0:
+                fail(f"[{tag}] {cmd[0]} failed: {out.stderr[-3000:]}")
+            outs.append(out.stdout)
+    line = [ln for ln in outs[1].splitlines()
+            if ln.startswith("prefill attention {")]
+    routes = json.loads(line[0][line[0].index("{"):]) if line else {}
+    if not routes.get("blockwise_fallbacks") or any(
+            routes.get("flash", {}).values()):
+        fail(f"[{tag}] the reduced serve did not prefill through the "
+             f"blockwise fallback: {routes}")
+
+
+def phase_admm(smi: str) -> dict:
+    """qwen2-1.5b at full width pruned by layer-wise ADMM on synthetic
+    tokens, served packed; then at 4 layers the whole-model formulation,
+    kill and resume, and the launcher pair. Returns the served run's
+    launch counts."""
+    tag = "admm"
+    t_phase = time.perf_counter()
+
+    def lap(what):
+        print(f"[{tag}] {what} done at {time.perf_counter() - t_phase:.1f} "
+              f"s into the phase", flush=True)
+
+    cfg = get_config("qwen2-1.5b")
+    model = LM(cfg, device=DEV)
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    pcfg = prune_config_for(scheme="tile_pattern", rate=2, iters=ADMM_ITERS,
+                            batch=ADMM_BATCH)
+    pruner = PrivacyPreservingPruner(LMAdapter(model, seq_len=ADMM_SEQ), pcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stamps = [time.perf_counter()]
+
+    def report(it, m):
+        stamps.append(time.perf_counter())
+        print(f"[{tag}] iteration {it}: loss {m['loss']:.6g} primal "
+              f"residual {m['residual']:.6g} dual residual "
+              f"{m['dual_residual']:.6g} rho {m['rho']:.3g} "
+              f"({stamps[-1] - stamps[-2]:.3f} s)", flush=True)
+
+    result = pruner.run_layerwise(as_key(1), params, callback=report)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    per_iter = [b - a for a, b in zip(stamps, stamps[1:])]
+    med = statistics.median(per_iter[-6:])
+    finite_history(tag, result.history)
+    print(f"[{tag}] qwen2-1.5b L={cfg.num_layers} d_model={cfg.d_model} "
+          f"{cfg.param_dtype}, layer-wise ADMM tile_pattern 4 of 8 "
+          f"(block_p 128), batch {ADMM_BATCH} x {ADMM_SEQ} synthetic tokens, "
+          f"{ADMM_ITERS} iterations: {med:.4f} s per iteration (median of "
+          f"the last 6; each {json.dumps(per_iter)}); "
+          f"peak device memory {peak} bytes ({smi})", flush=True)
+    lap("8 iterations")
+    split = profiled_iteration(tag, pruner, params)
+    print(f"[{tag}] one iteration: device busy {split['device_busy_s']:.4f}"
+          f" of {split['profiled_wall_s']:.4f} s profiled "
+          f"({100 * split['busy_share']:.1f}%); " + json.dumps(split),
+          flush=True)
+
+    art = result.to_artifact(arch="qwen2-1.5b", scheme="tile_pattern",
+                             rate=2.0)
+    n_leaves = lanes_exact(tag, art)
+    if (art.privacy or {}).get("data") != "synthetic":
+        fail(f"[{tag}] manifest privacy block {art.privacy}")
+    print(f"[{tag}] {n_leaves} pruned leaves keep exactly 4 of every 8 "
+          f"lanes per tile; manifest privacy {json.dumps(art.privacy)}",
+          flush=True)
+    batch = pruner.adapter.synthetic_batch(
+        torch.Generator(device=DEV).manual_seed(9), ADMM_BATCH)
+    greedy = greedy_prune(params, pcfg, device=DEV)
+    d_admm = layerwise_distance(pruner, params, result.params, batch)
+    d_greedy = layerwise_distance(pruner, params, greedy.params, batch)
+    print(f"[{tag}] layer-wise distillation loss on one synthetic batch "
+          f"(summed over {cfg.num_layers} layers): ADMM {d_admm:.6g}, greedy "
+          f"magnitude {d_greedy:.6g} (a reading, not a gate)", flush=True)
+    del greedy
+    lap("profiled iterations, gates, greedy reading")
+    art = art.pack(device=DEV)
+    check_exact(tag, art)
+    launches = admm_serve(tag, model, art)
+    lap("pack and serve")
+    del art, result, pruner
+    torch.cuda.empty_cache()
+
+    # fp32 params: the primal steps' updates survive the rounding back to
+    # the param dtype (in bf16 they round to the weights they started at)
+    cfg4 = dataclasses.replace(cfg, num_layers=ADMM_SHORT_LAYERS,
+                               param_dtype="float32")
+    model4 = LM(cfg4, device=DEV)
+    params4 = model4.init(torch.Generator(device=DEV).manual_seed(0))
+    whole_cfg = prune_config_for(scheme="tile_pattern", rate=2, iters=2,
+                                 batch=ADMM_BATCH, layerwise=False)
+    t0 = time.perf_counter()
+    whole = PrivacyPreservingPruner(LMAdapter(model4, seq_len=ADMM_SEQ),
+                                    whole_cfg).run(as_key(1), params4)
+    finite_history(tag, whole.history)
+    print(f"[{tag}] whole-model ADMM (problem 2) at {ADMM_SHORT_LAYERS} "
+          f"layers fp32, 2 iterations in {time.perf_counter() - t0:.2f} s: "
+          f"{json.dumps(whole.history)}", flush=True)
+    moved_from_greedy(tag, "whole-model, 2 iterations", whole.params,
+                      params4, whole_cfg, gate=False)
+    del whole
+    kill_and_resume(tag, model4, params4)
+    del model4, params4
+    torch.cuda.empty_cache()
+    lap("4-layer whole-model and kill-and-resume")
+    launcher_pair(tag)
+    return launches
+
+
+def phase_admm_cnn(smi: str) -> int:
+    """VGG-16 at full width (ImageNet head, 224 x 224) pruned by layer-wise
+    ADMM ``pattern_shared`` on synthetic images, retrained with masks on
+    the client's pipeline, packed: one bf16 forward (counts zeroed around
+    it) and the fp32 top-1 gate of ``[cnn]``. Returns its pattern_conv
+    launches."""
+    tag = "admm_cnn"
+    kw = ADMM_VGG
+    model = vgg16(**kw, device=DEV)
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    iters = ADMM_CNN["iters"]
+    pcfg = PruneConfig(scheme="pattern_shared", alpha=0.25, iterations=iters,
+                       batch_size=ADMM_CNN["batch"], lr=1e-3,
+                       rho_every_iters=max(iters // 3, 1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stamps = [time.perf_counter()]
+
+    def report(it, m):
+        stamps.append(time.perf_counter())
+        print(f"[{tag}] iteration {it}: loss {m['loss']:.6g} primal "
+              f"residual {m['residual']:.6g} dual residual "
+              f"{m['dual_residual']:.6g} ({stamps[-1] - stamps[-2]:.3f} s)",
+              flush=True)
+
+    result = PrivacyPreservingPruner(model, pcfg).run_layerwise(
+        as_key(1), params, callback=report)
+    finite_history(tag, result.history)
+    admm_s = [b - a for a, b in zip(stamps[1:], stamps[2:])]
+    admm_peak = torch.cuda.max_memory_allocated()
+    moved_from_greedy(tag, f"layer-wise, {iters} iterations", result.params,
+                      params, pcfg)
+    del params
+
+    data = ClassificationPipeline(DataConfig(
+        global_batch=ADMM_CNN["batch"],
+        num_classes=ADMM_CNN["retrain_classes"],
+        image_hwc=kw["image_hwc"]), device=DEV)
+    masks = result.masks
+    opt = adamw(ADMM_CNN["retrain_lr"])
+    step = make_retrain_step(model.apply, cross_entropy, opt, masks)
+    p, state = result.params, opt.init(result.params)
+    losses, times = [], []
+    for i in range(ADMM_CNN["retrain_steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, state, loss = step(p, state, data.batch_at(i))
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    zeros = all(bool((w[m == 0] == 0).all()) for w, m in zip(
+        tree_leaves(tree_map(lambda w, m: None if m is None else w, p,
+                             masks)),
+        tree_leaves(masks)))
+    print(f"[{tag}] VGG-16 {kw['image_hwc']} fp32, layer-wise ADMM "
+          f"pattern_shared alpha 0.25, batch {ADMM_CNN['batch']}: "
+          f"{statistics.median(admm_s):.4f} s per iteration (median of "
+          f"{len(admm_s)} after the first); {ADMM_CNN['retrain_steps']} "
+          f"masked AdamW steps: {statistics.median(times[1:]):.4f} s per "
+          f"step (median after the first), labels of "
+          f"{ADMM_CNN['retrain_classes']} classes, loss by step "
+          f"{json.dumps([round(x, 5) for x in losses])}; masked-out weights still exactly 0: {zeros}; "
+          f"peak device memory ADMM {admm_peak}, retrain {peak} bytes "
+          f"({smi})", flush=True)
+    if not zeros or not all(math.isfinite(x) for x in losses):
+        fail(f"[{tag}] retraining broke the mask or diverged: {losses}")
+    if statistics.mean(losses[-3:]) > losses[0] - 0.01:
+        fail(f"[{tag}] retraining did not lower the loss by 0.01: {losses}")
+    retrained = dataclasses.replace(result.to_artifact(arch="vgg16"),
+                                    params=p)
+    del result, state, data
+    torch.cuda.empty_cache()
+
+    bf16 = vgg16(**kw, param_dtype="bfloat16", device=DEV)
+    art = dataclasses.replace(retrained, params=tree_map(
+        lambda w: w.to(torch.bfloat16), p)).pack(device=DEV)
+    check_exact(tag, art)
+    tree = art.bind(bf16, packed=True)
+    want_routes = conv_routes(tree)
+    x = bf16.synthetic_batch(torch.Generator(device=DEV).manual_seed(1),
+                             ADMM_CNN["batch"])
+    bf16.apply(tree, x)                                # warm-up
+    torch.cuda.synchronize()
+    reset_launches()                                   # the main path
+    logits = bf16.apply(tree, x)
+    torch.cuda.synchronize()
+    launches, routes = pc_mod.LAUNCHES, dict(pc_mod.ROUTE_LAUNCHES)
+    print(f"[{tag}] packed bf16 forward: pattern_conv launches {launches} "
+          f"(want 13; by route {json.dumps(routes)}, want "
+          f"{json.dumps(want_routes)})", flush=True)
+    if launches != 13 or routes != want_routes or not bool(
+            torch.isfinite(logits).all()):
+        fail(f"[{tag}] packed forward: {launches} launches, {routes}")
+    del art, tree, logits
+    torch.cuda.empty_cache()
+
+    x = x.to(torch.float32)
+    dense = model.apply(retrained.bind(model, packed=False), x)
+    packed = model.apply(retrained.pack(device=DEV).bind(model, packed=True),
+                         x)
+    diff = (dense - packed).abs().max().item()
+    top2 = torch.topk(dense, 2, dim=1).values
+    sure = (top2[:, 0] - top2[:, 1]) > 2 * diff
+    same = bool((dense.argmax(1) == packed.argmax(1))[sure].all())
+    print(f"[{tag}] fp32 retrained dense-pruned (F.conv2d, no TF32) vs "
+          f"packed: max |logit diff| {diff:.3e}; top-1 identical on the "
+          f"{int(sure.sum())} of {ADMM_CNN['batch']} images whose dense "
+          f"top-2 gap exceeds twice that: {same}", flush=True)
+    if not same or not bool(torch.isfinite(packed).all()):
+        fail(f"[{tag}] fp32 packed top-1 differs from dense-pruned")
+    return launches
+
+
 META = {
     "pattern_gemm": ("src/repro_torch/kernels/csrc/pattern_gemm.cu",
                      "src/repro/kernels/pattern_gemm.py:124"),
@@ -1016,17 +1577,26 @@ def main() -> int:
         timed("identity", phase_identity)
         conv = [timed(path[0], phase_cnn, smi, *path) for path in CNN_PATHS]
         column = timed("column", phase_column, smi)
+        admm = timed("admm", phase_admm, smi)
+        admm_conv = timed("admm_cnn", phase_admm_cnn, smi)
     print(f"[time] all phases {time.perf_counter() - t0:.1f} s", flush=True)
-    launches = {**launches, "pattern_conv": sum(conv),
-                "column_gemm": column["column_gemm"]}
     runs = {
-        "pattern_gemm": "tile-pattern qwen2-1.5b serving 8 requests",
-        "flash_attention": "tile-pattern qwen2-1.5b serving 8 requests",
+        "pattern_gemm": "tile-pattern qwen2-1.5b serving 8 requests "
+                        f"({launches['pattern_gemm']}) + the ADMM-pruned "
+                        f"one serving 4 ({admm['pattern_gemm']})",
+        "flash_attention": "tile-pattern qwen2-1.5b serving 8 requests "
+                           f"({launches['flash_attention']}) + the "
+                           "ADMM-pruned one serving 4 "
+                           f"({admm['flash_attention']})",
         "pattern_conv": "one bf16 forward of VGG-16 at batch 32 "
                         f"({conv[0]}) + one of ResNet-18 at batch 256 "
-                        f"({conv[1]})",
+                        f"({conv[1]}) + one of the ADMM-pruned, retrained "
+                        f"VGG-16 at batch 32 ({admm_conv})",
         "column_gemm": "column-pruned qwen2-1.5b serving 8 requests",
     }
+    launches = {k: launches[k] + admm[k] for k in launches}
+    launches.update(pattern_conv=sum(conv) + admm_conv,
+                    column_gemm=column["column_gemm"])
     print(smi, flush=True)
     print(json.dumps({"kernels": summarize(rows, launches, runs)}),
           flush=True)

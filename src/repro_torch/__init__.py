@@ -5,8 +5,10 @@ module layout (``kernels/``, ``sparse/``, ``core/``, ``models/``,
 ``serve/``, ``checkpoint/``, ``launch/``, ``configs/``) and never imports
 ``jax`` or ``repro``.
 
-Covered so far — prune, pack, save, load and serve a dense LM (tile
-pattern or column) and pattern-pruned CNNs:
+Covered so far — the paper's privacy-preserving ADMM pruning on
+synthetic data (``core.PrivacyPreservingPruner``, resumable, with masked
+retraining in ``core.retrain``), and pack, save, load and serve a dense
+LM (tile pattern or column) and pattern-pruned CNNs:
 
     model    = LM(get_config("qwen2-1.5b"))                  # on cuda
     params   = model.init(torch.Generator("cuda").manual_seed(0))

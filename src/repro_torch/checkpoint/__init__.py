@@ -4,11 +4,12 @@
 from repro_torch.checkpoint.checkpointer import (
     SCHEMA_VERSION,
     ArtifactError,
+    CheckpointManager,
     load_pytree,
     restore_pytree,
     save_pytree,
     verify_checkpoint,
 )
 
-__all__ = ["SCHEMA_VERSION", "ArtifactError", "load_pytree", "restore_pytree",
-           "save_pytree", "verify_checkpoint"]
+__all__ = ["SCHEMA_VERSION", "ArtifactError", "CheckpointManager",
+           "load_pytree", "restore_pytree", "save_pytree", "verify_checkpoint"]

@@ -19,7 +19,9 @@ crash mid-write never leaves a half-written checkpoint under its name.
 
 Leaves are torch tensors (any device), numpy arrays or ``PackedTensor``s;
 ``None`` leaves are not saved (the reference's masks have ``None`` at
-unpruned params). The step-indexed ``CheckpointManager`` is not ported.
+unpruned params). ``CheckpointManager`` keeps step-indexed checkpoints
+(``<root>/step_<k:09d>``) with rotation, in the reference's layout, so
+either package reads the other's steps.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from __future__ import annotations
 import io
 import json
 import os
+import re
 import shutil
 import tempfile
 import time
@@ -39,6 +42,7 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 
 MANIFEST = "manifest.json"
+COMMIT_RE = re.compile(r"^step_(\d+)$")
 
 # the reference's manifest layout version; loaders accept <= current.
 # v1: no version field, no checksums; v2: + schema_version, per-file crc32
@@ -328,6 +332,8 @@ def _unflatten(like: Any, leaves: List[Any]) -> Any:
             done = {k: build(node[k]) for k in sorted(node)}
             return {k: done[k] for k in node}
         seq = [build(v) for v in node]
+        if hasattr(node, "_fields"):          # a NamedTuple keeps its type
+            return type(node)(*seq)
         return tuple(seq) if isinstance(node, tuple) else seq
 
     return build(like)
@@ -402,3 +408,58 @@ def load_pytree(directory: str, *, device: DeviceLike = None) -> Any:
                                 field="path")
         flat[entry["path"]] = _load_leaf(directory, entry, dev)
     return _nest(flat, manifest.get("containers"))
+
+
+class CheckpointManager:
+    """Step-indexed checkpoints with rotation and crash-safe commits.
+
+    A step is committed once its directory holds a manifest:
+    ``save_pytree`` writes into a temporary directory and renames it into
+    place, so ``steps`` never lists a half-written step. After each save
+    only the ``keep`` newest steps are kept.
+    """
+
+    def __init__(self, root: str, keep: int = 3):
+        self.root = root
+        self.keep = keep
+        os.makedirs(root, exist_ok=True)
+
+    def _dir(self, step: int) -> str:
+        return os.path.join(self.root, f"step_{step:09d}")
+
+    def steps(self) -> List[int]:
+        out = []
+        for name in os.listdir(self.root):
+            m = COMMIT_RE.match(name)
+            if m and os.path.exists(os.path.join(self.root, name, MANIFEST)):
+                out.append(int(m.group(1)))
+        return sorted(out)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, tree: Any, *,
+             extra: Optional[Dict] = None) -> None:
+        save_pytree(self._dir(step), tree, extra=extra)
+        self._rotate()
+
+    def restore(self, like: Any, step: Optional[int] = None) -> Any:
+        """Step ``step`` (default: the newest) in the structure of ``like``,
+        each tensor on the device of the leaf it replaces."""
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {self.root}")
+        return restore_pytree(self._dir(step), like)
+
+    def extra(self, step: Optional[int] = None) -> Dict:
+        if step is None:
+            step = self.latest_step()
+        with open(os.path.join(self._dir(step), MANIFEST)) as f:
+            return json.load(f)["extra"]
+
+    def _rotate(self) -> None:
+        steps = self.steps()
+        for s in steps[: max(0, len(steps) - self.keep)]:
+            shutil.rmtree(self._dir(s), ignore_errors=True)

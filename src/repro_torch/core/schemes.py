@@ -76,17 +76,24 @@ class LayerSpec:
 
 @dataclasses.dataclass(frozen=True)
 class PruneConfig:
-    """Which tensors are pruned, and how (global default + overrides).
-
-    The reference's ADMM hyper-parameters are not carried: the port's
-    only pruner so far is the data-free ``greedy_prune``.
-    """
+    """Which tensors are pruned, and how (global default + overrides),
+    and the ADMM hyper-parameters of the privacy-preserving pruner."""
 
     scheme: str = "irregular"
     alpha: float = 0.25
     exclude: Sequence[str] = DEFAULT_EXCLUDE
     overrides: Dict[str, Dict[str, Any]] = dataclasses.field(
         default_factory=dict)
+    # ADMM hyper-parameters (paper section V-A)
+    rho_init: float = 1e-4
+    rho_max: float = 1e-1
+    rho_mult: float = 10.0
+    rho_every_iters: int = 110     # "x10 every 11 epochs", 10 iterations each
+    lr: float = 1e-3
+    batch_size: int = 32
+    iterations: int = 300
+    primal_steps: int = 1
+    layerwise: bool = True         # problem (3) against problem (2)
 
     def spec_for(self, path: str, shape) -> Optional[LayerSpec]:
         """LayerSpec for a (reference-style) path, or None if excluded."""

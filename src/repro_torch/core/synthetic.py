@@ -1,9 +1,10 @@
 """Data-free synthetic inputs (mirrors ``repro/core/synthetic.py``).
 
 The paper's generator: every pixel drawn from the discrete Uniform[0, 255]
-distribution, independent of any client data. Drawn from a
-``torch.Generator``, so the values match the reference's distribution,
-not its bits.
+distribution, independent of any client data; for an LM the same
+no-prior-knowledge principle gives uniform token ids over the vocabulary.
+Drawn from a ``torch.Generator``, so the values match the reference's
+distribution, not its bits.
 """
 
 from __future__ import annotations
@@ -26,3 +27,12 @@ def synthetic_images(gen: torch.Generator, batch: int,
                         dtype=torch.int32)
     x = pix.to(torch.float32)
     return x / 255.0 if normalize else x
+
+
+def synthetic_tokens(gen: torch.Generator, batch: int, seq_len: int,
+                     vocab_size: int, *,
+                     device: DeviceLike = None) -> torch.Tensor:
+    """(batch, seq_len) int64 token ids, uniform over the vocabulary (the
+    LM analogue of uniform pixels). ``gen`` must live on ``device``."""
+    return torch.randint(0, vocab_size, (batch, seq_len), generator=gen,
+                         device=resolve_device(device), dtype=torch.int64)

@@ -25,7 +25,7 @@ LAUNCHES = 0
 HEAD_DIMS = (32, 64, 128)
 WGMMA_HEAD_DIMS = (64, 128)
 FLASH_ROUTES = ("wgmma", "simt")
-# launches per route (plain ints, counted with LAUNCHES)
+# launches per route (plain ints)
 ROUTE_LAUNCHES = dict.fromkeys(FLASH_ROUTES, 0)
 _DTYPES = (torch.float32, torch.bfloat16)
 

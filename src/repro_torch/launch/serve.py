@@ -23,6 +23,7 @@ Speculative serving (``--speculative`` in the reference) is not ported.
 from __future__ import annotations
 
 import argparse
+import json
 import time
 from typing import Any, List, Optional, Sequence
 
@@ -33,7 +34,8 @@ from repro_torch.configs import get_config, reduced_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import params_from_jax
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import LM
+from repro_torch.kernels import flash_attention
+from repro_torch.models import LM, attention
 from repro_torch.serve.engine import Request, Result, ServeEngine
 from repro_torch.sparse.artifact import PrunedArtifact
 
@@ -124,6 +126,11 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Result]:
     mode = "packed" if args.packed else "dense"
     print(f"{len(results)} requests, {n_tok} tokens in {dt:.2f}s "
           f"({n_tok / dt:.1f} tok/s, batch={args.batch}, {mode}, {dev})")
+    # flash launches by route; blockwise: prefills of a shape the kernel
+    # does not take
+    print("prefill attention " + json.dumps(
+        {"flash": flash_attention.ROUTE_LAUNCHES,
+         "blockwise_fallbacks": attention.PREFILL_FALLBACKS}))
     for r in results[:4]:
         print(f"  uid={r.uid}: {r.tokens[:12]}"
               f"{'...' if len(r.tokens) > 12 else ''}")

@@ -1,10 +1,13 @@
-"""Attention for serving (mirrors ``repro/models/attention.py``).
+"""Attention (mirrors ``repro/models/attention.py``).
 
-Prefill attention on the card is the ``flash_attention`` kernel;
-``blockwise_attention`` is the plain q-chunked online-softmax version the
-LM runs on the CPU. Decode attends one new position against the KV cache
-with plain tensor ops (an XLA op in the reference, not a Pallas kernel).
-Ring caches for sliding-window models are not ported yet.
+``prefill_attention`` is the full-sequence attention of the LM: on the
+card a serving call (``use_flash``) of a shape ``flash_prefill_supported``
+admits runs the ``flash_attention`` kernel; every other call, a training
+forward included, runs ``blockwise_attention``, the plain q-chunked
+online-softmax version (differentiable by autograd). Decode attends one
+new position against the KV cache with plain tensor ops (an XLA op in the
+reference, not a Pallas kernel). Ring caches for sliding-window models
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -15,7 +18,49 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import flash_attention as flash
+
 NEG_INF = -1e30
+
+
+# prefill calls that asked for the flash kernel (``use_flash`` on the
+# card) and ran ``blockwise_attention`` because the kernel does not take
+# their shape; they launch no kernel
+PREFILL_FALLBACKS = 0
+
+
+def flash_prefill_supported(seq_len: int, num_heads: int, num_kv_heads: int,
+                            head_dim: int) -> bool:
+    """Can the ``flash_attention`` kernel serve this prefill shape?
+
+    The kernel's own limits: a head dim in ``HEAD_DIMS`` and an exact GQA
+    ratio. It takes every S (TMA zero-fills the ragged edge), so unlike
+    the reference's Pallas kernel it needs no S divisible by its block. A
+    shape that fails takes ``blockwise_attention``, so serving never
+    crashes on a shape the kernel does not take.
+    """
+    if seq_len <= 0 or num_kv_heads <= 0:
+        return False
+    return num_heads % num_kv_heads == 0 and head_dim in flash.HEAD_DIMS
+
+
+def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True,
+                      use_flash: bool = False) -> torch.Tensor:
+    """Full-sequence attention of q (B, S, H, hd), k/v (B, S, KV, hd).
+
+    ``use_flash`` is the serving request: on CUDA tensors of a supported
+    shape it launches the flash kernel; an unsupported shape takes
+    ``blockwise_attention`` and counts one ``PREFILL_FALLBACKS``. A kernel
+    that fails still raises.
+    """
+    global PREFILL_FALLBACKS
+    B, S, H, hd = q.shape
+    if use_flash and q.device.type == "cuda":
+        if flash_prefill_supported(S, H, k.shape[2], hd):
+            return flash.flash_attention(q, k, v, causal=causal)
+        PREFILL_FALLBACKS += 1
+    return blockwise_attention(q, k, v, causal=causal, chunk=min(512, S))
 
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -54,6 +54,11 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
     ph = _same_pad(x.shape[1], w.shape[2], stride)
     pw = _same_pad(x.shape[2], w.shape[3], stride)
     xn = x.permute(0, 3, 1, 2)                  # NCHW view, channels last
+    if xn.device.type == "cpu":
+        # the CPU backend's weight gradient of a strided 1x1 conv on a
+        # channels-last input of few channels aborts the process (torch
+        # 2.13); a contiguous input takes another kernel
+        xn = xn.contiguous()
     if ph[0] == ph[1] and pw[0] == pw[1]:
         y = F.conv2d(xn, w, stride=stride, padding=(ph[0], pw[0]))
     else:

@@ -3,9 +3,14 @@
 Per-layer weights are a Python list under ``params["blocks"]`` where the
 reference stacks them on a leading layer axis and scans. Any 2-D GEMM
 weight may be a ``PackedTensor``; ``dense_apply`` then runs it through the
-packed kernel. Prefill attention runs the ``flash_attention`` kernel on
-the card and ``blockwise_attention`` on the CPU. Only the dense family
-without a sliding window is ported; other families raise.
+packed kernel. The serving prefill asks for the ``flash_attention``
+kernel (``use_flash``), which takes the shapes ``flash_prefill_supported``
+admits on the card; every other call, and every training forward (the
+kernel has no backward, as the reference's has none), runs
+``blockwise_attention``. ``hidden_states``, ``block`` and ``train_loss``
+carry autograd; ``init``, ``prefill`` and decode run under
+``torch.no_grad``. Only the dense family without a sliding window is
+ported; other families raise.
 """
 
 from __future__ import annotations
@@ -13,16 +18,16 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.attention import (
-    blockwise_attention,
     cache_capacity,
     cache_insert,
     decode_attention,
     insert_slots,
+    prefill_attention,
 )
 from repro_torch.models.layers import (
     apply_rope_tables,
@@ -36,6 +41,8 @@ from repro_torch.models.layers import (
     rmsnorm_init,
     rope_tables,
 )
+
+LOSS_CHUNK = 512               # sequence positions per cross-entropy chunk
 
 
 class LM:
@@ -132,41 +139,75 @@ class LM:
         y = ffn_apply(bp["mlp"], h, cfg.ffn_type) if cfg.d_ff else 0
         return x + y
 
-    def _prefill_attention(self, q, k, v):
+    def rope(self, S: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(sin, cos) rotary tables of positions 0 .. S - 1."""
+        positions = torch.arange(S, dtype=torch.int32, device=device)
+        return rope_tables(positions, self.config.head_dim,
+                           self.config.rope_theta)
+
+    def block(self, bp, x: torch.Tensor, rope, *, use_flash: bool = False,
+              kv: Optional[list] = None) -> torch.Tensor:
+        """One block over the full sequence (the reference's
+        ``_mixer_and_mlp``): attention and its residual, then the MLP and
+        its residual. ``use_flash`` asks for the flash kernel (serving
+        only: it has no backward); ``kv``, a list, gets this layer's
+        (k, v) appended."""
         cfg = self.config
-        if q.device.type == "cuda":
-            return flash_attention(q, k, v, causal=cfg.causal)
-        return blockwise_attention(q, k, v, causal=cfg.causal,
-                                   chunk=min(512, q.shape[1]))
+        B, S, _ = x.shape
+        h = rmsnorm(bp["norm1"], x, cfg.norm_eps)
+        q, k, v = self._qkv(bp, h, *rope)
+        if kv is not None:
+            kv.append((k, v))
+        out = prefill_attention(q, k, v, causal=cfg.causal,
+                                use_flash=use_flash)
+        x = x + dense_apply(out.reshape(B, S, cfg.attn_dim), bp["attn"]["wo"])
+        return self._mlp(bp, x)
 
     def hidden_states(self, params, tokens: torch.Tensor, *,
-                      collect_kv: bool = False):
+                      collect_kv: bool = False, use_flash: bool = False):
         """Full-sequence forward -> (final-normed hidden (B, S, D), kv).
 
         ``kv`` is a per-layer list of (k, v), each (B, S, KV, hd), when
-        ``collect_kv``; else None.
+        ``collect_kv``; else None. ``use_flash`` is for serving paths.
         """
         cfg = self.config
         x = self.embed_inputs(params, tokens)
-        B, S, _ = x.shape
-        positions = torch.arange(S, dtype=torch.int32, device=x.device)
-        sin, cos = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+        rope = self.rope(x.shape[1], x.device)
         kv: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = (
             [] if collect_kv else None)
         for bp in params["blocks"]:
-            h = rmsnorm(bp["norm1"], x, cfg.norm_eps)
-            q, k, v = self._qkv(bp, h, sin, cos)
-            if kv is not None:
-                kv.append((k, v))
-            out = self._prefill_attention(q, k, v)
-            x = x + dense_apply(out.reshape(B, S, cfg.attn_dim),
-                                bp["attn"]["wo"])
-            x = self._mlp(bp, x)
+            x = self.block(bp, x, rope, use_flash=use_flash, kv=kv)
         return rmsnorm(params["final_norm"], x, cfg.norm_eps), kv
 
+    def lm_head_weight(self, params):
+        return params["lm_head"] if "lm_head" in params else params["embed"].T
+
     def lm_logits(self, params, h: torch.Tensor) -> torch.Tensor:
-        w = params["lm_head"] if "lm_head" in params else params["embed"].T
-        return dense_apply(h, w)
+        return dense_apply(h, self.lm_head_weight(params))
+
+    def train_loss(self, params, batch: Dict[str, torch.Tensor]
+                   ) -> torch.Tensor:
+        """Mean next-token cross-entropy of ``{"inputs", "labels"}``, the
+        logits taken ``LOSS_CHUNK`` positions at a time and recomputed in
+        the backward pass (the reference's checkpointed chunks), so the
+        (B, S, vocab) logits never exist at once."""
+        h, _ = self.hidden_states(params, batch["inputs"])
+        labels = batch["labels"]
+        B, S, _ = h.shape
+        w = self.lm_head_weight(params)
+        c = min(LOSS_CHUNK, S)
+
+        def chunk_nll(h_c, y_c):
+            logits = torch.einsum("bcd,dv->bcv", h_c, w).to(torch.float32)
+            gold = torch.gather(logits, -1, y_c[..., None].long())[..., 0]
+            return (torch.logsumexp(logits, dim=-1) - gold).sum()
+
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(S // c):
+            total = total + checkpoint(chunk_nll, h[:, i * c:(i + 1) * c],
+                                       labels[:, i * c:(i + 1) * c],
+                                       use_reentrant=False)
+        return total / (B * S)
 
     # --------------------------------------------------------------- serving
 
@@ -202,7 +243,8 @@ class LM:
         if S > cache["slot_pos"].shape[1]:
             raise ValueError(f"prompt_len={S} exceeds cache capacity="
                              f"{cache['slot_pos'].shape[1]}")
-        h, kv = self.hidden_states(params, tokens, collect_kv=True)
+        h, kv = self.hidden_states(params, tokens, collect_kv=True,
+                                   use_flash=True)
         for layer, (k, v) in enumerate(kv):
             cache["k"][layer][:, :S] = k
             cache["v"][layer][:, :S] = v

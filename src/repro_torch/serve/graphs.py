@@ -26,7 +26,9 @@ under torch's default capture error mode; a capture that fails raises.
 The kernel wrappers count ``LAUNCHES`` in Python, which a replay would
 not touch: ``CountedGraph`` records each kernel module's counts over the
 capture, takes them back (a capture launches nothing), and adds them on
-every replay, so the counts stay launches on the device.
+every replay, so the counts stay launches on the device. It does the same
+with ``models.attention.PREFILL_FALLBACKS``, the prefills that asked for
+flash and ran blockwise attention.
 """
 
 from __future__ import annotations
@@ -37,18 +39,20 @@ import torch
 
 from repro_torch.kernels import column_gemm, flash_attention, pattern_conv
 from repro_torch.kernels import pattern_gemm
+from repro_torch.models import attention
 from repro_torch.serve.sampler import fold_in
 
 KERNEL_MODULES = (pattern_gemm, flash_attention, column_gemm, pattern_conv)
 
 
-def _counts() -> List[Tuple[int, Dict[str, int]]]:
-    return [(m.LAUNCHES, dict(getattr(m, "ROUTE_LAUNCHES", {})))
-            for m in KERNEL_MODULES]
+def _counts() -> Tuple[List[Tuple[int, Dict[str, int]]], int]:
+    return ([(m.LAUNCHES, dict(getattr(m, "ROUTE_LAUNCHES", {})))
+             for m in KERNEL_MODULES], attention.PREFILL_FALLBACKS)
 
 
 def _restore(counts) -> None:
-    for m, (n, routes) in zip(KERNEL_MODULES, counts):
+    launches, attention.PREFILL_FALLBACKS = counts
+    for m, (n, routes) in zip(KERNEL_MODULES, launches):
         m.LAUNCHES = n
         if routes:
             m.ROUTE_LAUNCHES.update(routes)
@@ -96,7 +100,8 @@ class CountedGraph:
         pool.reserved += self.pool_bytes
         self.launches = [
             (a - b, {r: ra[r] - rb.get(r, 0) for r in ra})
-            for (b, rb), (a, ra) in zip(before, after)]
+            for (b, rb), (a, ra) in zip(before[0], after[0])]
+        self.fallbacks = after[1] - before[1]
 
     def replay(self) -> None:
         self.graph.replay()
@@ -104,6 +109,7 @@ class CountedGraph:
             m.LAUNCHES += n
             for r, k in routes.items():
                 m.ROUTE_LAUNCHES[r] += k
+        attention.PREFILL_FALLBACKS += self.fallbacks
 
 
 class DecodeGraph:

@@ -13,7 +13,9 @@ On disk an artifact is the reference's: ``params/``, ``masks/`` and
 ``artifact.json`` (schema version, the path-keyed ``LayerSpec`` table,
 ``meta``). An LM's trees are written in the reference's stacked layout
 (``convert.tree_to_jax``), so each package loads what the other saved.
-The tuner and the privacy report are not ported.
+``meta["privacy"]`` is the prune's data lineage as ``PruneResult``
+stamps it (``privacy``). The tuner, ``with_params`` / ``with_privacy``
+and the privacy report are not ported.
 """
 
 from __future__ import annotations
@@ -124,6 +126,12 @@ class PrunedArtifact:
             raise ValueError("artifact leaf shapes do not match the model "
                              f"(first mismatches: {wrong[:4]})")
         return tree
+
+    @property
+    def privacy(self) -> Optional[Dict[str, Any]]:
+        """The manifest's privacy provenance block (None if never
+        stamped): which data the prune saw, by what generator and method."""
+        return self.meta.get("privacy")
 
     def packed_bytes(self) -> int:
         return tree_packed_bytes(self.packed if self.packed is not None

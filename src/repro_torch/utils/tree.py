@@ -56,3 +56,14 @@ def tree_map_with_path(fn: Callable[..., Any], tree: Any, *rest: Any,
 def reference_path(path: str) -> str:
     """``blocks/<l>/...`` -> ``blocks/...``: the reference's stacked path."""
     return _LAYER.sub("blocks/", path)
+
+
+def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
+    """``fn(leaf, *rest_leaves)`` at every leaf (``None`` leaves included:
+    ``fn`` sees them)."""
+    return tree_map_with_path(lambda _, *leaves: fn(*leaves), tree, *rest)
+
+
+def tree_leaves(tree: Any) -> list:
+    """Every non-``None`` leaf, depth first."""
+    return [leaf for _, leaf in tree_items(tree) if leaf is not None]

@@ -424,7 +424,7 @@ def test_flash_and_conv_wgmma_repeat_bit_equal(cuda):
 
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.core import PruneConfig, greedy_prune  # noqa: E402
-from repro_torch.models import LM  # noqa: E402
+from repro_torch.models import LM, attention  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
 from repro_torch.serve.sampler import (  # noqa: E402
     fold_key_grid,
@@ -544,6 +544,7 @@ def _zero_counts():
     for m in (pg, fa, cg, pc):
         m.LAUNCHES = 0
     fa.ROUTE_LAUNCHES.update(dict.fromkeys(fa.ROUTE_LAUNCHES, 0))
+    attention.PREFILL_FALLBACKS = 0
 
 
 def test_graph_counted_launches_equal_eager_launches(lm_art):
@@ -579,3 +580,163 @@ def test_sampler_integer_stream_is_the_same_on_cpu_and_card(cuda):
     grid = fold_key_grid(keys, torch.arange(5), 7)
     assert torch.equal(fold_key_grid(keys.to(cuda), torch.arange(5).to(cuda),
                                      7).cpu(), grid)
+
+
+# ------------------------- prefill fallback, prune launcher, kill and resume
+
+import json  # noqa: E402
+import os  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+from repro_torch.checkpoint import load_pytree  # noqa: E402
+from repro_torch.configs import get_config, reduced_config  # noqa: E402
+from repro_torch.core import LMAdapter, PrivacyPreservingPruner  # noqa: E402
+from repro_torch.core import as_key  # noqa: E402
+from repro_torch.launch.prune import prune_config_for  # noqa: E402
+from repro_torch.models.attention import prefill_attention  # noqa: E402
+from repro_torch.utils.tree import tree_items  # noqa: E402
+
+SRC = str(Path(__file__).resolve().parents[1] / "src")
+
+
+def test_serve_launcher_reduced_prefills_through_the_fallback(cuda):
+    """``launch.serve --reduced`` (head_dim 16, which the flash kernel does
+    not take) serves on the card: every prefill takes blockwise attention
+    and counts a fallback; no flash launch."""
+    from repro_torch.launch import serve
+
+    _zero_counts()
+    results = serve.main(["--arch", "qwen2-1.5b", "--reduced", "--requests",
+                          "3", "--max-new", "5"])
+    assert [len(r.tokens) for r in results] == [5, 5, 5]
+    assert fa.LAUNCHES == 0 and attention.PREFILL_FALLBACKS > 0
+
+
+def test_supported_shape_takes_flash_and_counts_no_fallback(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for hd, flash in ((64, True), (16, False)):
+        cfg = reduced_config("qwen2-1.5b", head_dim=hd,
+                             param_dtype="bfloat16")
+        model = LM(cfg, device=cuda)
+        params = model.init(g)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=g,
+                               device=cuda)
+        _zero_counts()
+        model.prefill(params, tokens, 32)
+        torch.cuda.synchronize()
+        L = cfg.num_layers
+        if flash:
+            assert (fa.LAUNCHES, fa.ROUTE_LAUNCHES["wgmma"],
+                    attention.PREFILL_FALLBACKS) == (L, L, 0)
+        else:
+            assert (fa.LAUNCHES, attention.PREFILL_FALLBACKS) == (0, L)
+        _zero_counts()                   # training forwards never ask
+        model.hidden_states(params, tokens)
+        assert fa.LAUNCHES == 0 and attention.PREFILL_FALLBACKS == 0
+    q = torch.randn(2, 128, 8, 64, generator=g, device=cuda).bfloat16()
+    k = torch.randn(2, 128, 2, 64, generator=g, device=cuda).bfloat16()
+    v = torch.randn(2, 128, 2, 64, generator=g, device=cuda).bfloat16()
+    torch.testing.assert_close(
+        prefill_attention(q, k, v, use_flash=True).float(),
+        prefill_attention(q, k, v, use_flash=False).float(),
+        rtol=TOL[torch.bfloat16], atol=TOL[torch.bfloat16])
+
+
+def test_ragged_prefill_at_full_width_takes_flash(cuda):
+    """qwen2-1.5b's full width (hd 128, 12 of 2 heads) at 2 layers: a
+    600-token prefill, which the reference's Pallas tiling would refuse,
+    runs every attention call on the wgmma flash kernel with no blockwise
+    fallback, eagerly and through the engine's graphs (prompts of 600 and
+    37 tokens, padded to 600)."""
+    import dataclasses
+
+    from repro_torch.launch.serve import make_engine
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), num_layers=2)
+    model = LM(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    g = torch.Generator().manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 600), generator=g)
+    _zero_counts()
+    _, logits = model.prefill(params, tokens.to(cuda), 640)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(logits.float()).all())
+    assert (fa.LAUNCHES, fa.ROUTE_LAUNCHES["wgmma"],
+            attention.PREFILL_FALLBACKS) == (2, 2, 0)
+    eng = make_engine(model, params, batch=2, max_seq=608, packed=False)
+    reqs = [Request(uid=0, prompt=tokens[0], max_new_tokens=4),
+            Request(uid=1, prompt=tokens[0, :37], max_new_tokens=4)]
+    eng.generate(reqs)                         # captures the graphs
+    _zero_counts()
+    results = eng.generate(reqs)
+    torch.cuda.synchronize()
+    assert [len(r.tokens) for r in results] == [4, 4]
+    assert (fa.LAUNCHES, fa.ROUTE_LAUNCHES["wgmma"],
+            attention.PREFILL_FALLBACKS) == (2, 2, 0)
+
+
+def _launcher(module, *args):
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-m", module, *args], env=env,
+                         capture_output=True, text=True, timeout=900)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-4000:]
+    return out.stdout
+
+
+def test_prune_then_serve_launchers_on_the_card(cuda, tmp_path):
+    art = str(tmp_path / "artifact")
+    _launcher("repro_torch.launch.prune", "--arch", "qwen2-1.5b",
+              "--reduced", "--scheme", "tile_pattern", "--rate", "2",
+              "--iters", "2", "--tile-block", "32", "--out",
+              str(tmp_path / "out"), "--artifact-out", art)
+    with open(os.path.join(art, "artifact.json")) as f:
+        assert json.load(f)["meta"]["privacy"]["data"] == "synthetic"
+    out = _launcher("repro_torch.launch.serve", "--arch", "qwen2-1.5b",
+                    "--reduced", "--artifact", art, "--packed",
+                    "--requests", "2", "--max-new", "6")
+    assert "packed, cuda" in out
+
+
+class _Killed(Exception):
+    pass
+
+
+def test_killed_and_resumed_prune_is_bit_identical_on_the_card(cuda,
+                                                                tmp_path):
+    """4 layers, 4 iterations, a checkpoint every 2: a run stopped by its
+    callback after iteration 2 and resumed ends bit-identical (params, Z,
+    U, key and history) to an uninterrupted one. fp32 params, so the
+    primal steps move the weights (bf16 rounds them back): the pruned
+    result differs from the greedy projection of the teacher."""
+    cfg = reduced_config("qwen2-1.5b", num_layers=4, param_dtype="float32")
+    model = LM(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    pcfg = prune_config_for(scheme="tile_pattern", rate=2, iters=4, batch=4,
+                            tile_block=32)
+
+    def run(d, **kw):
+        return PrivacyPreservingPruner(LMAdapter(model, seq_len=16), pcfg).run(
+            as_key(1), params, checkpoint_dir=str(tmp_path / d),
+            save_every=2, **kw)
+
+    def kill(it, metrics):
+        if it == 1:
+            raise _Killed
+
+    whole = run("a")
+    with pytest.raises(_Killed):
+        run("b", callback=kill)
+    resumed = run("b", resume=True)
+    assert resumed.history == whole.history
+    final = [dict(tree_items(load_pytree(str(tmp_path / d / "step_000000004"),
+                                         device="cpu"))) for d in "ab"]
+    assert final[0].keys() == final[1].keys()
+    for p in final[0]:
+        assert torch.equal(final[0][p], final[1][p]), p
+    for p, w in tree_items(whole.params):
+        assert torch.equal(w, dict(tree_items(resumed.params))[p]), p
+    greedy = dict(tree_items(greedy_prune(params, pcfg, device=cuda).params))
+    assert any(not torch.equal(w, greedy[p])
+               for p, w in tree_items(whole.params))

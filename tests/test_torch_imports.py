@@ -38,7 +38,9 @@ def test_engine_import_pulls_in_no_jax():
             "repro_torch.core, repro_torch.kernels._build, "
             "repro_torch.models.cnn, repro_torch.checkpoint, "
             "repro_torch.core.masks, repro_torch.serve.graphs, "
-            "repro_torch.serve.sampler, repro_torch.launch.serve; "
+            "repro_torch.serve.sampler, repro_torch.launch.serve, "
+            "repro_torch.launch.prune, repro_torch.core.pruner, "
+            "repro_torch.optim, repro_torch.data; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -127,3 +129,26 @@ def test_load_and_launcher_refuse_a_missing_card(tmp_path):
     assert not eng.graphs and eng.graph_pool is None
     loaded = PrunedArtifact.load(str(tmp_path / "art"), cfg=cfg, device="cpu")
     assert loaded.summary()["total_leaves"] == 0 and loaded.packed is None
+
+
+def test_prune_launcher_and_pipelines_refuse_a_missing_card(tmp_path):
+    """``launch/prune.py`` and the data pipelines want the card by
+    default; with ``--device cpu`` the launcher prunes on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    from repro_torch.data import ClassificationPipeline, DataConfig
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import prune
+
+    argv = ["--arch", "qwen2-1.5b", "--reduced", "--scheme", "tile_pattern",
+            "--rate", "2", "--iters", "1", "--batch", "2", "--seq", "8",
+            "--tile-block", "32", "--out", str(tmp_path / "out")]
+    with pytest.raises(RuntimeError):
+        prune.main(argv)
+    assert not (tmp_path / "out").exists()
+    for cls in (TokenPipeline, ClassificationPipeline):
+        with pytest.raises(RuntimeError):
+            cls(DataConfig())
+    result = prune.main(argv + ["--device", "cpu"])
+    assert result.provenance["data"] == "synthetic"
+    assert (tmp_path / "out" / "pruned" / "manifest.json").exists()

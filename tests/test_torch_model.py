@@ -150,3 +150,59 @@ def test_unported_families_raise():
         LM(dataclasses.replace(cfg, family="moe"), device="cpu")
     with pytest.raises(NotImplementedError):
         LM(dataclasses.replace(cfg, sliding_window=16), device="cpu")
+
+
+def test_flash_prefill_gate_agrees_with_reference():
+    """The port's gate is its kernel's limits: every shape the reference
+    sends to its kernel, the port does too on the head dims its kernel
+    takes; it also takes a ragged S (513, 600, 1000), which the
+    reference's Pallas tiling refuses; head dims 16 and 80 and an inexact
+    GQA ratio are refused."""
+    from repro.models.attention import flash_prefill_supported as j_gate
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    from repro_torch.models.attention import flash_prefill_supported
+
+    heads = ((12, 2), (4, 4), (6, 4), (4, 0))
+    for s in (0, 1, 16, 200, 512, 513, 600, 1000, 1024, 1536):
+        for h, kv in heads:
+            exact = kv > 0 and h % kv == 0
+            for hd in HEAD_DIMS:
+                ok = flash_prefill_supported(s, h, kv, hd)
+                assert ok == (s > 0 and exact)
+                if j_gate(s, h, kv):
+                    assert ok
+            for hd in (16, 80):
+                assert not flash_prefill_supported(s, h, kv, hd)
+    for s in (513, 600, 1000):
+        assert not j_gate(s, 12, 2)
+        assert all(flash_prefill_supported(s, 12, 2, hd) for hd in HEAD_DIMS)
+
+
+def test_training_forward_runs_blockwise_with_autograd():
+    """``hidden_states`` (training) and a flash request on CPU tensors take
+    ``blockwise_attention``, count no fallback, and carry gradients."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention
+
+    calls = []
+    real = attention.blockwise_attention
+
+    def spy(*a, **kw):
+        calls.append(a[0].shape)
+        return real(*a, **kw)
+
+    tcfg = t_reduced_config("qwen2-1.5b")
+    model = LM(tcfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, tcfg.vocab_size, (2, 8))
+    before = (dict(fa.ROUTE_LAUNCHES), attention.PREFILL_FALLBACKS)
+    attention.blockwise_attention = spy
+    try:
+        w = params["blocks"][0]["attn"]["wq"].requires_grad_(True)
+        h, _ = model.hidden_states(params, tokens)
+        (g,) = torch.autograd.grad(h.square().sum(), [w])
+        model.prefill(params, tokens, 12)
+    finally:
+        attention.blockwise_attention = real
+    assert len(calls) == 2 * tcfg.num_layers and bool(g.abs().sum() > 0)
+    assert (dict(fa.ROUTE_LAUNCHES), attention.PREFILL_FALLBACKS) == before
