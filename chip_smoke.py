@@ -102,7 +102,29 @@ result line is printed:
               ``pattern_conv`` launch per stride-1 3x3 conv (counts zeroed
               around it); the fp32 top-1 gate of ``[cnn]``. Seconds per
               iteration and per step, peak memory.
-10. report  — one ``{"kernels": [...]}`` JSON line covering all four
+10. pipeline — the privacy-preserving pruning service
+              (``launch.pipeline.main`` in process, full scale, quick
+              budgets, no stage retries: every stage must succeed on
+              its one attempt): VGG-16 at width 1.0 on 32 x 32 x 3
+              (batch 64), each stage's seconds, attempts and peak device
+              memory (the pipeline's telemetry.json), the three
+              MIA rows (dense / ADMM-real / ADMM-synthetic: AUC with its
+              CI, shadow AUC, loss gap) and the manifest's deltas beside
+              the reference's limits (readings, not gates); the saved
+              artifact loaded (every CRC32 checked), one packed bf16
+              forward (counts zeroed around it: one ``pattern_conv``
+              launch per stride-1 3x3 conv on its route, no bind
+              fallback) and the fp32 top-1 gate of ``[cnn]``. Then a run
+              whose retrain fails once under ``--stage-retries 0`` (a
+              ``StageError`` naming ``retrain``; teacher and prune ok on
+              the ledger) and its ``--resume`` (both restored with 0
+              attempts, params bit-equal to the first run's). Then
+              qwen2-1.5b at full width, 4 of 28 layers: its saved
+              artifact served through the CUDA graphs (4 x 128 prompt
+              tokens, 16 new; counts zeroed around it: ``pattern_gemm``
+              launched, every flash call on wgmma, no fallback) and fp32
+              dense-pruned vs packed greedy tokens identical.
+11. report  — one ``{"kernels": [...]}`` JSON line covering all four
               kernels (each a sum over the bf16 shapes its served path
               launches; the GEMMs' ``lm_head`` at M = 512 and 2048, which
               prefill never launches, listed apart under ``not_on_path``,
@@ -136,6 +158,7 @@ import torch.nn.functional as F
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch.checkpoint import load_pytree  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import LayerSpec, PruneConfig, greedy_prune  # noqa: E402
 from repro_torch.core import (  # noqa: E402
@@ -158,9 +181,12 @@ from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import pattern_conv as pc_mod  # noqa: E402
 from repro_torch.kernels import pattern_gemm as pg_mod  # noqa: E402
 from repro_torch.data import ClassificationPipeline, DataConfig  # noqa: E402
+from repro_torch.launch import pipeline as launch_pipeline  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch.prune import prune_config_for  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.privacy import report as privacy_report  # noqa: E402
+from repro_torch.runtime import StageError  # noqa: E402
 from repro_torch.models import LM, attention, resnet18, vgg16  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
 from repro_torch.serve.sampler import fold_key_grid  # noqa: E402
@@ -1451,13 +1477,12 @@ def phase_admm_cnn(smi: str) -> int:
         fail(f"[{tag}] retraining broke the mask or diverged: {losses}")
     if statistics.mean(losses[-3:]) > losses[0] - 0.01:
         fail(f"[{tag}] retraining did not lower the loss by 0.01: {losses}")
-    retrained = dataclasses.replace(result.to_artifact(arch="vgg16"),
-                                    params=p)
+    retrained = result.to_artifact(arch="vgg16").with_params(p)
     del result, state, data
     torch.cuda.empty_cache()
 
     bf16 = vgg16(**kw, param_dtype="bfloat16", device=DEV)
-    art = dataclasses.replace(retrained, params=tree_map(
+    art = retrained.with_params(tree_map(
         lambda w: w.to(torch.bfloat16), p)).pack(device=DEV)
     check_exact(tag, art)
     tree = art.bind(bf16, packed=True)
@@ -1494,6 +1519,284 @@ def phase_admm_cnn(smi: str) -> int:
     if not same or not bool(torch.isfinite(packed).all()):
         fail(f"[{tag}] fp32 packed top-1 differs from dense-pruned")
     return launches
+
+
+# ------------------------------------- the privacy-preserving pruning service
+
+PIPE_LM_LAYERS = 4        # the LM arm at full width, 4 of 28 layers
+PIPE_SERVE = dict(requests=4, prompt=128, new=16)
+# the reference's gate on the MIA report (benchmarks/check_regression.py):
+# synthetic-data pruning leaks no more than real-data pruning (+0.05) or the
+# dense model (+0.15); here a reading, not a gate
+MIA_LIMITS = {"auc_delta_vs_real": 0.05, "auc_delta_vs_dense": 0.15}
+
+
+def run_pipeline(tag: str, arch: str, out: str, *extra: str,
+                 restored: int = 0) -> list:
+    """``launch.pipeline.main`` in process at full scale with the quick
+    budgets and no stage retries (a fault fails the phase, it is not
+    retried away); its stages read back from progress.json, each run once
+    but the first ``restored`` (restored from disk: 0 attempts)."""
+    argv = ["--arch", arch, "--quick", "--out", out, "--device", DEV,
+            "--bench-path", os.path.join(out, "bench.json"),
+            "--stage-retries", "0", *extra]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = launch_pipeline.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stages = json.load(open(os.path.join(out, arch, "progress.json")))[
+        "stages"]
+    peaks = {g["labels"]["stage"]: g["value"] for g in json.load(open(
+        os.path.join(out, arch, "telemetry.json")))["metrics"]["gauges"]
+        if g["name"] == "pipeline.stage_peak_device_bytes"}
+    print(f"[{tag}] pipeline {' '.join(argv[:3] + list(extra))}: exit {rc} "
+          f"in {wall:.1f} s; stage (seconds, attempts) {json.dumps(
+              {r['name']: (r['seconds'], r['attempts']) for r in stages})}; "
+          f"peak device memory by stage {json.dumps(peaks)} bytes, max "
+          f"{max(peaks.values(), default=0)}", flush=True)
+    want = [("ok", 0)] * restored + [("ok", 1)] * (6 - restored)
+    if rc != 0 or [(r["status"], r["attempts"]) for r in stages] != want:
+        fail(f"[{tag}] pipeline failed: exit {rc}, stages {stages}")
+    return stages
+
+
+def mia_readings(tag: str, out: str, arch: str) -> None:
+    """The three MIA rows and the manifest's deltas beside the reference's
+    limits (readings of seeded training: printed, not gated)."""
+    rows = json.load(open(os.path.join(out, "bench.json")))
+    for r in rows:
+        print(f"[{tag}] MIA {r['arch']} {r['method']}: comp "
+              f"{r['comp_rate']}x, AUC {r['mia_auc']} (95% CI "
+              f"{r['mia_auc_ci']}), attack accuracy {r['mia_acc']}, shadow "
+              f"AUC {r['mia_auc_shadow']} (CI {r['mia_auc_shadow_ci']}), "
+              f"loss member {r['member_loss']} non-member "
+              f"{r['nonmember_loss']} gap {r['loss_gap']} "
+              f"(n {r['n_member']}/{r['n_nonmember']})", flush=True)
+    doc = json.load(open(os.path.join(out, arch, "artifact",
+                                      "artifact.json")))
+    priv = doc["meta"]["privacy"]
+    deltas = {k: (priv["mia"][k], f"limit {v}") for k, v in
+              MIA_LIMITS.items()}
+    print(f"[{tag}] manifest privacy: data {priv['data']}, method "
+          f"{priv['method']}, retrained_on {priv['retrained_on']}, pipeline "
+          f"{priv['pipeline']}; deltas (reading) {json.dumps(deltas)}",
+          flush=True)
+    if (priv["data"], priv["retrained_on"]) != ("synthetic",
+                                                "client_confidential"):
+        fail(f"[{tag}] manifest privacy block wrong: {priv}")
+
+
+def params_bit_equal(a_dir: str, b_dir: str) -> bool:
+    a = dict(tree_items(load_pytree(os.path.join(a_dir, "params"),
+                                    device="cpu")))
+    b = dict(tree_items(load_pytree(os.path.join(b_dir, "params"),
+                                    device="cpu")))
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def pipeline_cnn(tag: str, out: str) -> int:
+    """VGG-16 at full width through the service; the saved artifact loaded
+    (every CRC32 checked), one packed bf16 forward (counts zeroed around
+    it) and the fp32 top-1 gate. Returns its pattern_conv launches."""
+    run_pipeline(tag, "vgg16", out)
+    mia_readings(tag, out, "vgg16")
+    art_dir = os.path.join(out, "vgg16", "artifact")
+    t0 = time.perf_counter()
+    art = PrunedArtifact.load(art_dir, device=DEV)
+    disk = art.verify_integrity()["disk"]
+    width, hwc = privacy_report.CNN_GEOMETRY[False]
+    kw = dict(num_classes=10, width_mult=width, image_hwc=hwc, device=DEV)
+    print(f"[{tag}] artifact loaded in {time.perf_counter() - t0:.2f} s, "
+          f"CRC32 re-checked {json.dumps(disk)}; VGG-16 {hwc} width "
+          f"{width}", flush=True)
+
+    bf16 = vgg16(**kw, param_dtype="bfloat16")
+    packed = art.with_params(tree_map(lambda w: w.to(torch.bfloat16),
+                                      art.params)).pack(device=DEV)
+    tree = packed.bind(bf16, packed=True)
+    want_routes = conv_routes(tree)
+    data = ClassificationPipeline(DataConfig(
+        num_classes=10, global_batch=64, image_hwc=hwc, seed=7), noise=0.35,
+        device=DEV)
+    x, y = data.eval_batch()
+    bf16.apply(tree, x.to(torch.bfloat16))             # warm-up
+    torch.cuda.synchronize()
+    reset_launches()                                   # the main path
+    logits = bf16.apply(tree, x.to(torch.bfloat16))
+    torch.cuda.synchronize()
+    launches, routes = pc_mod.LAUNCHES, dict(pc_mod.ROUTE_LAUNCHES)
+    print(f"[{tag}] packed bf16 forward of the loaded artifact: pattern_conv "
+          f"launches {launches} (want 13; by route {json.dumps(routes)}, "
+          f"want {json.dumps(want_routes)}); bind fallbacks "
+          f"{packed.bind_report['fallbacks']}", flush=True)
+    if (launches != 13 or routes != want_routes or packed.bind_report[
+            "fallbacks"] or not bool(torch.isfinite(logits).all())):
+        fail(f"[{tag}] packed forward: {launches} launches, {routes}")
+    del packed, tree, logits, bf16
+
+    model = vgg16(**kw)
+    dense = model.apply(art.bind(model, packed=False), x)
+    out32 = model.apply(art.bind(model, packed=True), x)
+    diff = (dense - out32).abs().max().item()
+    top2 = torch.topk(dense, 2, dim=1).values
+    sure = (top2[:, 0] - top2[:, 1]) > 2 * diff
+    same = bool((dense.argmax(1) == out32.argmax(1))[sure].all())
+    acc = float((out32.argmax(1) == y).float().mean())
+    print(f"[{tag}] fp32 loaded artifact dense-pruned (F.conv2d, no TF32) "
+          f"vs packed: max |logit diff| {diff:.3e}; top-1 identical on the "
+          f"{int(sure.sum())} of {len(y)} held-out images whose dense top-2 "
+          f"gap exceeds twice that: {same}; their top-1 accuracy (reading) "
+          f"{acc:.4f}; bind fallbacks {art.bind_report['fallbacks']}",
+          flush=True)
+    if not same or art.bind_report["fallbacks"] or not bool(
+            torch.isfinite(out32).all()):
+        fail(f"[{tag}] fp32 packed top-1 differs from dense-pruned")
+    return launches
+
+
+def pipeline_resume(tag: str, out: str, uninterrupted: str) -> None:
+    """A run whose retrain fails once with no retries stops on a
+    ``StageError`` naming ``retrain`` with teacher and prune on the ledger;
+    ``--resume`` restores both (0 attempts) and saves params bit-equal to
+    the uninterrupted run's."""
+    real_make_ops = privacy_report.make_ops
+    fails = [1]
+
+    def make_ops(*args, **kw):
+        ops = real_make_ops(*args, **kw)
+        inner = ops.retrain
+
+        def retrain(params, masks):
+            if fails:
+                fails.pop()
+                raise RuntimeError("injected fault in retrain")
+            return inner(params, masks)
+
+        ops.retrain = retrain
+        return ops
+
+    privacy_report.make_ops = make_ops
+    try:
+        launch_pipeline.main(["--arch", "vgg16", "--quick", "--no-mia",
+                              "--out", out, "--device", DEV,
+                              "--stage-retries", "0"])
+    except StageError as e:
+        stopped = (e.stage, e.attempts)
+    else:
+        fail(f"[{tag}] the injected retrain fault did not stop the run")
+    finally:
+        privacy_report.make_ops = real_make_ops
+    ledger = [(r["name"], r["status"]) for r in json.load(open(os.path.join(
+        out, "vgg16", "progress.json")))["stages"]]
+    print(f"[{tag}] retrain failed once with --stage-retries 0: StageError "
+          f"{stopped}; ledger {ledger}", flush=True)
+    if stopped != ("retrain", 1) or ledger != [
+            ("teacher", "ok"), ("prune", "ok"), ("retrain", "failed")]:
+        fail(f"[{tag}] stage failure not recorded: {stopped}, {ledger}")
+    stages = run_pipeline(tag, "vgg16", out, "--no-mia", "--resume",
+                          restored=2)
+    restored = [(r["name"], r["attempts"]) for r in stages[:2]]
+    same = params_bit_equal(os.path.join(out, "vgg16", "artifact"),
+                            os.path.join(uninterrupted, "vgg16",
+                                         "artifact"))
+    print(f"[{tag}] --resume: restored {restored}; saved params bit-equal "
+          f"to the uninterrupted run's: {same}", flush=True)
+    if restored != [("teacher", 0), ("prune", 0)] or not same:
+        fail(f"[{tag}] resume gate: restored {restored}, bit-equal {same}")
+
+
+def pipeline_lm(tag: str, out: str) -> dict:
+    """qwen2-1.5b at full width (``PIPE_LM_LAYERS`` layers) through the
+    service; the saved artifact served through the CUDA graphs (counts
+    zeroed around the served run; flash all on wgmma, no fallback), then
+    fp32 dense-pruned vs packed greedy tokens. Returns the launch counts."""
+    real_get_config = privacy_report.get_config
+    privacy_report.get_config = lambda name: dataclasses.replace(
+        real_get_config(name), num_layers=PIPE_LM_LAYERS)
+    try:
+        run_pipeline(tag, "qwen2-1.5b", out)
+        cfg = privacy_report.get_config("qwen2-1.5b")
+    finally:
+        privacy_report.get_config = real_get_config
+    mia_readings(tag, out, "qwen2-1.5b")
+    art_dir = os.path.join(out, "qwen2-1.5b", "artifact")
+    t0 = time.perf_counter()
+    art = PrunedArtifact.load(art_dir, cfg=cfg, device=DEV)
+    model = LM(cfg, device=DEV)
+    print(f"[{tag}] qwen2-1.5b L={cfg.num_layers} d_model={cfg.d_model} "
+          f"heads {cfg.num_heads}/{cfg.num_kv_heads}x{cfg.head_dim} d_ff "
+          f"{cfg.d_ff} vocab {cfg.vocab_size} {cfg.param_dtype} (cut: depth "
+          f"{PIPE_LM_LAYERS} of {real_get_config('qwen2-1.5b').num_layers} "
+          f"layers; widths as published): artifact loaded in "
+          f"{time.perf_counter() - t0:.2f} s "
+          f"({art.summary()['packed_leaves']} packed leaves)", flush=True)
+    g = torch.Generator().manual_seed(3)
+    reqs = [Request(uid=i, prompt=torch.randint(
+        0, cfg.vocab_size, (PIPE_SERVE["prompt"],), generator=g),
+        max_new_tokens=PIPE_SERVE["new"])
+        for i in range(PIPE_SERVE["requests"])]
+    eng = launch_serve.make_engine(
+        model, art, batch=4, packed=True,
+        max_seq=PIPE_SERVE["prompt"] + PIPE_SERVE["new"])
+    eng.generate(reqs[:1])                         # captures the graphs
+    torch.cuda.synchronize()
+    reset_launches()                               # the main path
+    t0 = time.perf_counter()
+    results = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(("pattern_gemm", "flash_attention"))
+    routes = dict(fa_mod.ROUTE_LAUNCHES,
+                  blockwise_fallbacks=attention.PREFILL_FALLBACKS)
+    print(f"[{tag}] served {len(reqs)} requests x {PIPE_SERVE['prompt']} "
+          f"prompt tokens x {PIPE_SERVE['new']} new in {wall * 1e3:.1f} ms "
+          f"(graphs); launches {json.dumps(launches)}; prefill attention by "
+          f"route {json.dumps(routes)}; bind fallbacks "
+          f"{eng.bind_report['fallbacks']}", flush=True)
+    if (launches["flash_attention"] == 0 or routes["wgmma"]
+            != launches["flash_attention"] or routes["blockwise_fallbacks"]):
+        fail(f"[{tag}] served prefill off flash's wgmma route: {routes}")
+    if launches["pattern_gemm"] == 0 or eng.bind_report["fallbacks"]:
+        fail(f"[{tag}] pattern_gemm launches {launches}, fallbacks "
+             f"{eng.bind_report['fallbacks']}")
+    for r in results:
+        if len(r.tokens) != PIPE_SERVE["new"] or not all(
+                0 <= t < cfg.vocab_size for t in r.tokens):
+            fail(f"[{tag}] request {r.uid}: bad tokens {r.tokens[:8]}")
+    del eng, results
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    model32 = LM(cfg32, device=DEV)
+    art32 = art.with_params(tree_map(lambda w: w.to(torch.float32),
+                                     art.params)).pack(device=DEV)
+    tokens = [[r.tokens for r in ServeEngine(
+        model32, art32, packed=packed, batch_size=4,
+        max_seq_len=PIPE_SERVE["prompt"] + PIPE_SERVE["new"]).generate(reqs)]
+        for packed in (False, True)]
+    same = tokens[0] == tokens[1]
+    print(f"[{tag}] fp32 loaded artifact dense-pruned vs packed greedy "
+          f"tokens identical: {same} ({sum(map(len, tokens[1]))} tokens)",
+          flush=True)
+    if not same:
+        fail(f"[{tag}] fp32 packed tokens differ from dense-pruned")
+    return launches
+
+
+def phase_pipeline(smi: str) -> dict:
+    """The service end to end: VGG-16 at full width with its MIA report,
+    the retrain fault and ``--resume``, then qwen2-1.5b at full width (4
+    layers). Returns the main paths' launch counts."""
+    tag = "pipeline"
+    print(f"[{tag}] {smi}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        conv = pipeline_cnn(tag, os.path.join(tmp, "cnn"))
+        pipeline_resume(tag, os.path.join(tmp, "resume"),
+                        os.path.join(tmp, "cnn"))
+        torch.cuda.empty_cache()
+        lm = pipeline_lm(tag, os.path.join(tmp, "lm"))
+    return dict(lm, pattern_conv=conv)
 
 
 META = {
@@ -1579,23 +1882,31 @@ def main() -> int:
         column = timed("column", phase_column, smi)
         admm = timed("admm", phase_admm, smi)
         admm_conv = timed("admm_cnn", phase_admm_cnn, smi)
+        pipe = timed("pipeline", phase_pipeline, smi)
     print(f"[time] all phases {time.perf_counter() - t0:.1f} s", flush=True)
     runs = {
         "pattern_gemm": "tile-pattern qwen2-1.5b serving 8 requests "
                         f"({launches['pattern_gemm']}) + the ADMM-pruned "
-                        f"one serving 4 ({admm['pattern_gemm']})",
+                        f"one serving 4 ({admm['pattern_gemm']}) + the "
+                        "pipeline's saved 4-layer one serving 4 "
+                        f"({pipe['pattern_gemm']})",
         "flash_attention": "tile-pattern qwen2-1.5b serving 8 requests "
                            f"({launches['flash_attention']}) + the "
                            "ADMM-pruned one serving 4 "
-                           f"({admm['flash_attention']})",
+                           f"({admm['flash_attention']}) + the pipeline's "
+                           f"saved 4-layer one serving 4 "
+                           f"({pipe['flash_attention']})",
         "pattern_conv": "one bf16 forward of VGG-16 at batch 32 "
                         f"({conv[0]}) + one of ResNet-18 at batch 256 "
                         f"({conv[1]}) + one of the ADMM-pruned, retrained "
-                        f"VGG-16 at batch 32 ({admm_conv})",
+                        f"VGG-16 at batch 32 ({admm_conv}) + one of the "
+                        "pipeline's saved VGG-16 (32 x 32) at batch 64 "
+                        f"({pipe['pattern_conv']})",
         "column_gemm": "column-pruned qwen2-1.5b serving 8 requests",
     }
-    launches = {k: launches[k] + admm[k] for k in launches}
-    launches.update(pattern_conv=sum(conv) + admm_conv,
+    launches = {k: launches[k] + admm[k] + pipe[k] for k in launches}
+    launches.update(pattern_conv=sum(conv) + admm_conv
+                    + pipe["pattern_conv"],
                     column_gemm=column["column_gemm"])
     print(smi, flush=True)
     print(json.dumps({"kernels": summarize(rows, launches, runs)}),

@@ -2,13 +2,16 @@
 
 The JAX package ``repro`` stays the reference; this package mirrors its
 module layout (``kernels/``, ``sparse/``, ``core/``, ``models/``,
-``serve/``, ``checkpoint/``, ``launch/``, ``configs/``) and never imports
-``jax`` or ``repro``.
+``serve/``, ``checkpoint/``, ``launch/``, ``configs/``, ``privacy/``,
+``runtime/``) and never imports ``jax`` or ``repro``.
 
-Covered so far — the paper's privacy-preserving ADMM pruning on
-synthetic data (``core.PrivacyPreservingPruner``, resumable, with masked
-retraining in ``core.retrain``), and pack, save, load and serve a dense
-LM (tile pattern or column) and pattern-pruned CNNs:
+Covered so far — the paper's privacy-preserving pruning service end to
+end (``launch/pipeline.py``: a client checkpoint, ADMM on synthetic data
+with ``core.PrivacyPreservingPruner``, masked retraining, a packed
+artifact whose manifest carries the membership-inference report of
+``privacy/``, on the staged, resumable runner and metrics registry of
+``runtime/``), and pack, save, load and serve a dense LM (tile pattern
+or column) and pattern-pruned CNNs:
 
     model    = LM(get_config("qwen2-1.5b"))                  # on cuda
     params   = model.init(torch.Generator("cuda").manual_seed(0))

@@ -22,6 +22,7 @@ from typing import Any, Callable, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.optim import clip_scale
 from repro_torch.utils.tree import tree_items, tree_leaves, tree_map
 
 
@@ -89,8 +90,7 @@ def primal_step(loss_fn: Callable[[Any, Any], torch.Tensor], prunable: Any,
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g
              for x, g in zip(leaves, grads)]
-    gnorm = torch.sqrt(_total(_sum_sq(g) for g in grads))
-    scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
+    _, scale = clip_scale(grads, grad_clip)
     step = iter([(_f32(x.detach()) - lr * scale * _f32(g)).to(x.dtype)
                  for x, g in zip(leaves, grads)])
     return tree_map(lambda _: next(step), w), loss.detach()

@@ -7,8 +7,8 @@ so ``layer_params`` indexes it and ``with_layer_params`` returns a tree
 with a new list (the old tree is left as it was). Synthetic data in the
 paper's spirit: uniform token ids, no prior knowledge of the client's
 corpus. Every forward here runs dense weights with autograd, attention
-on ``blockwise_attention``. The reference's ``per_example_loss`` comes
-with the privacy evaluation.
+on ``blockwise_attention``. ``per_example_loss`` is the hook the
+membership-inference report (``privacy/report.py``) reads.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.admm_traditional import per_example_cross_entropy
 from repro_torch.core.synthetic import synthetic_tokens
 from repro_torch.models.transformer import LM
 from repro_torch.utils.tree import tree_map
@@ -70,3 +71,12 @@ class LMAdapter:
         """Soft outputs (logits) for problem (2) and evaluation."""
         h, _ = self.model.hidden_states(params, batch)
         return self.model.lm_logits(params, h)
+
+    # ---- privacy-evaluation hooks -----------------------------------------
+
+    def per_example_loss(self, params, inputs: torch.Tensor,
+                         labels: torch.Tensor) -> torch.Tensor:
+        """Per-sequence mean NLL, (B,), in fp32: the membership signal an
+        attack thresholds (``LM.train_loss`` gives only the batch mean)."""
+        return per_example_cross_entropy(
+            self.apply(params, inputs), labels).mean(dim=-1)

@@ -27,7 +27,11 @@ The run's key is an int64 tensor. Iteration k splits it with splitmix64
 iteration k + 1 and ``fold_in(key, 1)`` seeds iteration k's batch, so no
 generator state needs saving. A checkpoint is trusted only if its
 ``run_fingerprint`` (CRC32 of the initial weights and the config) matches
-the run's. The reference's telemetry gauges are not ported.
+the run's. Each committed iteration also lands in the ambient metrics
+registry (``runtime.telemetry``): ``prune.iterations_total``, the
+``prune.loss`` / ``residual`` / ``dual_residual`` / ``rho`` gauges, and
+``prune.recoveries_total`` per rollback, from the Python floats the loop
+already holds (no device sync of its own).
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from repro_torch.checkpoint import (
 )
 from repro_torch.checkpoint.checkpointer import _to_numpy
 from repro_torch.core import admm
+from repro_torch.runtime.telemetry import get_registry
 from repro_torch.utils.tree import tree_leaves
 
 log = logging.getLogger(__name__)
@@ -397,6 +402,7 @@ def run_admm_loop(
     and retries under ``policy``; any other exception propagates, and the
     run resumes from its last committed checkpoint.
     """
+    reg = get_registry()
     policy = policy or HealthPolicy()
     anchor = state.snapshot()
     saved_at = None
@@ -425,6 +431,7 @@ def run_admm_loop(
             check_health(it, metrics, state.history, policy,
                          recoveries=state.recoveries)
         except PruneDivergence as e:
+            reg.counter("prune.recoveries_total").inc()
             state = _recover(state, e, policy, checkpointer, anchor,
                              rho, rho_bounds)
             continue
@@ -432,6 +439,10 @@ def run_admm_loop(
         state.iteration = it + 1
         for k in HISTORY_KEYS:
             state.history.setdefault(k, []).append(metrics[k])
+        # the numbers the history row holds, scrapeable beside the stages
+        reg.counter("prune.iterations_total").inc()
+        for k in HISTORY_KEYS:
+            reg.gauge(f"prune.{k}").set(metrics[k])
         if state.rho_override is not None:
             state.rho_override = adaptive_rho(
                 state.rho_override, metrics["residual"],

@@ -3,7 +3,13 @@
 ported)."""
 
 from repro_torch.optim.masked import masked
-from repro_torch.optim.optimizers import Optimizer, adamw, momentum, sgd
+from repro_torch.optim.optimizers import (
+    Optimizer,
+    adamw,
+    clip_scale,
+    momentum,
+    sgd,
+)
 from repro_torch.optim.schedules import (
     constant,
     cosine_decay,
@@ -11,5 +17,5 @@ from repro_torch.optim.schedules import (
     warmup_cosine,
 )
 
-__all__ = ["Optimizer", "adamw", "constant", "cosine_decay", "masked",
+__all__ = ["Optimizer", "adamw", "clip_scale", "constant", "cosine_decay", "masked",
            "momentum", "paper_rho_schedule", "sgd", "warmup_cosine"]

@@ -13,7 +13,7 @@ reading the learning rate never waits on the card.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, NamedTuple, Tuple, Union
+from typing import Any, Callable, Iterable, NamedTuple, Tuple, Union
 
 import torch
 
@@ -32,6 +32,15 @@ def _step0() -> torch.Tensor:
 
 def _zeros32(p: torch.Tensor) -> torch.Tensor:
     return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
+def clip_scale(grads: Iterable[torch.Tensor], max_norm: float
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The global-norm clip: (the fp32 norm of all ``grads`` together, the
+    factor ``min(1, max_norm / norm)`` that scales them to it)."""
+    sq = [g.to(torch.float32).square().sum() for g in grads]
+    norm = torch.sqrt(sum(sq[1:], sq[0]))
+    return norm, torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
 
 
 @dataclasses.dataclass(frozen=True)

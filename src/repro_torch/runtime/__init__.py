@@ -1,0 +1,32 @@
+"""Runtime reliability and observability (mirrors ``repro/runtime``).
+
+What the port has: the fault-tolerant step loop and the staged pipeline
+runner (``fault_tolerance``), straggler detection (``straggler``), and
+the metrics registry and span tracer (``telemetry``) with its JSON and
+Prometheus exporters (``telemetry_export``). The registry is host
+Python, written by the pruning loop, ``StagedRun`` and the straggler
+monitor; never from inside a captured CUDA graph.
+"""
+
+from repro_torch.runtime import telemetry_export
+from repro_torch.runtime.fault_tolerance import (
+    FaultTolerantLoop,
+    StagedRun,
+    StageError,
+    StageRecord,
+    StepResult,
+)
+from repro_torch.runtime.straggler import StragglerMonitor
+from repro_torch.runtime.telemetry import (
+    MetricsRegistry,
+    Telemetry,
+    Tracer,
+    get_registry,
+    registry_scope,
+)
+
+__all__ = [
+    "FaultTolerantLoop", "MetricsRegistry", "StageError", "StageRecord",
+    "StagedRun", "StepResult", "StragglerMonitor", "Telemetry", "Tracer",
+    "get_registry", "registry_scope", "telemetry_export",
+]

@@ -13,9 +13,10 @@ On disk an artifact is the reference's: ``params/``, ``masks/`` and
 ``artifact.json`` (schema version, the path-keyed ``LayerSpec`` table,
 ``meta``). An LM's trees are written in the reference's stacked layout
 (``convert.tree_to_jax``), so each package loads what the other saved.
-``meta["privacy"]`` is the prune's data lineage as ``PruneResult``
-stamps it (``privacy``). The tuner, ``with_params`` / ``with_privacy``
-and the privacy report are not ported.
+``meta["privacy"]`` is the privacy provenance block: the prune's data
+lineage as ``PruneResult`` stamps it, extended by ``with_privacy``
+downstream (``retrained_on``, the pipeline, the measured ``mia``
+numbers). The tuner is not ported: ``pack`` runs untuned.
 """
 
 from __future__ import annotations
@@ -55,6 +56,21 @@ class PrunedArtifact:
     # set by ``bind``: packed leaves that failed validation and are served
     # dense instead ({"fallbacks": {path: reason}})
     bind_report: Optional[Dict[str, Any]] = None
+
+    def with_params(self, params: Any) -> "PrunedArtifact":
+        """New artifact with updated weights (e.g. after masked
+        retraining). Clears any packing: the packed form encodes weight
+        values, not just structure."""
+        return dataclasses.replace(self, params=params, packed=None)
+
+    def with_privacy(self, **fields: Any) -> "PrunedArtifact":
+        """New artifact whose manifest ``privacy`` block has ``fields``
+        merged in (existing keys overwritten): ``retrained_on`` after
+        masked retraining, ``mia`` once the attack harness has measured
+        the model."""
+        meta = dict(self.meta)
+        meta["privacy"] = {**(meta.get("privacy") or {}), **fields}
+        return dataclasses.replace(self, meta=meta)
 
     @torch.no_grad()
     def pack(self, *, verify: bool = False,

@@ -740,3 +740,88 @@ def test_killed_and_resumed_prune_is_bit_identical_on_the_card(cuda,
     greedy = dict(tree_items(greedy_prune(params, pcfg, device=cuda).params))
     assert any(not torch.equal(w, greedy[p])
                for p, w in tree_items(whole.params))
+
+
+from repro_torch.models import vgg16  # noqa: E402
+from repro_torch.sparse import PrunedArtifact  # noqa: E402
+
+
+def _pipeline(out, arch, *extra):
+    from repro_torch.launch import pipeline
+
+    return pipeline.main(["--arch", arch, "--reduced", "--quick", "--out",
+                          str(out), "--bench-path", str(out / "bench.json"),
+                          *extra])
+
+
+@pytest.mark.parametrize("arch", ["vgg16", "qwen2-1.5b"])
+def test_reduced_pipeline_on_the_card(cuda, tmp_path, arch):
+    """The service end to end on the card (the default device) at the
+    reference's reduced geometry: six stages ok, each stage's peak device
+    memory in telemetry.json, the privacy block with its MIA numbers in
+    the manifest, and the artifact loads on the card with every packed
+    leaf valid."""
+    assert _pipeline(tmp_path, arch) == 0
+    stages = json.load(open(tmp_path / arch / "progress.json"))["stages"]
+    assert [s["status"] for s in stages] == ["ok"] * 6
+    gauges = json.load(open(tmp_path / arch / "telemetry.json"))[
+        "metrics"]["gauges"]
+    peaks = {g["labels"]["stage"]: g["value"] for g in gauges
+             if g["name"] == "pipeline.stage_peak_device_bytes"}
+    assert sorted(peaks) == sorted(s["name"] for s in stages)
+    assert all(v > 0 for v in peaks.values())
+    cfg = reduced_config(arch) if arch != "vgg16" else None
+    art = PrunedArtifact.load(str(tmp_path / arch / "artifact"), cfg=cfg)
+    assert art.privacy["data"] == "synthetic"
+    assert art.privacy["retrained_on"] == "client_confidential"
+    assert 0.0 <= art.privacy["mia"]["attack_auc"] <= 1.0
+    assert art.verify_integrity()["packed_bad"] == {}
+    assert art.summary()["packed_leaves"] > 0
+    if arch == "vgg16":
+        model = vgg16(10, width_mult=0.125, image_hwc=(16, 16, 3))
+        tree = art.bind(model, packed=True)
+        pc.LAUNCHES = 0
+        x = model.synthetic_batch(torch.Generator(device=cuda).manual_seed(0),
+                                  4)
+        assert bool(torch.isfinite(model.apply(tree, x)).all())
+        assert pc.LAUNCHES == 13 and art.bind_report["fallbacks"] == {}
+
+
+def test_pipeline_killed_at_retrain_resumes_bit_equal_on_the_card(
+        cuda, tmp_path, monkeypatch):
+    """Retrain fails once with no retries: a ``StageError`` naming it;
+    ``--resume`` restores teacher and prune and saves params bit-equal to
+    an uninterrupted run's (deterministic conv algorithms on the card)."""
+    from repro_torch.privacy import report
+    from repro_torch.runtime import StageError
+
+    assert _pipeline(tmp_path / "a", "vgg16", "--no-mia") == 0
+    real, fails = report.make_ops, [1]
+
+    def make_ops(*a, **k):
+        ops = real(*a, **k)
+        inner = ops.retrain
+
+        def retrain(params, masks):
+            if fails:
+                fails.pop()
+                raise RuntimeError("injected fault in retrain")
+            return inner(params, masks)
+
+        ops.retrain = retrain
+        return ops
+
+    monkeypatch.setattr(report, "make_ops", make_ops)
+    with pytest.raises(StageError) as err:
+        _pipeline(tmp_path / "b", "vgg16", "--no-mia", "--stage-retries", "0")
+    assert err.value.stage == "retrain"
+    assert _pipeline(tmp_path / "b", "vgg16", "--no-mia", "--resume") == 0
+    stages = json.load(open(tmp_path / "b" / "vgg16" / "progress.json"))[
+        "stages"]
+    assert [s["attempts"] for s in stages[:3]] == [0, 0, 1]
+    a, b = (dict(tree_items(load_pytree(
+        str(tmp_path / d / "vgg16" / "artifact" / "params"), device="cpu")))
+        for d in "ab")
+    assert a.keys() == b.keys()
+    for p in a:
+        assert torch.equal(a[p], b[p]), p

@@ -40,7 +40,9 @@ def test_engine_import_pulls_in_no_jax():
             "repro_torch.core.masks, repro_torch.serve.graphs, "
             "repro_torch.serve.sampler, repro_torch.launch.serve, "
             "repro_torch.launch.prune, repro_torch.core.pruner, "
-            "repro_torch.optim, repro_torch.data; "
+            "repro_torch.optim, repro_torch.data, repro_torch.privacy, "
+            "repro_torch.runtime, repro_torch.launch.pipeline, "
+            "repro_torch.launch.train; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -152,3 +154,19 @@ def test_prune_launcher_and_pipelines_refuse_a_missing_card(tmp_path):
     result = prune.main(argv + ["--device", "cpu"])
     assert result.provenance["data"] == "synthetic"
     assert (tmp_path / "out" / "pruned" / "manifest.json").exists()
+
+
+def test_pipeline_launcher_refuses_a_missing_card(tmp_path):
+    """``launch/pipeline.py`` and the report's ops want the card by
+    default, as the other launchers do."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    from repro_torch.launch import pipeline
+    from repro_torch.privacy import ReportConfig, make_ops
+
+    with pytest.raises(RuntimeError):
+        make_ops("vgg16", ReportConfig())
+    with pytest.raises(RuntimeError):
+        pipeline.main(["--arch", "vgg16", "--reduced", "--quick",
+                       "--out", str(tmp_path / "out")])
+    assert not (tmp_path / "out" / "vgg16" / "progress.json").exists()
