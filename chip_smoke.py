@@ -65,7 +65,28 @@ result line is printed:
               packed GEMM, prefill and decode); then fp32 dense-pruned
               against packed greedy tokens at 4 layers of full width,
               which must be identical.
-8. admm     — the paper's algorithm: qwen2-1.5b at full width (bf16,
+8. continuous — the [serve] phase's loaded artifact through
+              ``ContinuousEngine(batch_size=4, max_seq_len=544,
+              chunk_steps=8)``: slot prefill graphs of S = 512, 200 and 64
+              and the slot decode graph captured (seconds, pool bytes);
+              the main path, 12 requests with prompt lengths 512 / 200 / 64
+              and budgets 32 / 8 / 16 cycling, arriving at seeded
+              exponential gaps of about one decode chunk, counts zeroed
+              around it, with a trace and a registry: wall, tokens/s,
+              occupancy, chunks, decode ms per chunk step, TTFT / TPOT
+              from the registry and per S from the trace; gates: every
+              admission on flash's wgmma route (28 x 12 launches, no
+              fallback), ``pattern_gemm`` on skinny and wgmma, the trace
+              recomputing the registry (``runtime.trace_analysis``), each
+              request bit-identical to its solo run through the same
+              engine, graphs against eager on one scripted schedule
+              (every chunk's tokens and flags), a KV poison / deadline /
+              cancel run and a bounded queue with their typed statuses
+              (mates bit-identical to solo; ``stats`` equal to the
+              registry); the chunked ``ServeEngine`` on the same requests
+              as a reading; at 4 layers in fp32, continuous greedy tokens
+              equal to ``ServeEngine(batch_size=1)``'s.
+9. admm     — the paper's algorithm: qwen2-1.5b at full width (bf16,
               seeded random teacher) pruned by layer-wise ADMM on
               synthetic tokens (``PrivacyPreservingPruner`` with
               ``launch.prune.prune_config_for(scheme="tile_pattern",
@@ -92,7 +113,7 @@ result line is printed:
               then ``launch.serve --reduced --artifact --packed`` as
               subprocesses: both exit 0, serve prefilling through the
               blockwise fallback (head_dim 16).
-9. admm_cnn — VGG-16 at full width (ImageNet head, 224 x 224, fp32)
+10. admm_cnn — VGG-16 at full width (ImageNet head, 224 x 224, fp32)
               pruned by layer-wise ADMM ``pattern_shared`` alpha 0.25
               (batch 32, 4 iterations; some pruned leaf off the greedy
               projection), retrained by 10 masked AdamW steps on
@@ -102,7 +123,7 @@ result line is printed:
               ``pattern_conv`` launch per stride-1 3x3 conv (counts zeroed
               around it); the fp32 top-1 gate of ``[cnn]``. Seconds per
               iteration and per step, peak memory.
-10. pipeline — the privacy-preserving pruning service
+11. pipeline — the privacy-preserving pruning service
               (``launch.pipeline.main`` in process, full scale, quick
               budgets, no stage retries: every stage must succeed on
               its one attempt): VGG-16 at width 1.0 on 32 x 32 x 3
@@ -124,7 +145,7 @@ result line is printed:
               tokens, 16 new; counts zeroed around it: ``pattern_gemm``
               launched, every flash call on wgmma, no fallback) and fp32
               dense-pruned vs packed greedy tokens identical.
-11. report  — one ``{"kernels": [...]}`` JSON line covering all four
+12. report  — one ``{"kernels": [...]}`` JSON line covering all four
               kernels (each a sum over the bf16 shapes its served path
               launches; the GEMMs' ``lm_head`` at M = 512 and 2048, which
               prefill never launches, listed apart under ``not_on_path``,
@@ -188,10 +209,26 @@ from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.privacy import report as privacy_report  # noqa: E402
 from repro_torch.runtime import StageError  # noqa: E402
 from repro_torch.models import LM, attention, resnet18, vgg16  # noqa: E402
-from repro_torch.serve import Request, ServeEngine  # noqa: E402
+from repro_torch.runtime import trace_analysis  # noqa: E402
+from repro_torch.runtime.telemetry import (  # noqa: E402
+    MetricsRegistry,
+    Telemetry,
+    read_trace,
+)
+from repro_torch.serve import (  # noqa: E402
+    CancelToken,
+    ContinuousEngine,
+    Request,
+    ServeEngine,
+)
 from repro_torch.serve.sampler import fold_key_grid  # noqa: E402
 from repro_torch.sparse import PrunedArtifact, is_packed  # noqa: E402
 from repro_torch.sparse.registry import handler_for  # noqa: E402
+from repro_torch.testing import (  # noqa: E402
+    ScriptedClock,
+    chunk_action_hook,
+    kv_poison_hook,
+)
 from repro_torch.utils.tree import (  # noqa: E402
     tree_items,
     tree_leaves,
@@ -219,12 +256,19 @@ QWEN2_GEMMS = (
 )
 GEMM_MS = (4, 512, 2048)            # decode (M = batch); prefill chunks of
                                     # 4 x 128 and 4 x 512 tokens
-FLASH_SHAPES = dict(B=4, H=12, KV=2, hd=128)
-# (S, causal, window): the served prefill chunks (S = 128, 512), the ragged
-# edge (S = 200), a sliding window and a non-causal call
-FLASH_CASES = ((128, True, None), (200, True, None), (512, True, None),
-               (512, True, 128), (512, False, None))
-FLASH_SERVED = (128, 512)
+# [continuous] prefills each admission alone: its layer GEMMs run at M = S
+# (64, 200 and 512 above) and its head at M = 1 (the last token); the fp32
+# bar's ServeEngine(batch_size=1) decodes at M = 1
+SOLO_MS = (1, 64, 200)
+FLASH_SHAPES = dict(H=12, KV=2, hd=128)
+# (B, S, causal, window): the served prefill chunks (B = 4, S = 128, 512),
+# the ragged edge (S = 200), a sliding window, a non-causal call, and
+# [continuous]'s solo admissions (B = 1, S = 64, 200, 512)
+FLASH_CASES = ((4, 128, True, None), (4, 200, True, None),
+               (4, 512, True, None), (4, 512, True, 128),
+               (4, 512, False, None), (1, 64, True, None),
+               (1, 200, True, None), (1, 512, True, None))
+FLASH_SERVED = ((4, 128), (4, 512), (1, 64), (1, 200), (1, 512))
 # (batch, H = W, C, A): every distinct stride-1 3x3 conv of VGG-16 at
 # 224 x 224, batch 32, and of ResNet-18 (CIFAR stem) at 32 x 32, batch 256
 VGG16_CONVS = tuple((32, h, c, a) for h, c, a in (
@@ -344,7 +388,9 @@ def check_pattern_gemm(gen) -> list:
             wpb, li = pg_mod.pack_tile_pattern_blocked(w, block_p=128)
             b = (torch.randn(P, generator=gen, device="cuda") * 0.1).to(dtype) \
                 if has_bias else None
-            for M in GEMM_MS:
+            for M in sorted(GEMM_MS + SOLO_MS):
+                if name == "lm_head" and M in SOLO_MS[1:]:
+                    continue                # the head runs on one token
                 x = torch.randn((M, Q), generator=gen, device="cuda").to(dtype)
                 y = pg_mod.pattern_gemm(x, wpb, li, b, activation=act)
                 torch.cuda.synchronize()
@@ -366,9 +412,12 @@ def check_pattern_gemm(gen) -> list:
                 t_b, by = bound(nbytes(x, wpb, li, b, y),
                                 2.0 * M * Kp * nb * bp, dtype)
                 rows.append(dict(kernel="pattern_gemm", shape=f"{name} M={M}",
-                                 # LM.prefill computes the last token's
+                                 # the prefills compute the last token's
                                  # logits only: the head runs at M = batch
-                                 on_path=name != "lm_head" or M == 4,
+                                 # ([serve], decode) or 1 (an admission);
+                                 # bf16 layer GEMMs never at M = 1
+                                 on_path=M in (1, 4) if name == "lm_head"
+                                 else M > 1,
                                  dtype=str(dtype).split(".")[-1],
                                  variant=variant, max_abs_err=err, ms=ms,
                                  earlier_ms=earlier, plain_ms=plain,
@@ -380,10 +429,10 @@ def check_pattern_gemm(gen) -> list:
 
 def check_flash(gen) -> list:
     rows = []
-    B, H, KV, hd = (FLASH_SHAPES[k] for k in ("B", "H", "KV", "hd"))
+    H, KV, hd = (FLASH_SHAPES[k] for k in ("H", "KV", "hd"))
     for dtype in (torch.bfloat16, torch.float32):
         tol = TOL[dtype]
-        for S, causal, window in FLASH_CASES:
+        for B, S, causal, window in FLASH_CASES:
             q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
             k = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(dtype)
             v = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(dtype)
@@ -393,7 +442,8 @@ def check_flash(gen) -> list:
             r = fa_mod.flash_attention_ref(q, k, v, **kw)
             err = (o.float() - r.float()).abs().max().item()
             if not torch.allclose(o.float(), r.float(), rtol=tol, atol=tol):
-                fail(f"flash_attention S={S} {kw} {dtype}: max err {err}")
+                fail(f"flash_attention B={B} S={S} {kw} {dtype}: max err "
+                     f"{err}")
             variant = fa_mod.flash_variant(S, hd, dtype, window, causal)
             earlier = None                  # the SIMT kernel at this shape
             if variant == "wgmma":
@@ -401,7 +451,7 @@ def check_flash(gen) -> list:
                 torch.cuda.synchronize()
                 if not torch.allclose(simt.float(), r.float(), rtol=tol,
                                       atol=tol):
-                    fail(f"flash_attention simt S={S} {kw}: max err "
+                    fail(f"flash_attention simt B={B} S={S} {kw}: max err "
                          f"{(simt.float() - r.float()).abs().max().item()}")
                 earlier = timed_ms(lambda: fa_mod._launch(
                     q, k, v, causal, window, None, "simt"))
@@ -428,7 +478,7 @@ def check_flash(gen) -> list:
                      + (f" window={window}" if window else ""))
             rows.append(dict(kernel="flash_attention", shape=shape,
                              on_path=causal and window is None
-                             and S in FLASH_SERVED,
+                             and (B, S) in FLASH_SERVED,
                              dtype=str(dtype).split(".")[-1], variant=variant,
                              max_abs_err=err, ms=ms, earlier_ms=earlier,
                              plain_ms=plain, bound_ms=t_b, bound_by=by,
@@ -543,7 +593,7 @@ KERNEL_MODS = {"pattern_gemm": pg_mod, "flash_attention": fa_mod,
 def reset_launches() -> None:
     for mod in KERNEL_MODS.values():
         mod.LAUNCHES = 0
-    for mod in (fa_mod, pc_mod):
+    for mod in (pg_mod, fa_mod, pc_mod):
         mod.ROUTE_LAUNCHES.update(dict.fromkeys(mod.ROUTE_LAUNCHES, 0))
     attention.PREFILL_FALLBACKS = 0
 
@@ -734,12 +784,13 @@ def seeded_across_batches(tag: str, eng, reqs) -> None:
         fail(f"[{tag}] a seeded request's tokens depend on its batch-mates")
 
 
-def drive_serve(tag: str, smi: str, pcfg, gemm: str) -> dict:
+def drive_serve(tag: str, smi: str, pcfg, gemm: str):
     """Serve qwen2-1.5b packed under ``pcfg`` from an artifact saved to disk
     and loaded back, through the launcher's engine (CUDA graphs): the main
     path (8 requests, counts zeroed around it), token identity with the
     in-memory artifact, a seeded temperature request, then each chunk
-    eager against graph. Returns the main path's launch counts."""
+    eager against graph. Returns the main path's launch counts and the
+    loaded artifact."""
     names = (gemm, "flash_attention")
     cfg = get_config("qwen2-1.5b")
     model = LM(cfg)
@@ -802,10 +853,12 @@ def drive_serve(tag: str, smi: str, pcfg, gemm: str) -> dict:
     seeded_across_batches(tag, eng, reqs)
     for S, chunk in ((128, reqs[4:]), (512, reqs[:4])):
         eager_against_graph(tag, eng, chunk, S, gemm)
-    return launches
+    return launches, loaded
 
 
-def phase_serve(smi: str) -> dict:
+def phase_serve(smi: str):
+    """-> (launch counts, the loaded artifact, which ``[continuous]``
+    serves again)."""
     return drive_serve("serve", smi, TILE_PCFG, "pattern_gemm")
 
 
@@ -820,14 +873,15 @@ TRACED_KERNEL = {
 }
 
 
-def profile(tag: str, what: str, fn, per: int = 1,
-            names: tuple = ()) -> None:
+def profile(tag: str, what: str, fn, per: int = 1, names: tuple = (),
+            quiet: bool = False) -> list:
     """Where the time of ``fn`` goes, per ``per`` (decode steps): wall
     clock against the device's busy time (sum of kernel self times under
     torch.profiler) and the kernels that hold most of it. For each kernel
     in ``names`` the launches its wrapper counted during ``fn`` (graph
     replays included) must equal the trace's launches of its device
-    functions."""
+    functions. Returns the trace's raw events; ``quiet``: print, sum and
+    gate nothing."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
 
@@ -840,6 +894,9 @@ def profile(tag: str, what: str, fn, per: int = 1,
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / per
     counted = launch_counts(names)
+    events = prof.profiler.kineto_results.events()
+    if quiet:
+        return events
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / per
@@ -862,6 +919,7 @@ def profile(tag: str, what: str, fn, per: int = 1,
     if counted != traced or not all(traced.values()):
         fail(f"[{tag}] {what}: counted launches {counted} are not the "
              f"trace's {traced}")
+    return events
 
 
 def token_identity(tag: str, cfg, pcfg, note: str = "") -> None:
@@ -1008,7 +1066,7 @@ def phase_cnn(smi: str, tag: str, ctor, kwargs: dict, batch: int,
 
 
 def phase_column(smi: str) -> dict:
-    launches = drive_serve("column", smi, COLUMN_PCFG, "column_gemm")
+    launches, _ = drive_serve("column", smi, COLUMN_PCFG, "column_gemm")
     torch.cuda.empty_cache()
     cfg = dataclasses.replace(get_config("qwen2-1.5b"), param_dtype="float32",
                               num_layers=COLUMN_IDENTITY_LAYERS)
@@ -1016,6 +1074,391 @@ def phase_column(smi: str) -> dict:
                    f"; reduced depth: {COLUMN_IDENTITY_LAYERS} of 28 layers "
                    "at full width")
     return launches
+
+
+# ------------------------------------------------ continuous batching
+
+# ContinuousEngine(batch_size=4, max_seq_len=544, chunk_steps=8) on the
+# [serve] phase's loaded artifact; 12 requests, prompt lengths and budgets
+# cycling, arrivals at seeded exponential gaps of about one decode chunk
+CONT = dict(batch=4, max_seq=544, chunk=8, requests=12, lens=(512, 200, 64),
+            new=(32, 8, 16), gap_s=0.055, fp32_layers=4, fp32_requests=6,
+            eager_requests=6)
+
+
+def continuous_requests(vocab: int) -> list:
+    g = torch.Generator().manual_seed(2)
+    lens, new = CONT["lens"], CONT["new"]
+    return [Request(uid=i, prompt=torch.randint(0, vocab, (lens[i % 3],),
+                                                generator=g),
+                    max_new_tokens=new[i % 3])
+            for i in range(CONT["requests"])]
+
+
+def continuous_engine(model, art) -> ContinuousEngine:
+    return ContinuousEngine(model, art, packed=True,
+                            batch_size=CONT["batch"],
+                            max_seq_len=CONT["max_seq"],
+                            chunk_steps=CONT["chunk"], device=DEV)
+
+
+def outcome(results) -> list:
+    return [(r.uid, r.tokens, r.status) for r in results]
+
+
+def recorded_run(eng, reqs, **kw):
+    """``eng.generate(reqs, **kw)`` -> (outcome, every decode chunk's host
+    tokens and flags)."""
+    chunks = []
+    inner = eng._decode_chunk
+
+    def record(K, table):
+        toks, flags = inner(K, table)
+        chunks.append((toks.tolist(), flags.tolist()))
+        return toks, flags
+
+    eng._decode_chunk = record
+    try:
+        return outcome(eng.generate(reqs, **kw)), chunks
+    finally:
+        del eng._decode_chunk
+
+
+def prefix_of(got: list, full: list) -> bool:
+    return 0 < len(got) < len(full) and got == full[:len(got)]
+
+
+def continuous_main(tag: str, smi: str, eng, reqs: list) -> dict:
+    """The main path: ``reqs`` at seeded arrivals, counts zeroed around it,
+    a trace and a registry recording it; its readings and the kernel and
+    trace gates. Returns the run's results, launches and trace analysis."""
+    n = len(reqs)
+    g = torch.Generator().manual_seed(3)
+    gaps = torch.empty(n - 1, dtype=torch.float64).exponential_(
+        1.0 / CONT["gap_s"], generator=g)
+    arrivals = [0.0] + torch.cumsum(gaps, 0).tolist()
+    L = eng.model.config.num_layers
+    with tempfile.TemporaryDirectory(prefix="trace-") as d:
+        path = os.path.join(d, "continuous.jsonl")
+        reg = MetricsRegistry()
+        eng.telemetry = Telemetry(metrics=reg, trace_path=path)
+        reset_launches()                                # the main path
+        t0 = time.perf_counter()
+        results = eng.generate(reqs, arrivals=arrivals)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts(("pattern_gemm", "flash_attention"))
+        routes = {"pattern_gemm": dict(pg_mod.ROUTE_LAUNCHES),
+                  "flash_attention": dict(fa_mod.ROUTE_LAUNCHES)}
+        fallbacks = attention.PREFILL_FALLBACKS
+        eng.telemetry.close()
+        eng.telemetry = None
+        events = read_trace(path)
+    st = eng.stats
+    n_tok = sum(len(r.tokens) for r in results)
+    E = {"engine": "continuous"}
+    h = {k: reg.histogram(f"serve.{k}_seconds", **E)
+         for k in ("ttft", "tpot", "queue_wait", "chunk")}
+    analysis = trace_analysis.analyze(events)
+    lens = {r.uid: len(r.prompt) for r in reqs}
+    by_s = {}
+    for p in analysis.requests:
+        by_s.setdefault(lens[p.uid], []).append(
+            (p.first_token_ts - p.arrival, p.prefill_s))
+    chunks = analysis.chunks
+    chunk_s = sum(c["dur"] for c in chunks)
+    admit_s = sum(p.prefill_s for p in analysis.requests)
+    step_ms = chunk_s / max(1, sum(c["steps"] for c in chunks)) * 1e3
+    print(f"[{tag}] {n} requests (prompt lengths {CONT['lens']} and budgets "
+          f"{CONT['new']} cycling; arrivals at seeded exponential gaps, mean "
+          f"{CONT['gap_s'] * 1e3:.0f} ms, last at {arrivals[-1] * 1e3:.1f} "
+          f"ms): wall {wall * 1e3:.1f} ms, {n_tok} tokens, "
+          f"{n_tok / wall:.1f} tok/s, occupancy {st['occupancy']:.4f}, "
+          f"{st['chunks']} chunks, {st['total_slot_steps'] // eng.batch_size}"
+          f" decode steps; decode {step_ms:.3f} ms per chunk step (host "
+          f"clock, chunk spans); of the wall, decode chunks "
+          f"{chunk_s * 1e3:.1f} ms, admissions {admit_s * 1e3:.1f} ms "
+          f"(admit spans), the rest {(wall - chunk_s - admit_s) * 1e3:.1f} "
+          f"ms ({smi})", flush=True)
+    print(f"[{tag}] registry: TTFT p50 {h['ttft'].quantile(0.5) * 1e3:.2f}"
+          f" / p99 {h['ttft'].quantile(0.99) * 1e3:.2f} ms, TPOT p50 "
+          f"{h['tpot'].quantile(0.5) * 1e3:.2f} / p99 "
+          f"{h['tpot'].quantile(0.99) * 1e3:.2f} ms (bucket upper bounds); "
+          f"means TTFT {h['ttft'].sum / h['ttft'].count * 1e3:.3f}, TPOT "
+          f"{h['tpot'].sum / max(1, h['tpot'].count) * 1e3:.3f}, queue wait "
+          f"{h['queue_wait'].sum / h['queue_wait'].count * 1e3:.3f}, chunk "
+          f"{h['chunk'].sum / max(1, h['chunk'].count) * 1e3:.3f} ms; from "
+          "the trace per prompt length, TTFT mean / max and admit span "
+          "(solo prefill + first token) mean, ms: " + json.dumps(
+              {S: [round(sum(t for t, _ in v) / len(v) * 1e3, 3),
+                   round(max(t for t, _ in v) * 1e3, 3),
+                   round(sum(a for _, a in v) / len(v) * 1e3, 3)]
+               for S, v in sorted(by_s.items())}) + f" ({smi})", flush=True)
+    print(f"[{tag}] launches (graph replays counted) {json.dumps(launches)};"
+          f" by route {json.dumps(routes)}; blockwise fallbacks {fallbacks}",
+          flush=True)
+    for r, q in zip(results, reqs):
+        if (r.status != "ok" or len(r.tokens) != q.max_new_tokens
+                or not all(0 <= t < eng.model.config.vocab_size
+                           for t in r.tokens)):
+            fail(f"[{tag}] request {r.uid}: {r.status}, tokens "
+                 f"{r.tokens[:8]}...")
+    if (launches["flash_attention"] != L * n
+            or routes["flash_attention"]["wgmma"] != L * n or fallbacks):
+        fail(f"[{tag}] every admission must run flash on wgmma ({L} x {n}):"
+             f" {routes['flash_attention']}, {fallbacks} fallbacks")
+    if not (routes["pattern_gemm"]["skinny"]
+            and routes["pattern_gemm"]["wgmma"]):
+        fail(f"[{tag}] pattern_gemm must launch on skinny (decode) and "
+             f"wgmma (admissions): {routes['pattern_gemm']}")
+    check = analysis.crosscheck(reg)
+    t_first = {e["uid"]: e["ts"] for e in events
+               if e["name"] == "first_token"}
+    tpot = sum((e["ts"] - t_first[e["uid"]]) / (e["tokens"] - 1)
+               for e in events if e["name"] == "retire" and e["tokens"] > 1)
+    ok = (check["matches"] and analysis.occupancy == st["occupancy"]
+          and math.isclose(tpot, h["tpot"].sum, rel_tol=1e-9))
+    print(f"[{tag}] trace ({len(events)} events) recomputes the registry: "
+          f"TTFT, queue wait, occupancy {check['matches']}, TPOT sum "
+          f"{tpot:.9f} against {h['tpot'].sum:.9f}, occupancy "
+          f"{analysis.occupancy:.4f}: {ok}", flush=True)
+    if not ok:
+        fail(f"[{tag}] the trace does not recompute the registry: {check}")
+    trace_loss(tag, eng, reqs, arrivals)
+    # the busy share; trace_loss gates the launches on this path
+    profile(tag, f"generate ({n} requests, the same arrivals)",
+            lambda: eng.generate(reqs, arrivals=arrivals))
+    return {"results": results, "launches": launches}
+
+
+TRACE_REPEATS = 3
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+
+
+def trace_loss(tag: str, eng, reqs: list, arrivals: list) -> None:
+    """Does the profiler lose kernel records, and where? The main path
+    under one scripted schedule, traced ``TRACE_REPEATS`` times as
+    ``profile`` traces, and as often behind a 20 ms device spin (a trace
+    opened by the spin then a sync, the spin left out). The schedule is
+    the same each run (the counted launches must agree), so a run's
+    missing records against the fullest run are trace loss; they are
+    placed by the first record where the run departs from the fullest.
+    ``orphans``: kernel-launch calls on the host whose device record is
+    missing (a kernel of a graph replay shares its replay's call, so its
+    loss is not one). Gate: no run traces more launches of a counted
+    kernel than were counted, nor fewer by more than its measured loss."""
+    from collections import Counter
+
+    CUDA = torch.autograd.DeviceType.CUDA
+    names = ("pattern_gemm", "flash_attention")
+
+    def run():
+        eng.generate(reqs, arrivals=arrivals,
+                     clock=ScriptedClock([], tail_step=0.02))
+
+    def spun():
+        torch.cuda._sleep(int(0.02 * SLEEP_HZ))
+        torch.cuda.synchronize()
+        run()
+
+    runs = []
+    for spin in (False, True):
+        for _ in range(TRACE_REPEATS):
+            events = profile(tag, "", spun if spin else run, quiet=True)
+            dev = sorted((e for e in events if e.device_type() == CUDA
+                          and "spin_kernel" not in e.name()),
+                         key=lambda e: e.start_ns())
+            seen = {e.correlation_id() for e in dev}
+            orphans = sum(1 for e in events if e.device_type() != CUDA
+                          and e.name() in LAUNCH_CALLS
+                          and e.correlation_id() not in seen)
+            seq = [e.name() for e in dev]
+            runs.append((spin, launch_counts(names), {
+                n: sum(1 for k in seq if re.search(TRACED_KERNEL[n], k))
+                for n in names}, seq, orphans))
+    full = max((r[3] for r in runs), key=len)
+    bad = []
+    for spin, counted, traced, seq, orphans in runs:
+        m = len(full) - len(seq)
+        lost = Counter(full) - Counter(seq)
+        i = next((i for i, (a, b) in enumerate(zip(seq, full)) if a != b),
+                 len(seq))
+        j = len(full) - next((j for j, (a, b) in enumerate(
+            zip(seq[::-1], full[::-1])) if a != b), len(seq))
+        # the fullest run's records [0, i) and [j, end) match this run's
+        # ends; a run of one kernel's records blurs the edges by up to m
+        where = (f"{m} fewer than the fullest run, lost within its "
+                 f"records [{min(i, j - m)}, {max(i + m, j)})" if m or lost
+                 else "as many as the fullest")
+        print(f"[{tag}] trace loss, whole path on a scripted schedule"
+              f"{', behind the spin' if spin else ''}: {len(seq)} device "
+              f"records, {where}; lost by kernel "
+              + json.dumps({k[:48]: v for k, v in lost.most_common(6)})
+              + f"; orphan launch calls {orphans}; launches counted "
+              + json.dumps(counted) + ", traced " + json.dumps(traced),
+              flush=True)
+        short = {n: counted[n] - traced[n] for n in names}
+        if any(v < 0 for v in short.values()) or sum(short.values()) > m:
+            bad.append((counted, traced, m))
+    if any(r[1] != runs[0][1] for r in runs):
+        fail(f"[{tag}] one scripted schedule counted different launches: "
+             f"{[r[1] for r in runs]}")
+    if bad:
+        fail(f"[{tag}] counted launches the trace's loss does not explain "
+             f"(counted, traced, records lost): {bad}")
+
+
+def continuous_reliability(tag: str, eng, reqs: list, solo: dict) -> None:
+    """Under a scripted clock, on the main engine: a KV poison, a deadline
+    and a cancel in one run (mates bit-identical to solo), then a bounded
+    queue that sheds; ``stats`` statuses equal the registry's."""
+    rel = [dataclasses.replace(reqs[i], uid=100 + i, max_new_tokens=32,
+                               cancel_token=CancelToken()) for i in range(4)]
+    want = {r.uid: eng.generate([r])[0].tokens for r in rel}
+    rel[2] = dataclasses.replace(rel[2], deadline=0.2)
+    poison = kv_poison_hook(0, at_chunk=1)
+    cancel = chunk_action_hook({2: rel[3].cancel})
+    eng.fault_hook = lambda cache, sched: (poison(cache, sched),
+                                           cancel(cache, sched))[0]
+    reg = MetricsRegistry()
+    eng.telemetry = Telemetry(metrics=reg)
+    try:
+        out = eng.generate(rel, clock=ScriptedClock([], tail_step=0.01))
+    finally:
+        eng.fault_hook = eng.telemetry = None
+    st = eng.stats
+    counts = {s: reg.value("serve.requests_total", engine="continuous",
+                           status=s) for s in st["statuses"]}
+    good = ([r.status for r in out] == ["failed", "ok", "timeout",
+                                        "cancelled"]
+            and st["quarantined_slots"] == [0]
+            and out[1].tokens == want[101]
+            and all(prefix_of(out[i].tokens, want[100 + i])
+                    for i in (0, 2, 3))
+            and counts == st["statuses"])
+    print(f"[{tag}] reliability (scripted clock): KV poison in slot 0, a "
+          f"deadline, a cancel at chunk edge 2 -> "
+          f"{[(r.status, len(r.tokens)) for r in out]}, quarantined "
+          f"{st['quarantined_slots']}, the mate bit-identical to solo "
+          f"{out[1].tokens == want[101]}, partial outputs prefixes of solo; "
+          f"stats statuses {st['statuses']} == registry's "
+          f"{counts == st['statuses']}: {good}", flush=True)
+    if not good:
+        fail(f"[{tag}] reliability statuses or tokens wrong")
+    shed = [dataclasses.replace(reqs[i], uid=200 + i,
+                                cancel_token=CancelToken())
+            for i in (2, 5, 8, 11)]
+    eng.max_queue = 2
+    try:
+        out = eng.generate(shed)
+    finally:
+        eng.max_queue = None
+    good = ([r.status for r in out] == ["ok", "ok", "shed", "shed"]
+            and [r.tokens for r in out[:2]] == [solo[2], solo[5]]
+            and eng.stats["statuses"]["shed"] == 2)
+    print(f"[{tag}] max_queue=2 with 4 requests at once: "
+          f"{[r.status for r in out]}, served ones bit-identical to solo: "
+          f"{good}", flush=True)
+    if not good:
+        fail(f"[{tag}] the bounded queue did not shed typed")
+
+
+def continuous_fp32(tag: str, cfg, reqs: list) -> None:
+    """At ``fp32_layers`` layers of full width in fp32: the continuous
+    engine's greedy tokens equal ``ServeEngine(batch_size=1)``'s."""
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                num_layers=CONT["fp32_layers"])
+    model = LM(cfg32, device=DEV)
+    art = greedy_prune(model.init(torch.Generator(device=DEV).manual_seed(
+        0)), TILE_PCFG, device=DEV).pack(device=DEV)
+    sub = reqs[:CONT["fp32_requests"]]
+    cont = [r.tokens for r in continuous_engine(model, art).generate(sub)]
+    solo_eng = ServeEngine(model, art, packed=True, batch_size=1,
+                           max_seq_len=CONT["max_seq"], device=DEV)
+    solo = [solo_eng.generate([r])[0].tokens for r in sub]
+    print(f"[{tag}] fp32, {CONT['fp32_layers']} of {cfg.num_layers} layers "
+          f"at full width: continuous greedy tokens identical to "
+          f"ServeEngine(batch_size=1) for {len(sub)} mixed-length requests: "
+          f"{cont == solo} ({sum(len(t) for t in cont)} tokens)", flush=True)
+    if cont != solo:
+        fail(f"[{tag}] fp32 continuous tokens differ from solo serving")
+
+
+def phase_continuous(smi: str, art) -> dict:
+    """qwen2-1.5b's loaded artifact through ``ContinuousEngine``: captures,
+    the main path, solo identity, graph against eager, reliability, the
+    fp32 bar and the chunked engine's reading on the same requests."""
+    tag = "continuous"
+    cfg = get_config("qwen2-1.5b")
+    model = LM(cfg, device=DEV)
+    reqs = continuous_requests(cfg.vocab_size)
+    eng = continuous_engine(model, art)
+    t0 = time.perf_counter()
+    eng.generate(reqs[:len(CONT["lens"])])     # captures each S, decode
+    torch.cuda.synchronize()
+    caps = {f"prefill S={S}": eng.prefill_graphs[S].graph.pool_bytes
+            for S in CONT["lens"]} if eng.graphs else {}
+    if eng.graphs:
+        caps["decode"] = eng.decode_graph.graph.pool_bytes
+    print(f"[{tag}] qwen2-1.5b L={cfg.num_layers} d_model={cfg.d_model} "
+          f"vocab={cfg.vocab_size} {cfg.param_dtype}, the [serve] phase's "
+          f"loaded artifact; ContinuousEngine(batch_size={CONT['batch']}, "
+          f"max_seq_len={CONT['max_seq']}, chunk_steps={CONT['chunk']}); "
+          f"{len(caps)} graphs captured in {time.perf_counter() - t0:.2f} s "
+          f"(first use, with {len(CONT['lens'])} requests served); one pool "
+          f"of {eng.graph_pool.reserved if eng.graphs else 0} bytes, by "
+          f"capture " + json.dumps(caps) + f" ({smi})", flush=True)
+    main = continuous_main(tag, smi, eng, reqs)
+
+    solo = {r.uid: eng.generate([r])[0].tokens for r in reqs}
+    same = [r.tokens == solo[r.uid] for r in main["results"]]
+    print(f"[{tag}] each request bit-identical to its solo run through the "
+          f"same engine (batch {CONT['batch']}, other rows idle): "
+          f"{sum(same)}/{len(same)}", flush=True)
+    if not all(same):
+        fail(f"[{tag}] continuous tokens depend on chunk-mates: "
+             f"{[r.uid for r, s in zip(main['results'], same) if not s]}")
+
+    sub = reqs[:CONT["eager_requests"]]
+    sched = [0.3 * i for i in range(len(sub))]
+    eager = continuous_engine(model, art)
+    eager.graphs = False
+    runs = [recorded_run(e, sub, arrivals=sched,
+                         clock=ScriptedClock([], tail_step=0.05))
+            for e in (eng, eager)]
+    same = runs[0] == runs[1]
+    print(f"[{tag}] graphs against eager, one scripted schedule "
+          f"({len(sub)} requests, {len(runs[0][1])} chunks): tokens, "
+          f"statuses and every chunk's tokens and flags bit-identical "
+          f"{same}", flush=True)
+    if not same:
+        fail(f"[{tag}] the slot graphs disagree with the eager path")
+    del eager
+    continuous_reliability(tag, eng, reqs, solo)
+
+    chunked = launch_serve.make_engine(model, art, batch=CONT["batch"],
+                                       max_seq=CONT["max_seq"], packed=True,
+                                       device=DEV)
+    chunked.generate(reqs)                          # captures
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = chunked.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    order = sorted(range(len(reqs)), key=lambda i: len(reqs[i].prompt))
+    B = CONT["batch"]
+    total = sum(B * max(reqs[i].max_new_tokens for i in order[c:c + B])
+                for c in range(0, len(order), B))
+    n_tok = sum(len(r.tokens) for r in out)
+    print(f"[{tag}] reading, not a claim: the chunked ServeEngine on the "
+          f"same {len(reqs)} requests submitted at once (length-bucketed, "
+          f"no arrivals): wall {wall * 1e3:.1f} ms, {n_tok / wall:.1f} "
+          f"tok/s, occupancy {n_tok / total:.4f} ({smi})", flush=True)
+    del chunked, eng, model
+    torch.cuda.empty_cache()
+    continuous_fp32(tag, cfg, reqs)
+    return main["launches"]
 
 
 # ------------------------------------------------ the paper's ADMM pruning
@@ -1876,22 +2319,28 @@ def main() -> int:
         rows = [r for check in (check_pattern_gemm, check_flash,
                                 check_pattern_conv, check_column_gemm)
                 for r in timed(check.__name__, check, gen)]
-        launches = timed("serve", phase_serve, smi)
+        launches, served = timed("serve", phase_serve, smi)
         timed("identity", phase_identity)
         conv = [timed(path[0], phase_cnn, smi, *path) for path in CNN_PATHS]
         column = timed("column", phase_column, smi)
+        cont = timed("continuous", phase_continuous, smi, served)
+        del served
         admm = timed("admm", phase_admm, smi)
         admm_conv = timed("admm_cnn", phase_admm_cnn, smi)
         pipe = timed("pipeline", phase_pipeline, smi)
     print(f"[time] all phases {time.perf_counter() - t0:.1f} s", flush=True)
     runs = {
         "pattern_gemm": "tile-pattern qwen2-1.5b serving 8 requests "
-                        f"({launches['pattern_gemm']}) + the ADMM-pruned "
+                        f"({launches['pattern_gemm']}) + the same artifact "
+                        "through ContinuousEngine serving 12 "
+                        f"({cont['pattern_gemm']}) + the ADMM-pruned "
                         f"one serving 4 ({admm['pattern_gemm']}) + the "
                         "pipeline's saved 4-layer one serving 4 "
                         f"({pipe['pattern_gemm']})",
         "flash_attention": "tile-pattern qwen2-1.5b serving 8 requests "
-                           f"({launches['flash_attention']}) + the "
+                           f"({launches['flash_attention']}) + the same "
+                           "artifact through ContinuousEngine serving 12 "
+                           f"({cont['flash_attention']}) + the "
                            "ADMM-pruned one serving 4 "
                            f"({admm['flash_attention']}) + the pipeline's "
                            f"saved 4-layer one serving 4 "
@@ -1904,7 +2353,8 @@ def main() -> int:
                         f"({pipe['pattern_conv']})",
         "column_gemm": "column-pruned qwen2-1.5b serving 8 requests",
     }
-    launches = {k: launches[k] + admm[k] + pipe[k] for k in launches}
+    launches = {k: launches[k] + cont[k] + admm[k] + pipe[k]
+                for k in launches}
     launches.update(pattern_conv=sum(conv) + admm_conv
                     + pipe["pattern_conv"],
                     column_gemm=column["column_gemm"])

@@ -24,8 +24,9 @@ from repro_torch.kernels.epilogue import ACT_CODES, apply_epilogue, check_activa
 from repro_torch.kernels.sm90 import BLOCK_K, SKINNY_M, VARIANTS, wgmma_plan
 
 # launches of the CUDA kernel since the last reset (plain int; the smoke
-# run zeroes it around the served path)
+# run zeroes it around the served path), and per route
 LAUNCHES = 0
+ROUTE_LAUNCHES = dict.fromkeys(VARIANTS, 0)
 
 BLOCK_PS = (32, 64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -193,4 +194,5 @@ def _launch(x: torch.Tensor, w_packed: torch.Tensor, lane_idx: torch.Tensor,
         torch.cuda.current_stream(x.device).cuda_stream)
     global LAUNCHES
     LAUNCHES += 1
+    ROUTE_LAUNCHES[variant] += 1
     return out

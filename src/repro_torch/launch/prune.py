@@ -15,8 +15,10 @@ The privacy property is structural: the only inputs are the checkpoint,
 the run's key and the config. ``<out>/pruned`` and ``<out>/masks`` are in
 the reference's stacked layout, so either package reads them.
 ``main(argv)`` returns the ``PruneResult``, so it can be driven in
-process. The reference's ``--chaos-kill-at`` test seam is not ported;
-``PrivacyPreservingPruner.run``'s ``callback`` is the seam the tests use.
+process. ``--chaos-kill-at N`` (a test seam) SIGKILLs the process once
+ADMM iteration N has committed (``testing.chaos.kill_at_iteration``);
+with ``--save-every`` a later ``--resume`` finishes the run bit-identical
+to one never killed.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ from repro_torch.core import (
 )
 from repro_torch.device import resolve_device
 from repro_torch.models import LM
+from repro_torch.testing.chaos import kill_at_iteration
 from repro_torch.utils.tree import tree_map
 
 log = logging.getLogger(__name__)
@@ -102,6 +105,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--ckpt-dir", default=None,
                     help="run-state checkpoint directory "
                          "(default <out>/prune_ckpt)")
+    ap.add_argument("--chaos-kill-at", type=int, default=None,
+                    help="TEST SEAM: SIGKILL this process once ADMM "
+                         "iteration N has committed")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     return ap.parse_args(argv)
 
@@ -127,11 +133,15 @@ def main(argv: Optional[Sequence[str]] = None) -> PruneResult:
     ckpt_dir = None
     if args.save_every > 0 or args.resume:
         ckpt_dir = args.ckpt_dir or os.path.join(args.out, "prune_ckpt")
+    callback = None
+    if args.chaos_kill_at is not None:
+        callback = kill_at_iteration(args.chaos_kill_at, hard=True)
     t0 = time.time()
     result = PrivacyPreservingPruner(
         LMAdapter(model, seq_len=args.seq), config).run(
             as_key(1), params, checkpoint_dir=ckpt_dir,
-            save_every=args.save_every, resume=args.resume)
+            save_every=args.save_every, resume=args.resume,
+            callback=callback)
     log.info("pruned %.2fx (sparsity %.1f%%) in %.1fs; client data never "
              "touched", compression_rate(result.masks),
              100 * sparsity(result.masks), time.time() - t0)

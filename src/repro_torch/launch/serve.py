@@ -16,8 +16,16 @@ weights through the packed kernels. ``--temperature`` samples every
 request at that temperature, row keys drawn from ``--seed``. Without
 ``--ckpt`` or ``--artifact`` the weights are random, from seed 0.
 
+``--metrics-out PATH`` writes a metrics snapshot of the process-wide
+registry after the run (Prometheus text for ``.prom`` / ``.txt``, JSON
+otherwise); ``--trace-out PATH`` appends the engine's trace events (JSONL:
+one ``decode_chunk`` span per chunk, one ``retire`` event per request),
+which ``runtime.trace_analysis`` reads.
+
 ``main(argv)`` returns the results, so it can be driven in process.
 Speculative serving (``--speculative`` in the reference) is not ported.
+The continuous engine has no launcher flag (nor has the reference's):
+its entry points are ``ContinuousEngine.generate`` and ``stream``.
 """
 
 from __future__ import annotations
@@ -36,6 +44,8 @@ from repro_torch.convert import params_from_jax
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import flash_attention
 from repro_torch.models import LM, attention
+from repro_torch.runtime import telemetry_export
+from repro_torch.runtime.telemetry import Telemetry, get_registry
 from repro_torch.serve.engine import Request, Result, ServeEngine
 from repro_torch.sparse.artifact import PrunedArtifact
 
@@ -60,6 +70,13 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "(default: greedy)")
     ap.add_argument("--seed", type=int, default=0,
                     help="the engine's seed for the requests' row keys")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write a metrics snapshot after the run: "
+                         "Prometheus text if PATH ends in .prom/.txt, JSON "
+                         "otherwise (the process-wide registry)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="append the engine's trace events (JSONL spans "
+                         "and per-request retire events) to PATH")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     return ap.parse_args(argv)
@@ -83,11 +100,13 @@ def load_params(cfg: ModelConfig, model: LM, *,
 
 def make_engine(model: LM, params: Any, *, batch: int, max_seq: int,
                 packed: bool, seed: int = 0,
+                telemetry: Optional[Telemetry] = None,
                 device: DeviceLike = None) -> ServeEngine:
     """The launcher's engine: CUDA graphs for decode and prefill on the
     card, eager on the CPU."""
     return ServeEngine(model, params, batch_size=batch, max_seq_len=max_seq,
-                       packed=packed, seed=seed, device=device)
+                       packed=packed, seed=seed, telemetry=telemetry,
+                       device=device)
 
 
 def make_requests(n: int, prompt_len: int, max_new: int, vocab: int,
@@ -114,9 +133,15 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Result]:
                          device=dev)
     if isinstance(params, PrunedArtifact):
         print(f"loaded artifact {args.artifact}: {params.summary()}")
+    telemetry = None
+    if args.metrics_out or args.trace_out:
+        # the process-wide registry: the snapshot holds whatever else the
+        # process recorded beside the serve series
+        telemetry = Telemetry(metrics=get_registry(),
+                              trace_path=args.trace_out)
     engine = make_engine(model, params, batch=args.batch,
                          max_seq=args.max_seq, packed=args.packed,
-                         seed=args.seed, device=dev)
+                         seed=args.seed, telemetry=telemetry, device=dev)
     reqs = make_requests(args.requests, args.prompt_len, args.max_new,
                          cfg.vocab_size, args.temperature)
     t0 = time.perf_counter()
@@ -134,6 +159,19 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Result]:
     for r in results[:4]:
         print(f"  uid={r.uid}: {r.tokens[:12]}"
               f"{'...' if len(r.tokens) > 12 else ''}")
+    if telemetry is not None:
+        telemetry.close()
+        if args.metrics_out:
+            if args.metrics_out.endswith((".prom", ".txt")):
+                telemetry_export.write_prometheus(args.metrics_out,
+                                                  telemetry.metrics)
+            else:
+                telemetry_export.write_json(args.metrics_out,
+                                            telemetry.metrics,
+                                            arch=args.arch, mode=mode)
+            print(f"metrics snapshot -> {args.metrics_out}")
+        if args.trace_out:
+            print(f"trace -> {args.trace_out}")
     return results
 
 

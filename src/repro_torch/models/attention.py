@@ -126,6 +126,30 @@ def cache_capacity(seq_len: int, window: Optional[int]) -> CacheSpec:
     return CacheSpec(capacity=seq_len, ring=False)
 
 
+def slot_prompt_rows(capacity: int, prompt_len: int, ring: bool,
+                     device=None):
+    """Cache geometry for writing a fresh ``prompt_len``-token prompt into
+    one slot -> ``(rows, keep, slot_pos_row)``: the cache slot indices
+    ``(keep,)`` the prompt's positions land in, and the full
+    ``(capacity,)`` int32 slot_pos row for the slot: fresh positions where
+    written, ``-1`` (empty, masked by ``decode_attention``) elsewhere.
+    Resetting a slot's row to this is what hides a retired occupant's
+    stale KV when a batch slot is reused mid-decode: the bytes stay, the
+    mask hides them. Only full caches are ported (the ring branch comes
+    with sliding-window models).
+    """
+    if ring:
+        raise NotImplementedError(
+            "ring caches (sliding-window attention) are not ported yet")
+    S, C = prompt_len, capacity
+    if S > C:
+        raise ValueError(f"prompt_len={S} exceeds cache capacity={C}")
+    rows = torch.arange(S, dtype=torch.int32, device=device)
+    slot_pos_row = torch.full((C,), -1, dtype=torch.int32, device=device)
+    slot_pos_row[:S] = rows
+    return rows, S, slot_pos_row
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, slot_pos: torch.Tensor,
                      q_pos: torch.Tensor, *, window: Optional[int] = None,

@@ -28,6 +28,7 @@ from repro_torch.models.attention import (
     decode_attention,
     insert_slots,
     prefill_attention,
+    slot_prompt_rows,
 )
 from repro_torch.models.layers import (
     apply_rope_tables,
@@ -254,6 +255,39 @@ class LM:
         return cache, self.lm_logits(params, h[:, -1:, :])
 
     @torch.no_grad()
+    def prefill_into_slot(self, params, cache: Dict[str, Any],
+                          prompt: torch.Tensor, slot):
+        """Prefill ONE prompt (1, S) into ONE slot of a LIVE decode cache
+        -> (cache, last-token logits (1, 1, V)).
+
+        ``slot``: a Python int or a one-element int64 tensor on the
+        cache's device (a captured graph reads it from a static buffer,
+        so one graph per S serves every slot). The prompt runs as a solo
+        forward (positions 0 .. S - 1, no batch-mates, no padding;
+        through ``flash_attention`` on the card), and only the slot's rows
+        change: its k/v rows 0 .. S - 1, its ``slot_pos`` row (fresh
+        positions where written, -1 elsewhere, so a retired occupant's
+        stale KV is masked out) and its ``pos`` entry (set to S). Every
+        other row stays untouched, and everything is written IN PLACE
+        into the same tensors (a captured decode graph reads them).
+        """
+        S = prompt.shape[1]
+        dev = cache["pos"].device
+        _, _, sp_row = slot_prompt_rows(cache["slot_pos"].shape[1], S,
+                                        ring=False, device=dev)
+        idx = (slot.view(1) if isinstance(slot, torch.Tensor)
+               else torch.tensor([slot], dtype=torch.int64, device=dev))
+        h, kv = self.hidden_states(params, prompt, collect_kv=True,
+                                   use_flash=True)
+        for layer, (k, v) in enumerate(kv):
+            for name, new in (("k", k), ("v", v)):
+                row = cache[name][layer]
+                row[:, :S].index_copy_(0, idx, new.to(row.dtype))
+        cache["slot_pos"].index_copy_(0, idx, sp_row[None])
+        cache["pos"].index_fill_(0, idx, S)
+        return cache, self.lm_logits(params, h[:, -1:, :])
+
+    @torch.no_grad()
     def decode_step(self, params, cache: Dict[str, Any],
                     tokens: torch.Tensor):
         """One decode step for tokens (B, 1); updates ``cache`` IN PLACE
@@ -287,7 +321,8 @@ class LM:
     def decode_many(self, params, cache: Dict[str, Any],
                     tokens: torch.Tensor, num_steps: int,
                     sampler: Optional[Callable] = None,
-                    keys: Optional[torch.Tensor] = None):
+                    keys: Optional[torch.Tensor] = None,
+                    with_flags: bool = False):
         """``num_steps`` decode steps, each sampling the next token on the
         device and feeding it back; no host sync. Returns (cache, tokens
         (B, num_steps)), column 0 being the token after ``tokens``.
@@ -296,15 +331,28 @@ class LM:
         ``sampler.fold_key_grid``); then the sampler is called as
         ``sampler(logits, keys[step])``, so a stochastic sampler draws a
         fresh stream each step.
+
+        ``with_flags``: also return (B, num_steps) bool flags, True where
+        that row's logits at that step were all finite. They only observe
+        the logits: the tokens are the same with or without them.
         """
         if sampler is None:
             from repro_torch.serve.sampler import greedy_sample
             sampler = greedy_sample
-        out = []
+        out, flags = [], []
         tok = tokens
         for step in range(num_steps):
             cache, logits = self.decode_step(params, cache, tok)
             tok = sampler(logits) if keys is None else sampler(logits,
                                                               keys[step])
             out.append(tok)
+            if with_flags:
+                flags.append(finite_rows(logits))
+        if with_flags:
+            return cache, torch.cat(out, dim=1), torch.stack(flags, dim=1)
         return cache, torch.cat(out, dim=1)
+
+
+def finite_rows(logits: torch.Tensor) -> torch.Tensor:
+    """(B, ...) logits -> (B,) bool: every value of the row finite."""
+    return torch.isfinite(logits).reshape(logits.shape[0], -1).all(dim=1)

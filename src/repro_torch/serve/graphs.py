@@ -1,19 +1,23 @@
 """CUDA graphs of the serving hot path (the port's counterpart of the
 reference's ``jax.jit`` programs: the decode ``lax.scan`` and the
-weight-baked prefill of ``repro/serve/engine.py``).
+weight-baked prefills of ``repro/serve/engine.py``).
 
-``DecodeGraph`` captures ONE decode step of the engine over static
-buffers: the KV cache, the current token, a device step index, the
-engine's row keys, and a (B, W) output block. A replay runs the step,
-samples the next token with the engine's ``sample`` (keyed by
-``fold_in(row key, step index)``), writes it into the output block's
-column ``step`` and advances the index, all on the device: the host only
-calls ``replay()`` per token.
+``DecodeGraph`` captures ONE decode step of an engine over static
+buffers: the KV cache, each row's current token and token index, the
+engine's row keys, a (B, W) block of tokens and, for an engine that
+reads them, one of finite-logits flags. A replay runs the step, samples
+each row's next token with the engine's ``sample`` (keyed by
+``fold_in(row key, row's token index)``), writes it (and the row's flag)
+into the blocks' current column and advances the indices, all on the
+device: the host only calls ``replay()`` per step.
+The index is per row, so the continuous engine keys each slot by its
+own emitted count; the chunked engine sets every row alike.
 
-``PrefillGraph`` captures ``LM.prefill`` for one padded prompt length S
-into the engine's cache, reading its prompts from a static (B, S) buffer
-and writing the last-token logits into a static buffer; its weights are
-the ones bound at capture (baked).
+``PrefillGraph`` captures one prefill for one prompt shape into the
+engine's cache (``LM.prefill`` of a (B, S) chunk, or ``LM.prefill_into_slot``
+of a (1, S) prompt into the slot a static device tensor names), reading
+its prompts from a static buffer and writing the last-token logits into a
+static buffer; its weights are the ones bound at capture (baked).
 
 Every buffer a graph reads or writes after its replay lies outside the
 graph's memory pool, so what a capture allocates is dead once a replay
@@ -40,6 +44,7 @@ import torch
 from repro_torch.kernels import column_gemm, flash_attention, pattern_conv
 from repro_torch.kernels import pattern_gemm
 from repro_torch.models import attention
+from repro_torch.models.transformer import finite_rows
 from repro_torch.serve.sampler import fold_in
 
 KERNEL_MODULES = (pattern_gemm, flash_attention, column_gemm, pattern_conv)
@@ -113,67 +118,89 @@ class CountedGraph:
 
 
 class DecodeGraph:
-    """One decode step of ``model`` on ``params`` and the engine's static
-    buffers (see the module docstring), captured once. ``sample(logits,
-    keys)`` is the engine's sampler, ``row_keys`` its (B,) row keys."""
+    """One decode step of ``model`` on ``params`` over the engine's static
+    buffers, captured once: the KV cache, and in ``rows`` the current
+    token of each row ``token`` (B, 1), each row's token index ``index``
+    (B,) and its row key ``keys`` (B,). ``sample(logits, keys)`` is the
+    engine's sampler (it reads the engine's mask and temperatures).
+
+    A replay samples row b's next token under ``fold_in(keys[b],
+    index[b])``, writes it into ``token`` and into column ``col`` of the
+    (B, W) token block, with ``flags`` writes the row's finite-logits
+    flag into the same column of the flag block, and advances ``index``
+    and ``col``, all on the device. The host sets ``token`` and ``index``
+    between runs: the chunked engine all rows alike, the continuous engine
+    per slot. Only the continuous engine reads the flags (its NaN
+    quarantine); the chunked engine's graph computes none."""
 
     def __init__(self, model, params, cache: Dict[str, Any], width: int,
-                 sample: Callable, row_keys: torch.Tensor, pool: GraphPool):
+                 sample: Callable, rows: Dict[str, torch.Tensor],
+                 pool: GraphPool, flags: bool):
         dev = cache["pos"].device
         B = cache["pos"].shape[0]
-        self.token = torch.zeros((B, 1), dtype=torch.int64, device=dev)
-        self.step = torch.zeros((), dtype=torch.int64, device=dev)
+        self.col = torch.zeros((), dtype=torch.int64, device=dev)
         self.out = torch.zeros((B, width), dtype=torch.int64, device=dev)
+        self.ok = (torch.zeros((B, width), dtype=torch.bool, device=dev)
+                   if flags else None)
+        keys = rows["keys"]
 
-        def step(cache, token, index, out):
+        def step(cache, token, index, col, out, ok):
             _, logits = model.decode_step(params, cache, token)
-            nxt = sample(logits, fold_in(row_keys, index))
+            nxt = sample(logits, fold_in(keys, index))
             token.copy_(nxt)
-            out.index_copy_(1, index.view(1), nxt)
+            out.index_copy_(1, col.view(1), nxt)
+            if ok is not None:
+                ok.index_copy_(1, col.view(1),
+                               finite_rows(logits)[:, None])
             index.add_(1)
+            col.add_(1)
 
+        live = (rows["token"], rows["index"], self.col, self.out, self.ok)
         # the warm-up step runs on a scratch cache and buffers: the live
-        # cache may hold a prefilled chunk
+        # cache may hold prefilled rows
         scratch = model.init_cache(B, cache["slot_pos"].shape[1])
         self.graph = CountedGraph(
-            lambda: step(cache, self.token, self.step, self.out), pool,
-            warmup=lambda: step(scratch, self.token.clone(),
-                                self.step.clone(), self.out.clone()))
+            lambda: step(cache, *live), pool,
+            warmup=lambda: step(scratch, *(None if t is None else t.clone()
+                                           for t in live)))
 
-    def run(self, tok0: torch.Tensor, num_steps: int) -> torch.Tensor:
-        """Tokens (B, 1 + num_steps): ``tok0`` (token 0, sampled from the
-        prefill logits), then ``num_steps`` replays. A view of the output
-        block, overwritten by the next ``run``."""
-        if 1 + num_steps > self.out.shape[1]:
-            raise ValueError(f"{1 + num_steps} tokens exceed the decode "
-                             f"graph's output block of {self.out.shape[1]}")
-        self.token.copy_(tok0)
-        self.out[:, :1].copy_(tok0)
-        self.step.fill_(1)
+    def run(self, num_steps: int
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """``num_steps`` replays from the rows' current token and index ->
+        (tokens, flags), each (B, num_steps): views of the output blocks,
+        overwritten by the next ``run`` (flags None without ``flags``)."""
+        if num_steps > self.out.shape[1]:
+            raise ValueError(f"{num_steps} steps exceed the decode graph's "
+                             f"output block of {self.out.shape[1]}")
+        self.col.zero_()
         for _ in range(num_steps):
             self.graph.replay()
-        return self.out[:, :1 + num_steps]
+        ok = None if self.ok is None else self.ok[:, :num_steps]
+        return self.out[:, :num_steps], ok
 
 
 class PrefillGraph:
-    """``LM.prefill`` of (B, S) prompts into the engine's cache, captured
-    for one S with the weights bound at capture."""
+    """``prefill(prompts) -> last-token logits`` of prompts of one shape,
+    writing the engine's cache, captured with the weights bound at
+    capture: ``LM.prefill`` of a (B, S) chunk for the chunked engine,
+    ``LM.prefill_into_slot`` of a (1, S) prompt for the continuous one
+    (its slot read from a static device tensor, so one graph per S serves
+    every slot; the warm-up writes the row of the slot being admitted,
+    which the replay then rewrites)."""
 
-    def __init__(self, model, params, cache: Dict[str, Any], S: int,
-                 max_seq_len: int, pool: GraphPool):
-        dev = cache["pos"].device
-        B = cache["pos"].shape[0]
-        self.prompts = torch.zeros((B, S), dtype=torch.int64, device=dev)
+    def __init__(self, prefill: Callable[[torch.Tensor], torch.Tensor],
+                 shape: Tuple[int, int], device: torch.device,
+                 pool: GraphPool):
+        self.prompts = torch.zeros(shape, dtype=torch.int64, device=device)
         self.logits: Optional[torch.Tensor] = None
 
-        def prefill():
-            logits = model.prefill(params, self.prompts, max_seq_len,
-                                   cache=cache)[1]
+        def run():
+            logits = prefill(self.prompts)
             if self.logits is None:        # the warm-up, before the capture
                 self.logits = torch.empty_like(logits)
             self.logits.copy_(logits)
 
-        self.graph = CountedGraph(prefill, pool)
+        self.graph = CountedGraph(run, pool)
 
     def run(self, prompts: torch.Tensor) -> torch.Tensor:
         """Last-token logits (B, 1, V): a static buffer, overwritten by the

@@ -825,3 +825,108 @@ def test_pipeline_killed_at_retrain_resumes_bit_equal_on_the_card(
     assert a.keys() == b.keys()
     for p in a:
         assert torch.equal(a[p], b[p]), p
+
+
+# ------------------------------------------------ continuous batching
+
+import dataclasses  # noqa: E402
+import re  # noqa: E402
+
+from repro_torch.serve import ContinuousEngine  # noqa: E402
+
+# the device functions one pattern_gemm / flash_attention launch runs
+TRACED = {"pattern_gemm": r"(^|[ :])(pg_skinny|pg_wmma_bf16|pg_simt_f32|"
+                          r"gemm_bf16)[<(]",
+          "flash_attention": r"(^|[ :])(flash_fwd|flash_wgmma)[<(]"}
+
+
+def _mixed_requests(vocab, lens=(40, 17, 64, 9, 33, 17),
+                    budgets=(9, 4, 12, 6, 3, 7)):
+    g = torch.Generator().manual_seed(3)
+    reqs = [Request(uid=i, prompt=torch.randint(0, vocab, (n,), generator=g),
+                    max_new_tokens=m) for i, (n, m) in
+            enumerate(zip(lens, budgets))]
+    reqs[2] = dataclasses.replace(reqs[2], temperature=0.8, seed=9)
+    return reqs
+
+
+def _outcome(results):
+    return [(r.uid, r.tokens, r.status) for r in results]
+
+
+@pytest.mark.parametrize("which", ["reduced", "full_width_2_layers"])
+def test_continuous_graphs_match_eager_and_solo(cuda, which):
+    """The continuous engine through its slot graphs against the same
+    schedule run eagerly (``graphs`` off): the same tokens, statuses and
+    stats; each request equals its run alone through an engine of the
+    same batch size. Reduced: head_dim 16, so prefill takes the blockwise
+    fallback; qwen2-1.5b's full width at 2 layers takes flash's wgmma
+    route for every admission."""
+    if which == "reduced":
+        cfg, block = reduced_config("qwen2-1.5b",
+                                    param_dtype="bfloat16"), 32
+    else:
+        cfg, block = dataclasses.replace(get_config("qwen2-1.5b"),
+                                         num_layers=2), 128
+    model = LM(cfg, device=cuda)
+    art = greedy_prune(model.init(torch.Generator(device=cuda).manual_seed(
+        0)), PruneConfig(scheme="tile_pattern", overrides={
+            ".*": {"tile_block_p": block}})).pack()
+    reqs = _mixed_requests(cfg.vocab_size)
+
+    def engine(graphs):
+        eng = ContinuousEngine(model, art, packed=True, batch_size=4,
+                               max_seq_len=96, chunk_steps=4)
+        eng.graphs = graphs
+        return eng
+
+    graph, eager = engine(True), engine(False)
+    graph.generate(reqs)            # captures (each warm-up launches too)
+    _zero_counts()
+    got = graph.generate(reqs)
+    torch.cuda.synchronize()
+    admissions = len(reqs)
+    if which == "reduced":
+        assert fa.LAUNCHES == 0
+        assert attention.PREFILL_FALLBACKS == cfg.num_layers * admissions
+    else:
+        assert fa.ROUTE_LAUNCHES["wgmma"] == cfg.num_layers * admissions
+        assert attention.PREFILL_FALLBACKS == 0
+    assert _outcome(got) == _outcome(eager.generate(reqs))
+    assert graph.stats == eager.stats
+    assert [len(r.tokens) for r in got] == [r.max_new_tokens for r in reqs]
+    assert _outcome(got) == [_outcome(graph.generate([r]))[0] for r in reqs]
+    assert sorted(graph.prefill_graphs) == sorted({len(r.prompt)
+                                                   for r in reqs})
+
+
+def test_continuous_slot_graph_launches_match_the_trace(lm_art):
+    """Counted launches of a continuous run (every admission's slot
+    prefill and every decode replay) equal the profiler trace's launches
+    of the kernels' device functions."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model, art = lm_art
+    eng = ContinuousEngine(model, art, packed=True, batch_size=4,
+                           max_seq_len=64, chunk_steps=4)
+    reqs = _mixed_requests(GRAPH_CFG.vocab_size, lens=(16, 9, 16, 9, 16),
+                           budgets=(6, 9, 4, 5, 8))
+    eng.generate(reqs)                          # captures every graph
+    torch.cuda.synchronize()
+    _zero_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.generate(reqs)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    traced = {n: sum(e.count for e in kernels if re.search(rx, e.key))
+              for n, rx in TRACED.items()}
+    steps = eng.stats["total_slot_steps"] // 4
+    L = GRAPH_CFG.num_layers
+    assert traced == {"pattern_gemm": pg.LAUNCHES,
+                      "flash_attention": fa.LAUNCHES}
+    assert fa.LAUNCHES == L * len(reqs)
+    # each replay: 7 packed GEMMs a layer and the head; each admission
+    # the same at M = S
+    assert pg.LAUNCHES == (7 * L + 1) * (steps + len(reqs))

@@ -42,7 +42,9 @@ def test_engine_import_pulls_in_no_jax():
             "repro_torch.launch.prune, repro_torch.core.pruner, "
             "repro_torch.optim, repro_torch.data, repro_torch.privacy, "
             "repro_torch.runtime, repro_torch.launch.pipeline, "
-            "repro_torch.launch.train; "
+            "repro_torch.launch.train, repro_torch.serve.slots, "
+            "repro_torch.serve.scheduler, repro_torch.runtime.trace_analysis, "
+            "repro_torch.testing; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -59,7 +61,7 @@ def test_entry_points_refuse_a_missing_card():
     from repro_torch.configs import reduced_config
     from repro_torch.core import PruneConfig, greedy_prune
     from repro_torch.models import LM
-    from repro_torch.serve import ServeEngine
+    from repro_torch.serve import ContinuousEngine, ServeEngine
 
     cfg = reduced_config("qwen2-1.5b")
     with pytest.raises(RuntimeError):
@@ -75,6 +77,8 @@ def test_entry_points_refuse_a_missing_card():
         art.pack()
     with pytest.raises(RuntimeError):
         ServeEngine(model, art, batch_size=2, max_seq_len=16)
+    with pytest.raises(RuntimeError):
+        ContinuousEngine(model, art, batch_size=2, max_seq_len=16)
 
 
 def test_cnn_entry_points_refuse_a_missing_card():
