@@ -86,7 +86,28 @@ result line is printed:
               registry); the chunked ``ServeEngine`` on the same requests
               as a reading; at 4 layers in fp32, continuous greedy tokens
               equal to ``ServeEngine(batch_size=1)``'s.
-9. admm     — the paper's algorithm: qwen2-1.5b at full width (bf16,
+9. speculative — qwen2-1.5b, bf16, batch 4, 4 x 128-token prompts, 64
+              new tokens, ``draft_k`` 4, ``SpeculativeEngine`` over CUDA
+              graphs (a round: both snapshots, K drafter steps, the
+              verify chunk, acceptance, both rollbacks): arm (a) the
+              [serve] artifact bound packed drafts for its pruned weights
+              bound dense; (b) the unpruned weights' first 14 layers
+              draft for all 28 (demotion off); (c) a re-initialised
+              drafter that must demote. Each arm: a first generate
+              captures, counts zeroed around a second; gates: tokens
+              valid, demoted as expected, launches by route as designed
+              (flash on every prefill, all wgmma; a packed drafter's
+              layer GEMMs on wgmma in its prefill, every GEMM on skinny
+              in each of its K steps a round; no blockwise fallback),
+              round graph against eager bit for bit (both caches, the
+              pending tokens, the round blocks); readings: tokens/s,
+              rounds, acceptance, bf16 agreement with plain decoding,
+              plain ``ServeEngine`` tokens/s and decode-step device ms on
+              the pruned-dense, packed and unpruned weights, device ms
+              of a round, a drafter step and a verify chunk (graph
+              replays) and a profile of one round. At 4 layers in fp32
+              every arm's greedy tokens equal plain decoding's.
+10. admm    — the paper's algorithm: qwen2-1.5b at full width (bf16,
               seeded random teacher) pruned by layer-wise ADMM on
               synthetic tokens (``PrivacyPreservingPruner`` with
               ``launch.prune.prune_config_for(scheme="tile_pattern",
@@ -113,7 +134,7 @@ result line is printed:
               then ``launch.serve --reduced --artifact --packed`` as
               subprocesses: both exit 0, serve prefilling through the
               blockwise fallback (head_dim 16).
-10. admm_cnn — VGG-16 at full width (ImageNet head, 224 x 224, fp32)
+11. admm_cnn — VGG-16 at full width (ImageNet head, 224 x 224, fp32)
               pruned by layer-wise ADMM ``pattern_shared`` alpha 0.25
               (batch 32, 4 iterations; some pruned leaf off the greedy
               projection), retrained by 10 masked AdamW steps on
@@ -123,7 +144,7 @@ result line is printed:
               ``pattern_conv`` launch per stride-1 3x3 conv (counts zeroed
               around it); the fp32 top-1 gate of ``[cnn]``. Seconds per
               iteration and per step, peak memory.
-11. pipeline — the privacy-preserving pruning service
+12. pipeline — the privacy-preserving pruning service
               (``launch.pipeline.main`` in process, full scale, quick
               budgets, no stage retries: every stage must succeed on
               its one attempt): VGG-16 at width 1.0 on 32 x 32 x 3
@@ -145,10 +166,12 @@ result line is printed:
               tokens, 16 new; counts zeroed around it: ``pattern_gemm``
               launched, every flash call on wgmma, no fallback) and fp32
               dense-pruned vs packed greedy tokens identical.
-12. report  — one ``{"kernels": [...]}`` JSON line covering all four
+13. report  — one ``{"kernels": [...]}`` JSON line covering all four
               kernels (each a sum over the bf16 shapes its served path
               launches; the GEMMs' ``lm_head`` at M = 512 and 2048, which
-              prefill never launches, listed apart under ``not_on_path``,
+              prefill never launches, and every GEMM at a verify chunk's
+              M = 16, which [speculative]'s dense targets never launch,
+              listed apart under ``not_on_path``,
               and their per-layer sums at the prefill chunks' M under
               ``per_layer_m512`` and ``per_layer_m2048``; flash
               attention's S = 200, window and non-causal rows apart too;
@@ -221,7 +244,12 @@ from repro_torch.serve import (  # noqa: E402
     Request,
     ServeEngine,
 )
+from repro_torch.serve.graphs import CountedGraph  # noqa: E402
 from repro_torch.serve.sampler import fold_key_grid  # noqa: E402
+from repro_torch.serve.speculative import (  # noqa: E402
+    SpeculativeEngine,
+    shallow_drafter,
+)
 from repro_torch.sparse import PrunedArtifact, is_packed  # noqa: E402
 from repro_torch.sparse.registry import handler_for  # noqa: E402
 from repro_torch.testing import (  # noqa: E402
@@ -260,6 +288,10 @@ GEMM_MS = (4, 512, 2048)            # decode (M = batch); prefill chunks of
 # (64, 200 and 512 above) and its head at M = 1 (the last token); the fp32
 # bar's ServeEngine(batch_size=1) decodes at M = 1
 SOLO_MS = (1, 64, 200)
+# a speculative verify chunk runs a packed target's GEMMs, the head too,
+# at M = batch x draft_k = 16 (skinny); [speculative]'s targets are dense,
+# so these rows are checked and timed apart from the served path
+VERIFY_MS = (16,)
 FLASH_SHAPES = dict(H=12, KV=2, hd=128)
 # (B, S, causal, window): the served prefill chunks (B = 4, S = 128, 512),
 # the ragged edge (S = 200), a sliding window, a non-causal call, and
@@ -388,7 +420,7 @@ def check_pattern_gemm(gen) -> list:
             wpb, li = pg_mod.pack_tile_pattern_blocked(w, block_p=128)
             b = (torch.randn(P, generator=gen, device="cuda") * 0.1).to(dtype) \
                 if has_bias else None
-            for M in sorted(GEMM_MS + SOLO_MS):
+            for M in sorted(GEMM_MS + SOLO_MS + VERIFY_MS):
                 if name == "lm_head" and M in SOLO_MS[1:]:
                     continue                # the head runs on one token
                 x = torch.randn((M, Q), generator=gen, device="cuda").to(dtype)
@@ -416,8 +448,9 @@ def check_pattern_gemm(gen) -> list:
                                  # logits only: the head runs at M = batch
                                  # ([serve], decode) or 1 (an admission);
                                  # bf16 layer GEMMs never at M = 1
-                                 on_path=M in (1, 4) if name == "lm_head"
-                                 else M > 1,
+                                 on_path=M not in VERIFY_MS and (
+                                     M in (1, 4) if name == "lm_head"
+                                     else M > 1),
                                  dtype=str(dtype).split(".")[-1],
                                  variant=variant, max_abs_err=err, ms=ms,
                                  earlier_ms=earlier, plain_ms=plain,
@@ -545,7 +578,7 @@ def check_column_gemm(gen) -> list:
             wp, kept = cg_mod.pack_columns(w)
             b = (torch.randn(P, generator=gen, device="cuda") * 0.1).to(dtype) \
                 if has_bias else None
-            for M in GEMM_MS:
+            for M in sorted(GEMM_MS + VERIFY_MS):
                 x = torch.randn((M, Q), generator=gen, device="cuda").to(dtype)
                 y = cg_mod.column_gemm(x, wp, kept, b, activation=act)
                 torch.cuda.synchronize()
@@ -569,7 +602,8 @@ def check_column_gemm(gen) -> list:
                 rows.append(dict(kernel="column_gemm", shape=f"{name} M={M}",
                                  # LM.prefill computes the last token's
                                  # logits only: the head runs at M = batch
-                                 on_path=name != "lm_head" or M == 4,
+                                 on_path=M not in VERIFY_MS and (
+                                     name != "lm_head" or M == 4),
                                  dtype=str(dtype).split(".")[-1],
                                  variant=variant, max_abs_err=err, ms=ms,
                                  earlier_ms=earlier, plain_ms=plain,
@@ -1461,6 +1495,304 @@ def phase_continuous(smi: str, art) -> dict:
     return main["launches"]
 
 
+# ------------------------------------------------------ speculative serving
+
+SPEC = dict(batch=4, prompt=128, new=64, draft_k=4, max_seq=256,
+            shallow=14, fp32_layers=4)
+
+
+def spec_requests(vocab: int) -> list:
+    g = torch.Generator().manual_seed(3)
+    return [Request(uid=i, prompt=torch.randint(0, vocab, (SPEC["prompt"],),
+                                                generator=g),
+                    max_new_tokens=SPEC["new"]) for i in range(SPEC["batch"])]
+
+
+def spec_engine(model, target, draft, draft_model=None, **kw):
+    return SpeculativeEngine(model, target, draft, draft_model=draft_model,
+                             batch_size=SPEC["batch"],
+                             max_seq_len=SPEC["max_seq"],
+                             draft_k=SPEC["draft_k"], device=DEV, **kw)
+
+
+def plain_engine(model, params, packed: bool = False):
+    return launch_serve.make_engine(model, params, batch=SPEC["batch"],
+                                    max_seq=SPEC["max_seq"], packed=packed,
+                                    device=DEV)
+
+
+def spec_state(eng) -> list:
+    """Clones of both caches, the pending tokens and the round blocks."""
+    out = []
+    for cache in (eng.target.cache, eng.drafter.cache):
+        out += [t.clone() for t in cache["k"] + cache["v"]]
+        out += [cache["slot_pos"].clone(), cache["pos"].clone()]
+    return out + [eng.bufs[k].clone() for k in ("token", "out", "keep",
+                                                 "acc")]
+
+
+def spec_restore(eng, state: list) -> None:
+    live = []
+    for cache in (eng.target.cache, eng.drafter.cache):
+        live += cache["k"] + cache["v"] + [cache["slot_pos"], cache["pos"]]
+    live += [eng.bufs[k] for k in ("token", "out", "keep", "acc")]
+    for t, saved in zip(live, state):
+        t.copy_(saved)
+
+
+def round_against_eager(tag: str, eng, reqs: list, rounds: int = 2) -> None:
+    """From one prefilled chunk: ``rounds`` replays of the round graph
+    against the same rounds run eagerly from the same state, both caches,
+    the pending tokens and the round blocks bit for bit."""
+    eng.prefill_chunk(reqs)
+    start = spec_state(eng)
+    eng.greedy_rounds(rounds)
+    graph = spec_state(eng)
+    spec_restore(eng, start)
+    eng.graphs = False
+    try:
+        eng.greedy_rounds(rounds)
+    finally:
+        eng.graphs = True
+    same = all(torch.equal(a, b) for a, b in zip(graph, spec_state(eng)))
+    print(f"[{tag}] round graph against eager, {rounds} rounds from one "
+          f"prefilled chunk: both caches, pending tokens and round blocks "
+          f"bit-identical {same}", flush=True)
+    if not same:
+        fail(f"[{tag}] the speculative round graph disagrees with the "
+             f"eager round")
+
+
+def agreement(got: list, want: list) -> dict:
+    """Requests identical, and each request's first diverging position."""
+    first = [next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
+                  None if len(g) == len(w) else min(len(g), len(w)))
+             for g, w in zip(got, want)]
+    return {"identical": sum(f is None for f in first), "of": len(got),
+            "first_divergence": first}
+
+
+def packed_split(params) -> tuple:
+    """Packed leaves in the blocks and outside them (the head)."""
+    paths = [p for p, x in tree_items(params) if is_packed(x)]
+    layer = sum(p.startswith("blocks/") for p in paths)
+    return layer, len(paths) - layer
+
+
+def spec_arm(tag: str, arm: str, smi: str, eng, reqs: list, plain: list,
+             expect_demoted: bool) -> dict:
+    """One arm's main path: a first generate captures the graphs (and
+    demotes a collapsing drafter: later chunks decode plainly), then the
+    counts are zeroed around a second; its gates and readings. Returns the
+    run's launches and readings."""
+    first = [r.tokens for r in eng.generate(reqs)]          # captures
+    torch.cuda.synchronize()
+    st = eng.stats
+    print(f"[{tag}] arm {arm}, first generate (captures): rounds "
+          f"{st['rounds']}, acceptance {st['acceptance_rate']:.4f}, "
+          f"demotions {json.dumps(st['demotions'])}, bf16 agreement with "
+          f"plain " + json.dumps(agreement(first, plain)), flush=True)
+    if st["demoted"] is not expect_demoted:
+        fail(f"[{tag}] arm {arm}: demoted {st['demoted']}, expected "
+             f"{expect_demoted} ({st['demotions']})")
+    drafting = not eng.demoted
+    reset_launches()
+    t0 = time.perf_counter()
+    out = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = eng.stats
+    names = ("pattern_gemm", "flash_attention")
+    launches = launch_counts(names)
+    routes = {"pattern_gemm": dict(pg_mod.ROUTE_LAUNCHES),
+              "flash_attention": dict(fa_mod.ROUTE_LAUNCHES),
+              "blockwise_fallbacks": attention.PREFILL_FALLBACKS}
+    toks = [r.tokens for r in out]
+    n_tok = sum(len(t) for t in toks)
+    agree = agreement(toks, plain)
+    reading = {"wall_ms": wall * 1e3, "tokens": n_tok,
+               "tok_s": n_tok / wall,
+               "ms_per_round": (wall * 1e3 / st["rounds"]
+                                if st["rounds"] else None),
+               **{k: st[k] for k in ("rounds", "dispatches", "drafted",
+                                     "accepted", "acceptance_rate",
+                                     "demoted")},
+               "demotions": [d["at"] for d in st["demotions"]],
+               "bf16_agreement_with_plain": agree}
+    print(f"[{tag}] arm {arm}: " + json.dumps(reading) + "; launches "
+          + json.dumps(launches) + " by route " + json.dumps(routes)
+          + f" ({smi})", flush=True)
+    for r in out:
+        if len(r.tokens) != SPEC["new"] or not all(
+                0 <= t < eng.model.config.vocab_size for t in r.tokens):
+            fail(f"[{tag}] arm {arm} request {r.uid}: bad tokens "
+                 f"{r.tokens[:8]}...")
+    if st["demoted"] is not expect_demoted:
+        fail(f"[{tag}] arm {arm}: demoted {st['demoted']}, expected "
+             f"{expect_demoted} ({st['demotions']})")
+    # the design's route counts: flash on every prefill (target, and the
+    # drafter's unless demoted), all wgmma, no blockwise fallback;
+    # a packed drafter launches its layer GEMMs on wgmma at M = B * S and
+    # its head on skinny at M = B in the prefill, then every GEMM on
+    # skinny at M = B in each of its K steps of every round
+    layers = eng.model.config.num_layers + (
+        eng.draft_model.config.num_layers if drafting else 0)
+    layer_p, head_p = (packed_split(eng.drafter.params) if drafting
+                       else (0, 0))
+    want = {"flash": layers,
+            "pattern_gemm skinny": head_p + st["rounds"] * SPEC["draft_k"]
+            * (layer_p + head_p),
+            "pattern_gemm wgmma": layer_p}
+    got = {"flash": fa_mod.ROUTE_LAUNCHES["wgmma"],
+           "pattern_gemm skinny": pg_mod.ROUTE_LAUNCHES["skinny"],
+           "pattern_gemm wgmma": pg_mod.ROUTE_LAUNCHES["wgmma"]}
+    print(f"[{tag}] arm {arm}: launches by route, counted "
+          + json.dumps(got) + ", by design " + json.dumps(want), flush=True)
+    if (got != want or launches["flash_attention"] != layers
+            or launches["pattern_gemm"] != want["pattern_gemm skinny"]
+            + want["pattern_gemm wgmma"] or attention.PREFILL_FALLBACKS):
+        fail(f"[{tag}] arm {arm}: launches {got} / {launches} are not the "
+             f"design's {want} (blockwise fallbacks "
+             f"{attention.PREFILL_FALLBACKS})")
+    return dict(reading, launches=launches)
+
+
+def plain_reading(tag: str, what: str, smi: str, eng, reqs: list) -> list:
+    eng.generate(reqs)                          # captures
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = [r.tokens for r in eng.generate(reqs)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_tok = sum(len(t) for t in out)
+    step = timed_ms(eng.decode_graph.graph.replay, 10)
+    print(f"[{tag}] plain ServeEngine on {what}: wall {wall * 1e3:.1f} ms, "
+          f"{n_tok / wall:.1f} tok/s ({n_tok} tokens); decode step (graph "
+          f"replay, device) {step:.4f} ms ({smi})", flush=True)
+    return out
+
+
+def spec_device_times(tag: str, smi: str, eng, reqs: list) -> None:
+    """Device ms, from a prefilled chunk, of one round (a replay of the
+    round graph), one drafter decode step and one verify chunk (each
+    captured alone for this; CUDA events behind a device sleep), then a
+    profile of one round. Leaves the engine's caches dirty."""
+    eng.prefill_chunk(reqs)
+    tc, dc = eng.target.cache, eng.drafter.cache
+    t_pos, d_pos = tc["pos"].clone(), dc["pos"].clone()
+    tok = eng.bufs["token"].clone()
+    chunk = tok.repeat(1, SPEC["draft_k"])
+
+    def rnd():
+        eng.bufs["col"].zero_()
+        tc["pos"].copy_(t_pos)
+        dc["pos"].copy_(d_pos)
+        eng.round_graph.graph.replay()
+
+    def step():
+        dc["pos"].copy_(d_pos)
+        eng.draft_model.decode_step(eng.drafter.params, dc, tok)
+
+    def verify():
+        tc["pos"].copy_(t_pos)
+        eng.model.verify_chunk(eng.params, tc, chunk)
+
+    pool = eng.target.graph_pool
+    t = {"round_ms": timed_ms(rnd, 10),
+         "draft_step_ms": timed_ms(CountedGraph(step, pool).replay, 10),
+         "verify_chunk_ms": timed_ms(CountedGraph(verify, pool).replay, 10)}
+    t["round_rest_ms"] = (t["round_ms"] - SPEC["draft_k"]
+                          * t["draft_step_ms"] - t["verify_chunk_ms"])
+    print(f"[{tag}] arm a device times, graph replays (CUDA events behind "
+          f"a device sleep; round_rest: snapshots, acceptance, rollbacks): "
+          + json.dumps(t) + f" ({smi})", flush=True)
+    profile(tag, "one speculative round (graph replay)", rnd, names=())
+
+
+def spec_fp32(tag: str, cfg) -> None:
+    """At ``fp32_layers`` layers of full width in fp32, speculative greedy
+    tokens equal the plain ServeEngine's on the same target, every arm."""
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                num_layers=SPEC["fp32_layers"])
+    model = LM(cfg32, device=DEV)
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    art = greedy_prune(params, TILE_PCFG, device=DEV).pack(device=DEV)
+    garbage = model.init(torch.Generator(device=DEV).manual_seed(99))
+    d_model, d_params = shallow_drafter(model, params,
+                                        SPEC["fp32_layers"] // 2)
+    reqs = spec_requests(cfg.vocab_size)
+    pruned = [r.tokens for r in plain_engine(model, art).generate(reqs)]
+    dense = [r.tokens for r in plain_engine(model, params).generate(reqs)]
+    arms = {"a": (spec_engine(model, art, art), pruned, False),
+            "b": (spec_engine(model, params, d_params, d_model,
+                              demote_below=0.0), dense, False),
+            "c": (spec_engine(model, params, garbage, demote_after=8,
+                              demote_below=0.5), dense, True)}
+    for arm, (eng, want, demoted) in arms.items():
+        got = [r.tokens for r in eng.generate(reqs)]
+        print(f"[{tag}] fp32, {SPEC['fp32_layers']} of {cfg.num_layers} "
+              f"layers at full width, arm {arm}: speculative greedy tokens "
+              f"identical to the plain ServeEngine's {got == want} "
+              f"({sum(len(t) for t in got)} tokens, acceptance "
+              f"{eng.stats['acceptance_rate']:.4f}, demoted "
+              f"{eng.stats['demoted']})", flush=True)
+        if got != want:
+            fail(f"[{tag}] fp32 arm {arm}: speculative tokens differ from "
+                 f"plain decoding: " + json.dumps(agreement(got, want)))
+        if eng.stats["demoted"] is not demoted:
+            fail(f"[{tag}] fp32 arm {arm}: demoted {eng.stats['demoted']}")
+
+
+def phase_speculative(smi: str, art) -> dict:
+    """qwen2-1.5b at full width, bf16: (a) the [serve] artifact's pruned
+    weights bound dense verify, the same artifact bound packed drafts;
+    (b) unpruned dense weights verify, their first 14 layers draft; (c) a
+    re-initialised drafter demotes ((b) never does: ``demote_below``
+    0). Round graph against eager, launch
+    counts by design, readings against plain decoding, the fp32 bar."""
+    tag = "speculative"
+    cfg = get_config("qwen2-1.5b")
+    model = LM(cfg, device=DEV)
+    reqs = spec_requests(cfg.vocab_size)
+    print(f"[{tag}] qwen2-1.5b L={cfg.num_layers} d_model={cfg.d_model} "
+          f"vocab={cfg.vocab_size} {cfg.param_dtype}; batch {SPEC['batch']}"
+          f", {SPEC['batch']} x {SPEC['prompt']}-token prompts, "
+          f"{SPEC['new']} new, draft_k {SPEC['draft_k']}, max_seq_len "
+          f"{SPEC['max_seq']} ({smi})", flush=True)
+    pruned = plain_reading(tag, "the pruned weights, dense", smi,
+                           plain_engine(model, art), reqs)
+    plain_reading(tag, "the packed artifact", smi,
+                  plain_engine(model, art, packed=True), reqs)
+    eng = spec_engine(model, art, art)
+    a = spec_arm(tag, "a (pruned dense target, the artifact packed drafts)",
+                 smi, eng, reqs, pruned, expect_demoted=False)
+    round_against_eager(tag, eng, reqs)
+    spec_device_times(tag, smi, eng, reqs)
+    del eng
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    dense = plain_reading(tag, "the unpruned dense weights", smi,
+                          plain_engine(model, params), reqs)
+    d_model, d_params = shallow_drafter(model, params, SPEC["shallow"])
+    # demotion off: with random weights half the layers rarely agree
+    # with all of them, and this arm is there to roll back every round
+    eng = spec_engine(model, params, d_params, d_model, demote_below=0.0)
+    b = spec_arm(tag, f"b (unpruned dense target, its first "
+                 f"{SPEC['shallow']} layers draft)", smi, eng, reqs, dense,
+                 expect_demoted=False)
+    round_against_eager(tag, eng, reqs)
+    del eng, d_params
+    garbage = model.init(torch.Generator(device=DEV).manual_seed(99))
+    eng = spec_engine(model, params, garbage, demote_after=8,
+                      demote_below=0.5)
+    spec_arm(tag, "c (a re-initialised drafter, demote_after 8 below 0.5)",
+             smi, eng, reqs, dense, expect_demoted=True)
+    del eng, garbage, params
+    torch.cuda.empty_cache()
+    spec_fp32(tag, cfg)
+    return {k: a["launches"][k] + b["launches"][k]
+            for k in ("pattern_gemm", "flash_attention")}
+
+
 # ------------------------------------------------ the paper's ADMM pruning
 
 DEV = "cuda"
@@ -2324,6 +2656,7 @@ def main() -> int:
         conv = [timed(path[0], phase_cnn, smi, *path) for path in CNN_PATHS]
         column = timed("column", phase_column, smi)
         cont = timed("continuous", phase_continuous, smi, served)
+        spec = timed("speculative", phase_speculative, smi, served)
         del served
         admm = timed("admm", phase_admm, smi)
         admm_conv = timed("admm_cnn", phase_admm_cnn, smi)
@@ -2333,14 +2666,19 @@ def main() -> int:
         "pattern_gemm": "tile-pattern qwen2-1.5b serving 8 requests "
                         f"({launches['pattern_gemm']}) + the same artifact "
                         "through ContinuousEngine serving 12 "
-                        f"({cont['pattern_gemm']}) + the ADMM-pruned "
+                        f"({cont['pattern_gemm']}) + the same artifact "
+                        "drafting for its pruned weights, speculative, "
+                        f"serving 4 ({spec['pattern_gemm']}) + the "
+                        "ADMM-pruned "
                         f"one serving 4 ({admm['pattern_gemm']}) + the "
                         "pipeline's saved 4-layer one serving 4 "
                         f"({pipe['pattern_gemm']})",
         "flash_attention": "tile-pattern qwen2-1.5b serving 8 requests "
                            f"({launches['flash_attention']}) + the same "
                            "artifact through ContinuousEngine serving 12 "
-                           f"({cont['flash_attention']}) + the "
+                           f"({cont['flash_attention']}) + speculative "
+                           "serving of 4 requests, two arms "
+                           f"({spec['flash_attention']}) + the "
                            "ADMM-pruned one serving 4 "
                            f"({admm['flash_attention']}) + the pipeline's "
                            f"saved 4-layer one serving 4 "
@@ -2353,7 +2691,7 @@ def main() -> int:
                         f"({pipe['pattern_conv']})",
         "column_gemm": "column-pruned qwen2-1.5b serving 8 requests",
     }
-    launches = {k: launches[k] + cont[k] + admm[k] + pipe[k]
+    launches = {k: launches[k] + cont[k] + spec[k] + admm[k] + pipe[k]
                 for k in launches}
     launches.update(pattern_conv=sum(conv) + admm_conv
                     + pipe["pattern_conv"],

@@ -5,6 +5,8 @@
         --reduced --requests 8 --max-new 16 [--ckpt /tmp/pruned/pruned]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
         --reduced --artifact /tmp/qwen2_artifact --packed [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
+        --reduced --speculative /tmp/qwen2_artifact --draft-k 4
 
 Loads a raw checkpoint (``--ckpt``: params in the reference's stacked
 layout, as ``repro.launch.prune`` writes them) or a saved
@@ -22,8 +24,13 @@ otherwise); ``--trace-out PATH`` appends the engine's trace events (JSONL:
 one ``decode_chunk`` span per chunk, one ``retire`` event per request),
 which ``runtime.trace_analysis`` reads.
 
+``--speculative DIR`` serves speculatively: the artifact saved in DIR,
+bound packed, drafts ``--draft-k`` tokens a round and the served weights
+(``--ckpt``/``--artifact``, else random) verify them in one chunked pass
+(``serve/speculative.py``); greedy tokens are those of serving without
+it, and the acceptance numbers print after the run.
+
 ``main(argv)`` returns the results, so it can be driven in process.
-Speculative serving (``--speculative`` in the reference) is not ported.
 The continuous engine has no launcher flag (nor has the reference's):
 its entry points are ``ContinuousEngine.generate`` and ``stream``.
 """
@@ -60,6 +67,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="saved PrunedArtifact directory")
     ap.add_argument("--packed", action="store_true",
                     help="serve the packed representation (needs --artifact)")
+    ap.add_argument("--speculative", default=None, metavar="DRAFT_ARTIFACT",
+                    help="saved PrunedArtifact directory to draft with "
+                         "(bound packed); the served weights verify")
+    ap.add_argument("--draft-k", type=int, default=4,
+                    help="draft tokens per speculative round")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=16)
@@ -101,11 +113,13 @@ def load_params(cfg: ModelConfig, model: LM, *,
 def make_engine(model: LM, params: Any, *, batch: int, max_seq: int,
                 packed: bool, seed: int = 0,
                 telemetry: Optional[Telemetry] = None,
+                speculative: Optional[Any] = None, draft_k: int = 4,
                 device: DeviceLike = None) -> ServeEngine:
-    """The launcher's engine: CUDA graphs for decode and prefill on the
-    card, eager on the CPU."""
+    """The launcher's engine: CUDA graphs for decode and prefill (and the
+    speculative round with a drafter) on the card, eager on the CPU."""
     return ServeEngine(model, params, batch_size=batch, max_seq_len=max_seq,
                        packed=packed, seed=seed, telemetry=telemetry,
+                       speculative=speculative, draft_k=draft_k,
                        device=device)
 
 
@@ -133,6 +147,10 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Result]:
                          device=dev)
     if isinstance(params, PrunedArtifact):
         print(f"loaded artifact {args.artifact}: {params.summary()}")
+    draft = None
+    if args.speculative:
+        draft = PrunedArtifact.load(args.speculative, cfg=cfg, device=dev)
+        print(f"loaded draft artifact {args.speculative}: {draft.summary()}")
     telemetry = None
     if args.metrics_out or args.trace_out:
         # the process-wide registry: the snapshot holds whatever else the
@@ -141,7 +159,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Result]:
                               trace_path=args.trace_out)
     engine = make_engine(model, params, batch=args.batch,
                          max_seq=args.max_seq, packed=args.packed,
-                         seed=args.seed, telemetry=telemetry, device=dev)
+                         seed=args.seed, telemetry=telemetry,
+                         speculative=draft, draft_k=args.draft_k, device=dev)
     reqs = make_requests(args.requests, args.prompt_len, args.max_new,
                          cfg.vocab_size, args.temperature)
     t0 = time.perf_counter()
@@ -149,8 +168,16 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Result]:
     dt = time.perf_counter() - t0
     n_tok = sum(len(r.tokens) for r in results)
     mode = "packed" if args.packed else "dense"
+    if args.speculative:
+        mode += f"+speculative(k={args.draft_k})"
     print(f"{len(results)} requests, {n_tok} tokens in {dt:.2f}s "
           f"({n_tok / dt:.1f} tok/s, batch={args.batch}, {mode}, {dev})")
+    if args.speculative:
+        st = engine.speculative.stats
+        print(f"  speculative: {st['rounds']} rounds, {st['drafted']} "
+              f"drafted, {st['accepted']} accepted, acceptance "
+              f"{st['acceptance_rate']:.3f}, demotions "
+              f"{len(st['demotions'])}")
     # flash launches by route; blockwise: prefills of a shape the kernel
     # does not take
     print("prefill attention " + json.dumps(

@@ -5,8 +5,9 @@ card a serving call (``use_flash``) of a shape ``flash_prefill_supported``
 admits runs the ``flash_attention`` kernel; every other call, a training
 forward included, runs ``blockwise_attention``, the plain q-chunked
 online-softmax version (differentiable by autograd). Decode attends one
-new position against the KV cache with plain tensor ops (an XLA op in the
-reference, not a Pallas kernel). Ring caches for sliding-window models
+new position against the KV cache, and a speculative verify chunk K
+positions (``chunk_attention``), with plain tensor ops (XLA ops in the
+reference, not Pallas kernels). Ring caches for sliding-window models
 are not ported yet.
 """
 
@@ -150,29 +151,46 @@ def slot_prompt_rows(capacity: int, prompt_len: int, ring: bool,
     return rows, S, slot_pos_row
 
 
+def chunk_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, slot_pos: torch.Tensor,
+                    q_pos: torch.Tensor, *, window: Optional[int] = None,
+                    softmax_scale: Optional[float] = None) -> torch.Tensor:
+    """K new positions per row against the cache: masked softmax in fp32.
+
+    q (B, K, H, hd); caches (B, C, KV, hd), the chunk's own k/v already
+    inserted (``cache_insert_chunk``); slot_pos (B, C), -1 = empty; q_pos
+    (B, K). Query i sees slot p iff 0 <= slot_pos[p] <= q_pos[i], so the
+    chunk's causality falls out of the cache mask. ``decode_attention``
+    is this function at K = 1: a chunk and K single steps share their
+    per-query arithmetic.
+    """
+    B, C, KV, hd = k_cache.shape
+    K, H = q.shape[1], q.shape[2]
+    G = H // KV
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, K, KV, G, hd).to(torch.float32)
+    s = torch.einsum("bqkgd,bpkd->bqkgp", qg,
+                     k_cache.to(torch.float32)) * scale
+    sp = slot_pos[:, None, :]
+    ok = (sp >= 0) & (sp <= q_pos[:, :, None])
+    if window is not None:
+        ok &= q_pos[:, :, None] - sp < window
+    s = torch.where(ok[:, :, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bqkgp,bpkd->bqkgd",
+                       p.to(v_cache.dtype).to(torch.float32),
+                       v_cache.to(torch.float32))
+    return out.reshape(B, K, H, hd).to(q.dtype)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, slot_pos: torch.Tensor,
                      q_pos: torch.Tensor, *, window: Optional[int] = None,
                      softmax_scale: Optional[float] = None) -> torch.Tensor:
-    """One new position per row against the cache: masked softmax in fp32.
-
-    q (B, 1, H, hd); caches (B, C, KV, hd); slot_pos (B, C), -1 = empty;
-    q_pos (B,). Slots holding positions after q_pos, or empty, are masked.
-    """
-    B, C, KV, hd = k_cache.shape
-    H = q.shape[2]
-    G = H // KV
-    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(hd)
-    qg = q.reshape(B, KV, G, hd).to(torch.float32)
-    s = torch.einsum("bkgd,bpkd->bkgp", qg, k_cache.to(torch.float32)) * scale
-    ok = (slot_pos >= 0) & (slot_pos <= q_pos[:, None])
-    if window is not None:
-        ok &= q_pos[:, None] - slot_pos < window
-    s = torch.where(ok[:, None, None, :], s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgp,bpkd->bkgd", p.to(v_cache.dtype).to(torch.float32),
-                       v_cache.to(torch.float32))
-    return out.reshape(B, 1, H, hd).to(q.dtype)
+    """One new position per row against the cache: q (B, 1, H, hd), q_pos
+    (B,); ``chunk_attention`` with K = 1."""
+    return chunk_attention(q, k_cache, v_cache, slot_pos, q_pos[:, None],
+                           window=window, softmax_scale=softmax_scale)
 
 
 def insert_slots(pos: torch.Tensor, capacity: int, ring: bool):
@@ -202,3 +220,44 @@ def cache_insert(cache: torch.Tensor, new: torch.Tensor, rows: torch.Tensor,
     val = new[:, 0].to(cache.dtype)
     cache[rows, slot] = torch.where(keep.view((-1,) + (1,) * (val.ndim - 1)),
                                     val, old)
+
+
+def chunk_rows(pos: torch.Tensor, K: int) -> torch.Tensor:
+    """Absolute positions ``pos[b] .. pos[b] + K - 1`` of each row's next
+    K positions, (B, K): a full cache's slots, unclamped (the rows past
+    its capacity are the overflow ``chunk_slots`` drops)."""
+    return pos[:, None] + torch.arange(K, dtype=pos.dtype, device=pos.device)
+
+
+def chunk_slots(pos: torch.Tensor, K: int, capacity: int):
+    """Full-cache slots of each row's next K positions -> ``(idx, slot,
+    src, write)``, each (B, K): positions ``idx``, cache slots ``slot``
+    (long), and for each write the chunk column ``src`` whose value it
+    carries and whether it writes at all.
+
+    A position past the capacity is dropped, as the reference's scatter
+    drops it, with no host sync: its slot is clamped to C - 1, and it
+    writes what slot C - 1 ends with, the chunk's own position C - 1
+    (``src``) when the chunk reaches it, else nothing (``write`` False,
+    the old value written back). So every write to one slot carries the
+    same value, and the in-place scatter is deterministic.
+    """
+    idx = chunk_rows(pos, K)
+    last = (capacity - 1 - pos).clamp(0, K - 1).long()
+    cols = torch.arange(K, device=pos.device)
+    inside = idx < capacity
+    src = torch.where(inside, cols[None, :], last[:, None])
+    write = inside | (pos < capacity)[:, None]
+    return idx, idx.clamp(max=capacity - 1).long(), src, write
+
+
+def cache_insert_chunk(cache: torch.Tensor, new: torch.Tensor,
+                       slot: torch.Tensor, src: torch.Tensor,
+                       write: torch.Tensor) -> None:
+    """Write K positions per row, new (B, K, ...), into cache (B, C, ...)
+    IN PLACE at the slots ``chunk_slots`` gives."""
+    b = torch.arange(cache.shape[0], device=cache.device)[:, None]
+    val = new[b, src].to(cache.dtype)
+    write = write.view(write.shape + (1,) * (val.ndim - 2))
+    cache[b, slot] = torch.where(write, val, cache[b, slot])
+

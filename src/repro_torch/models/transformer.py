@@ -9,8 +9,10 @@ admits on the card; every other call, and every training forward (the
 kernel has no backward, as the reference's has none), runs
 ``blockwise_attention``. ``hidden_states``, ``block`` and ``train_loss``
 carry autograd; ``init``, ``prefill`` and decode run under
-``torch.no_grad``. Only the dense family without a sliding window is
-ported; other families raise.
+``torch.no_grad``. ``verify_chunk``, ``cache_snapshot`` and
+``cache_rollback`` are the speculative engine's chunked verify and rewind.
+Only the dense family without a sliding window is ported; other families
+raise.
 """
 
 from __future__ import annotations
@@ -25,6 +27,9 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import (
     cache_capacity,
     cache_insert,
+    cache_insert_chunk,
+    chunk_attention,
+    chunk_slots,
     decode_attention,
     insert_slots,
     prefill_attention,
@@ -351,6 +356,93 @@ class LM:
         if with_flags:
             return cache, torch.cat(out, dim=1), torch.stack(flags, dim=1)
         return cache, torch.cat(out, dim=1)
+
+    # ----------------------------------------------------- chunked verify path
+
+    def _require_kv_family(self, what: str) -> None:
+        """Rewinding needs per-position KV rows; a recurrent family would
+        need per-step state (the port has only the dense family so far)."""
+        if self.config.family in ("ssm", "hybrid"):
+            raise NotImplementedError(
+                f"{what} needs per-position KV rows to rewind; family="
+                f"{self.config.family!r} carries recurrent state: serve it "
+                "without speculation")
+
+    @torch.no_grad()
+    def verify_chunk(self, params, cache: Dict[str, Any],
+                     tokens: torch.Tensor):
+        """K positions per row in one pass -> (cache, logits (B, K, V)).
+
+        ``tokens`` (B, K): the last committed token, then K - 1 drafts.
+        Row b runs at its own positions ``pos[b] .. pos[b] + K - 1`` (per
+        row rope and causal horizon). The chunk's k/v are inserted into
+        the cache FIRST, IN PLACE, then ``chunk_attention`` masks by
+        ``slot_pos <= q_pos``, so query i sees keys 0 .. i of the chunk.
+        ``pos`` advances by K: a caller that may reject a suffix takes a
+        ``cache_snapshot`` before and ``cache_rollback`` after. The GEMMs
+        run at M = B * K (packed weights through their kernels, dense ones
+        through ``torch.matmul``).
+        """
+        self._require_kv_family("verify_chunk")
+        cfg = self.config
+        x = self.embed_inputs(params, tokens)
+        B, K = tokens.shape
+        pos = cache["pos"]
+        idx, slot, src, write = chunk_slots(pos, K,
+                                            cache["slot_pos"].shape[1])
+        sin, cos = rope_tables(idx, cfg.head_dim, cfg.rope_theta)
+        cache_insert_chunk(cache["slot_pos"], idx, slot, src, write)
+        for layer, bp in enumerate(params["blocks"]):
+            h = rmsnorm(bp["norm1"], x, cfg.norm_eps)
+            q, k, v = self._qkv(bp, h, sin, cos)
+            kc, vc = cache["k"][layer], cache["v"][layer]
+            cache_insert_chunk(kc, k, slot, src, write)
+            cache_insert_chunk(vc, v, slot, src, write)
+            attn = chunk_attention(q, kc, vc, cache["slot_pos"], idx,
+                                   window=cfg.sliding_window)
+            x = x + dense_apply(attn.reshape(B, K, cfg.attn_dim),
+                                bp["attn"]["wo"])
+            x = self._mlp(bp, x)
+        pos.add_(K)
+        h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        return cache, self.lm_logits(params, h)
+
+    def cache_snapshot(self, cache: Dict[str, Any], K: int
+                       ) -> Dict[str, Any]:
+        """The cache rows the next K inserted positions overwrite, so
+        ``cache_rollback`` can rewind exactly: per layer k/v (B, K, KV,
+        hd), their ``slot_pos`` (B, K), ``pos`` and the chunk's slots
+        (``chunk_slots``). No host sync; every shape is fixed by (B, K)."""
+        self._require_kv_family("cache_snapshot")
+        pos = cache["pos"]
+        _, slot, src, write = chunk_slots(pos, K, cache["slot_pos"].shape[1])
+        b = torch.arange(pos.shape[0], device=pos.device)[:, None]
+        return {"k": [t[b, slot] for t in cache["k"]],
+                "v": [t[b, slot] for t in cache["v"]],
+                "slot_pos": cache["slot_pos"][b, slot],
+                "slot": slot, "src": src, "write": write,
+                "pos": pos.clone()}
+
+    def cache_rollback(self, cache: Dict[str, Any], snap: Dict[str, Any],
+                       keep: torch.Tensor) -> Dict[str, Any]:
+        """Rewind ``cache`` IN PLACE to ``snap``'s position plus ``keep``
+        (B,) accepted inserts per row: the rows after them get their k/v
+        and ``slot_pos`` back from the snapshot (``torch.where`` on the
+        gathered rows, no data-dependent shape) and ``pos`` becomes
+        ``snap["pos"] + keep``. The cache is then bit-identical to one
+        that never saw the rejected positions."""
+        self._require_kv_family("cache_rollback")
+        slot = snap["slot"]
+        b = torch.arange(slot.shape[0], device=slot.device)[:, None]
+        rej = (snap["src"] >= keep[:, None]) & snap["write"]
+        for name in ("k", "v"):
+            for t, saved in zip(cache[name], snap[name]):
+                sel = rej.view(rej.shape + (1,) * (saved.ndim - 2))
+                t[b, slot] = torch.where(sel, saved, t[b, slot])
+        sp = cache["slot_pos"]
+        sp[b, slot] = torch.where(rej, snap["slot_pos"], sp[b, slot])
+        cache["pos"].copy_(snap["pos"] + keep.to(snap["pos"].dtype))
+        return cache
 
 
 def finite_rows(logits: torch.Tensor) -> torch.Tensor:

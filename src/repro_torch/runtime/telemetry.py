@@ -15,10 +15,11 @@ so the same operations give the same snapshot in both packages).
 In the port the registry is written by the pruning loop
 (``core/prune_state.py``: ``prune.*``), ``runtime.fault_tolerance
 .StagedRun`` (``pipeline.*``), ``runtime.straggler`` (``straggler.*``)
-and the serving engines (``serve/engine.py``: ``serve.*``, at their host
-syncs; nothing may write from inside a captured CUDA graph: the registry
-is host Python). The ``spec.*``, ``sparse.*`` and ``tune.*`` series are
-the reference's taxonomy, with no writer in the port yet.
+and the serving engines (``serve/engine.py``: ``serve.*``;
+``serve/speculative.py``: ``spec.*``; at their host syncs: nothing may
+write from inside a captured CUDA graph, the registry is host Python).
+The ``sparse.*`` and ``tune.*`` series are the reference's taxonomy,
+with no writer in the port yet.
 
 Metric-name taxonomy (dots group the subsystem, labels split series):
 

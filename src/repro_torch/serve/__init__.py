@@ -1,5 +1,7 @@
-"""Serving: the chunked (``ServeEngine``) and continuous
-(``ContinuousEngine``) engines over the same decode step and CUDA graphs.
+"""Serving: the chunked (``ServeEngine``), continuous
+(``ContinuousEngine``) and speculative (``SpeculativeEngine``, see
+``serve/speculative.py``) engines over the same decode step and CUDA
+graphs.
 
 Per-slot geometry contract (the continuous engine's correctness rests on
 it; the pieces live in the model, not the engine):
@@ -62,7 +64,9 @@ from repro_torch.serve.engine import (
 from repro_torch.serve.sampler import greedy_sample, temperature_sample
 from repro_torch.serve.scheduler import Scheduler
 from repro_torch.serve.slots import SlotState, SlotTable, trim_at_eos
+from repro_torch.serve.speculative import SpeculativeEngine, shallow_drafter
 
 __all__ = ["CancelToken", "ContinuousEngine", "Request", "Result",
            "Scheduler", "ServeEngine", "SlotState", "SlotTable",
-           "greedy_sample", "temperature_sample", "trim_at_eos"]
+           "SpeculativeEngine", "greedy_sample", "shallow_drafter",
+           "temperature_sample", "trim_at_eos"]

@@ -42,6 +42,13 @@ With ``packed=True`` and a ``PrunedArtifact`` every pruned GEMM runs its
 scheme's packed kernel (``pattern_gemm`` for tile_pattern, ``column_gemm``
 for column); ``packed=False`` serves the dense pruned weights.
 
+``ServeEngine(speculative=draft)`` routes ``generate`` through a
+``serve.speculative.SpeculativeEngine`` over this engine's params, cache
+and graphs: ``draft`` proposes ``draft_k`` tokens a round and the params
+verify them in one chunked pass. Both engines bucket and pad a request
+list alike (``_bucketed_generate``, ``pad_prompts``), so greedy tokens
+are this engine's own.
+
 Telemetry (``runtime/telemetry.py``) is recorded on the host at the
 engines' existing syncs, never inside a graph, so tokens are the same
 with it on or off. The reference's kernel profiler (``get_profiler``) is
@@ -144,6 +151,24 @@ def _resolve_params(model: LM, params: Any, packed: bool):
     return params, None
 
 
+def _bucketed_generate(requests: Sequence[Request], batch_size: int,
+                       generate_batch: Callable[[List[Request]],
+                                                List[Result]]
+                       ) -> List[Result]:
+    """The chunking loop of the chunked and speculative engines: bucket
+    by prompt length (stable sort: equal lengths keep their order), serve
+    chunks of ``batch_size``, return results in request order."""
+    order = sorted(range(len(requests)),
+                   key=lambda i: len(requests[i].prompt))
+    results: List[Optional[Result]] = [None] * len(requests)
+    for i in range(0, len(order), batch_size):
+        idxs = order[i: i + batch_size]
+        out = generate_batch([requests[j] for j in idxs])
+        for j, res in zip(idxs, out):
+            results[j] = res
+    return results  # type: ignore[return-value]
+
+
 def _stochastic_rows(requests: Sequence[Request], batch_size: int,
                      gen: torch.Generator
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -171,7 +196,8 @@ class _Engine:
 
     def __init__(self, model: LM, params: Any, *, batch_size: int,
                  max_seq_len: int, packed: bool, seed: int,
-                 sampler: Callable, decode_width: int, device: DeviceLike):
+                 sampler: Callable, decode_width: int, device: DeviceLike,
+                 graph_pool: Optional[GraphPool] = None):
         self.device = resolve_device(device)
         if not same_device(model.device, self.device):
             raise ValueError(f"model is on {model.device}, engine on "
@@ -193,7 +219,10 @@ class _Engine:
         self._decode_width = decode_width
         self.decode_graph = None         # captured at the first decode
         self.prefill_graphs: Dict[int, Any] = {}   # by S, least recent first
-        self.graph_pool = GraphPool(dev) if self.graphs else None
+        # an engine holding two caches (the speculative one) gives both
+        # buffer sets one pool
+        self.graph_pool = graph_pool or (GraphPool(dev) if self.graphs
+                                         else None)
         self._graph_params = self.params
 
     def _check_params(self) -> None:
@@ -243,6 +272,9 @@ class ServeEngine(_Engine):
                  packed: bool = False, seed: int = 0,
                  telemetry: Optional[Telemetry] = None,
                  straggler: Optional[Any] = None,
+                 speculative: Optional[Any] = None, draft_k: int = 4,
+                 draft_model: Optional[LM] = None,
+                 graph_pool: Optional[GraphPool] = None,
                  device: DeviceLike = None):
         """``params``: a ``PrunedArtifact`` or, with ``packed=False``, a raw
         params tree. ``sampler`` maps logits (B, 1, V) to tokens (B, 1) on
@@ -257,21 +289,39 @@ class ServeEngine(_Engine):
         chunk's one host sync is its only timestamp, so TTFT is measured
         from the chunk's start to that sync. ``straggler``: an optional
         ``runtime.StragglerMonitor`` fed each chunk's wall time; a flagged
-        chunk becomes a ``straggler`` trace event."""
+        chunk becomes a ``straggler`` trace event.
+
+        ``speculative``: a drafter (a ``PrunedArtifact``, bound packed, or
+        a raw params tree of ``draft_model``, default ``model``): then
+        ``generate`` runs a ``SpeculativeEngine`` that drafts ``draft_k``
+        tokens a round and verifies them against this engine's params,
+        cache and graphs (telemetry and straggler go to it); its
+        ``stats`` are ``self.speculative.stats``. ``graph_pool``: the pool
+        to capture into (default a new one on the card)."""
         super().__init__(model, params, batch_size=batch_size,
                          max_seq_len=max_seq_len, packed=packed, seed=seed,
                          sampler=sampler, decode_width=max_seq_len,
-                         device=device)
+                         device=device, graph_pool=graph_pool)
         self.telemetry = telemetry
         self.straggler = straggler
         self._batches = 0
+        self.speculative = None
+        if speculative is not None:
+            from repro_torch.serve.speculative import SpeculativeEngine
+
+            self.speculative = SpeculativeEngine(
+                model, self.params, speculative, batch_size=batch_size,
+                max_seq_len=max_seq_len, draft_k=draft_k,
+                draft_model=draft_model, seed=seed, telemetry=telemetry,
+                straggler=straggler, target_engine=self)
 
     # ----------------------------------------------------------- chunk set-up
 
     def pad_prompts(self, requests: Sequence[Request]):
         """Left-pad a chunk's prompts with token 0 to its longest and fill
         empty slots with zero prompts -> ((B, S) ids, (B,) slot mask),
-        built on the host and copied to the device once each."""
+        built on the host and copied to the device once each (the prefill
+        geometry of the speculative engine too)."""
         B, n = self.batch_size, len(requests)
         S = max(len(r.prompt) for r in requests)
         prompts = torch.zeros((B, S), dtype=torch.int64)
@@ -315,39 +365,40 @@ class ServeEngine(_Engine):
         return cache, graph.run(prompts)
 
     @torch.no_grad()
-    def decode(self, tok0: torch.Tensor, num_steps: int) -> torch.Tensor:
-        """Decode ``num_steps`` tokens after ``tok0`` (token 0) from the
-        engine's cache -> (B, 1 + num_steps) tokens, ``tok0`` first: one
+    def decode(self, tok0: torch.Tensor, num_steps: int,
+               index: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Decode ``num_steps`` tokens after ``tok0`` from the engine's
+        cache -> (B, 1 + num_steps) tokens, ``tok0`` first: one
         decode-graph replay per step on the card (captured at the first
-        call), ``LM.decode_many`` on the CPU."""
+        call), ``LM.decode_many`` on the CPU. ``index`` (B,): each row's
+        token index of the first new token, which keys its draw (default
+        1: ``tok0`` is token 0)."""
         if num_steps == 0:
             return tok0
+        rows = self.rows
+        if index is None:
+            rows["index"].fill_(1)
+        else:
+            rows["index"].copy_(index)
         if not self.graphs:
-            keys = fold_key_grid(self.rows["keys"],
-                                 torch.ones_like(self.rows["keys"]),
-                                 num_steps)
+            keys = fold_key_grid(rows["keys"], rows["index"], num_steps)
             _, rest = self.model.decode_many(self.params, self.cache, tok0,
                                              num_steps, sampler=self.sample,
                                              keys=keys)
         else:
-            self.rows["token"].copy_(tok0)
-            self.rows["index"].fill_(1)
+            rows["token"].copy_(tok0)
             rest, _ = self._decode_replays(num_steps)
         return torch.cat([tok0, rest], dim=1)
 
     # ------------------------------------------------------------ requests
 
     def generate(self, requests: Sequence[Request]) -> List[Result]:
-        """Serve requests in length-bucketed chunks; request order kept."""
-        order = sorted(range(len(requests)),
-                       key=lambda i: len(requests[i].prompt))
-        results: List[Optional[Result]] = [None] * len(requests)
-        for i in range(0, len(order), self.batch_size):
-            idxs = order[i: i + self.batch_size]
-            out = self._generate_batch([requests[j] for j in idxs])
-            for j, res in zip(idxs, out):
-                results[j] = res
-        return results  # type: ignore[return-value]
+        """Serve requests in length-bucketed chunks; request order kept
+        (through the speculative engine when the engine has one)."""
+        if self.speculative is not None:
+            return self.speculative.generate(requests)
+        return _bucketed_generate(requests, self.batch_size,
+                                  self._generate_batch)
 
     @torch.no_grad()
     def _generate_batch(self, requests: Sequence[Request]) -> List[Result]:

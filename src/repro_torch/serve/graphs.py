@@ -13,6 +13,11 @@ device: the host only calls ``replay()`` per step.
 The index is per row, so the continuous engine keys each slot by its
 own emitted count; the chunked engine sets every row alike.
 
+``SpeculativeRoundGraph`` captures one greedy speculative round of an
+engine over its two caches (both snapshots, K drafter steps, the target's
+verify chunk, acceptance and both rollbacks), writing the round's tokens
+into column r of static (B, R, K) blocks: R rounds are R replays.
+
 ``PrefillGraph`` captures one prefill for one prompt shape into the
 engine's cache (``LM.prefill`` of a (B, S) chunk, or ``LM.prefill_into_slot``
 of a (1, S) prompt into the slot a static device tensor names), reading
@@ -208,3 +213,29 @@ class PrefillGraph:
         self.prompts.copy_(prompts)
         self.graph.replay()
         return self.logits
+
+
+class SpeculativeRoundGraph:
+    """``round_fn(tcache, dcache, bufs)``, one greedy round of the
+    speculative engine over its caches and static buffers, captured once
+    per (B, K). ``bufs`` holds the pending token, the slot mask, the
+    (B, W, K) / (B, W) output blocks and the column index ``col`` the
+    round writes and advances. The warm-up runs on scratch caches and
+    buffers (the live ones hold prefilled rows)."""
+
+    def __init__(self, round_fn: Callable, models: Tuple[Any, Any],
+                 caches: Tuple[Dict[str, Any], Dict[str, Any]],
+                 bufs: Dict[str, torch.Tensor], pool: GraphPool):
+        self.bufs = bufs
+        B, C = caches[0]["slot_pos"].shape
+        scratch = ([m.init_cache(B, C) for m in models]
+                   + [{k: t.clone() for k, t in bufs.items()}])
+        self.graph = CountedGraph(lambda: round_fn(*caches, bufs), pool,
+                                  warmup=lambda: round_fn(*scratch))
+
+    def run(self, num_rounds: int) -> None:
+        """``num_rounds`` replays into columns 0 .. num_rounds - 1."""
+        self.bufs["col"].zero_()
+        for _ in range(num_rounds):
+            self.graph.replay()
+

@@ -930,3 +930,154 @@ def test_continuous_slot_graph_launches_match_the_trace(lm_art):
     # each replay: 7 packed GEMMs a layer and the head; each admission
     # the same at M = S
     assert pg.LAUNCHES == (7 * L + 1) * (steps + len(reqs))
+
+
+# ------------------------------------------------ speculative serving
+
+from repro_torch.serve.speculative import SpeculativeEngine  # noqa: E402
+
+SPEC_CFG = dataclasses.replace(GRAPH_CFG, param_dtype="float32")
+
+
+def _spec_state(eng):
+    out = []
+    for cache in (eng.target.cache, eng.drafter.cache):
+        out += [t.clone() for t in cache["k"] + cache["v"]]
+        out += [cache["slot_pos"].clone(), cache["pos"].clone()]
+    return out + [eng.bufs[k].clone() for k in ("token", "out", "keep",
+                                                 "acc")]
+
+
+def _spec_restore(eng, state):
+    live = []
+    for cache in (eng.target.cache, eng.drafter.cache):
+        live += cache["k"] + cache["v"] + [cache["slot_pos"], cache["pos"]]
+    live += [eng.bufs[k] for k in ("token", "out", "keep", "acc")]
+    for t, saved in zip(live, state):
+        t.copy_(saved)
+
+
+def test_speculative_round_graph_matches_eager(lm_art):
+    """Three round-graph replays from a prefilled chunk against the same
+    rounds run eagerly from the same state: both caches, the pending
+    tokens and the round blocks bit-identical; and a whole generate of
+    the graph engine equals the eager engine's, tokens and stats."""
+    model, art = lm_art
+    kw = dict(batch_size=4, max_seq_len=64, draft_k=4, demote_below=0.0)
+    eng = SpeculativeEngine(model, art, art, **kw)
+    reqs = _requests(3, 16)
+    eng.generate(reqs)                                # captures
+    assert eng.round_graph is not None
+    eng.prefill_chunk(reqs)
+    start = _spec_state(eng)
+    eng.greedy_rounds(3)
+    graph = _spec_state(eng)
+    _spec_restore(eng, start)
+    eng.graphs = False
+    eng.greedy_rounds(3)
+    assert all(torch.equal(a, b) for a, b in zip(graph, _spec_state(eng)))
+    eng.graphs = True
+    eager = SpeculativeEngine(model, art, art, **kw)
+    eager.graphs = False
+    got = [r.tokens for r in eng.generate(reqs)]
+    assert got == [r.tokens for r in eager.generate(reqs)]
+    assert eng.stats == eager.stats
+
+
+def test_speculative_column_packed_drafter(cuda):
+    """A column-packed drafter (``column_gemm`` on every drafter GEMM):
+    fp32 tokens equal the plain engine's on the dense target, graph equal
+    to eager, ``column_gemm`` launched."""
+    model = LM(SPEC_CFG, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    col = greedy_prune(params, PruneConfig(scheme="column",
+                                           alpha=0.5)).pack()
+    reqs = _requests(4, 16)
+    kw = dict(batch_size=4, max_seq_len=64, draft_k=3, demote_below=0.0)
+    want = [r.tokens for r in ServeEngine(
+        model, params, batch_size=4, max_seq_len=64).generate(reqs)]
+    eng = SpeculativeEngine(model, params, col, **kw)
+    eng.generate(reqs)                                # captures
+    cg.LAUNCHES = 0
+    got = [r.tokens for r in eng.generate(reqs)]
+    torch.cuda.synchronize()
+    assert got == want
+    assert cg.LAUNCHES > 0 and eng.stats["rounds"] > 0
+    eager = SpeculativeEngine(model, params, col, **kw)
+    eager.graphs = False
+    assert [r.tokens for r in eager.generate(reqs)] == got
+
+
+def test_speculative_packed_target_verifies_on_pattern_gemm_m16(cuda):
+    """A packed fp32 target: its verify chunk at batch 4 x draft_k 4 runs
+    every GEMM through ``pattern_gemm``'s skinny route at M = 16, its
+    logits within 1e-4 of four M = 4 decode steps (a kernel's K split
+    follows M), and speculative tokens equal to plain packed decoding."""
+    model = LM(SPEC_CFG, device=cuda)
+    art = greedy_prune(model.init(torch.Generator(device=cuda).manual_seed(
+        0)), GRAPH_PCFG).pack()
+    params = art.bind(model, packed=True)
+    prompts = torch.stack([torch.arange(12, device=cuda) * (b + 1) % 1024
+                           for b in range(4)])
+    cache, _ = model.prefill(params, prompts, 64)
+    toks = torch.randint(0, 1024, (4, 4), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(1))
+    seq_cache = {k: ([t.clone() for t in v] if isinstance(v, list)
+                     else v.clone()) for k, v in cache.items()}
+    seq = torch.cat([model.decode_step(params, seq_cache, toks[:, i:i + 1])[1]
+                     for i in range(4)], dim=1)
+    _zero_counts()
+    pg.ROUTE_LAUNCHES.update(dict.fromkeys(pg.ROUTE_LAUNCHES, 0))
+    _, chunk = model.verify_chunk(params, cache, toks)
+    torch.cuda.synchronize()
+    n_packed = 7 * SPEC_CFG.num_layers + 1
+    assert pg.ROUTE_LAUNCHES["skinny"] == pg.LAUNCHES == n_packed
+    torch.testing.assert_close(chunk, seq, rtol=1e-4, atol=1e-4)
+    assert torch.equal(cache["pos"], seq_cache["pos"])
+    assert torch.equal(cache["slot_pos"], seq_cache["slot_pos"])
+    reqs = _requests(4, 16)
+    want = [r.tokens for r in ServeEngine(
+        model, art, packed=True, batch_size=4, max_seq_len=64).generate(reqs)]
+    eng = SpeculativeEngine(model, art, art, packed=True, batch_size=4,
+                            max_seq_len=64, draft_k=4)
+    assert [r.tokens for r in eng.generate(reqs)] == want
+    assert eng.stats["demoted"] is False
+
+
+def test_speculative_sampled_rows_on_the_card(lm_art):
+    """Sampled rounds run eagerly on the card: a seeded request gets the
+    same tokens on engines of other seeds and with other batch-mates, and
+    a greedy row beside a sampled one the tokens it gets through the
+    round graph with no sampled mate."""
+    model, art = lm_art
+    seeded = _requests(1, 16, temperature=0.8, seed=21)[0]
+    mates = _requests(2, 16, temperature=1.1, first=30)
+    greedy = _requests(1, 16, first=40)[0]
+
+    def run(seed, reqs):
+        eng = SpeculativeEngine(model, art, art, batch_size=4,
+                                max_seq_len=64, draft_k=4, seed=seed)
+        return [r.tokens for r in eng.generate(reqs)]
+
+    alone = run(0, [seeded])[0]
+    assert alone == run(1, [seeded] + mates)[0]
+    assert len(alone) == seeded.max_new_tokens
+    assert run(2, [seeded, greedy])[1] == run(3, [greedy])[0]
+
+
+def test_speculative_serve_launcher_on_the_card(cuda, tmp_path):
+    """``launch.serve --speculative DIR --draft-k 2`` at ``--reduced``,
+    on the card by default: the saved artifact drafts packed, the same
+    artifact's dense weights verify; it prints the acceptance numbers."""
+    cfg = reduced_config("qwen2-1.5b")
+    model = LM(cfg, device=cuda)
+    art = greedy_prune(model.init(torch.Generator(device=cuda).manual_seed(
+        0)), PruneConfig(scheme="tile_pattern",
+                         overrides={".*": {"tile_block_p": 32}})).pack()
+    path = str(tmp_path / "artifact")
+    art.save(path)
+    out = _launcher("repro_torch.launch.serve", "--arch", "qwen2-1.5b",
+                    "--reduced", "--artifact", path, "--speculative", path,
+                    "--draft-k", "2", "--requests", "2", "--max-new", "6")
+    assert "dense+speculative(k=2), cuda" in out
+    assert "speculative:" in out and "acceptance" in out

@@ -44,6 +44,7 @@ def test_engine_import_pulls_in_no_jax():
             "repro_torch.runtime, repro_torch.launch.pipeline, "
             "repro_torch.launch.train, repro_torch.serve.slots, "
             "repro_torch.serve.scheduler, repro_torch.runtime.trace_analysis, "
+            "repro_torch.serve.speculative, "
             "repro_torch.testing; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
