@@ -22,7 +22,10 @@ result line is printed:
               tile, flash attention's SIMT kernel) at the same shape,
               forced through the wrapper's ``_launch``. Flash attention
               also runs a ragged S, a sliding window and a non-causal
-              call, each held to the plain version.
+              call, each held to the plain version, and h2o-danube-1.8b's
+              heads (32 / 8 of 80, window 4096) at the shapes [window]
+              launches (B = 4, S = 4160 and 4064; B = 1, S = 4160, 1024,
+              256) and a ragged B = 4, S = 200.
 4. serve    — qwen2-1.5b at full width (28 layers, d_model 1536, vocab
               151 936, bf16), seeded random weights, greedy tile-pattern
               prune (4 of 8 lanes, block_p 128), packed, saved to a
@@ -107,7 +110,28 @@ result line is printed:
               of a round, a drafter step and a verify chunk (graph
               replays) and a profile of one round. At 4 layers in fp32
               every arm's greedy tokens equal plain decoding's.
-10. admm    — the paper's algorithm: qwen2-1.5b at full width (bf16,
+10. window  — sliding-window serving on a ring cache: h2o-danube-1.8b at
+              full width (24 layers, d_model 2560, 32 / 8 heads of 80,
+              window 4096, bf16), seeded random weights, greedy
+              tile-pattern 4 of 8 at block_p 128, packed, saved and
+              loaded (seconds, bytes). (a) ``ServeEngine`` through its
+              graphs at batch 4, ``max_seq_len`` 4352 (a ring of 4096):
+              4 x 4160-token prompts (the prefill wraps) and 4 x 4064
+              (the decode wraps), 64 new; (b) ``ContinuousEngine``, 8
+              requests (prompts 4160 / 1024 / 256, budgets 64 / 32 / 48)
+              at seeded arrivals; (c) ``SpeculativeEngine``, the artifact
+              packed drafting for its pruned weights bound dense, 4 x
+              4064 prompts, 64 new, ``draft_k`` 4, rounds across the wrap.
+              Counts zeroed around each main path; gates: every prefill
+              flash call on wgmma at hd 80 (24 a forward), no blockwise
+              fallback, ``pattern_gemm`` on skinny and wgmma, graph ≡
+              eager (each (a) chunk's logits and 63 decode tokens, 20
+              speculative rounds), continuous ≡ solo at batch 4, and at 4
+              layers in fp32 packed tokens ≡ dense-pruned for (a) and (c).
+              Readings: prefill ms per chunk, decode ms per step (graph
+              medians), tokens/s, acceptance, peak device memory, a
+              profile of a decode step on the wrapped ring.
+11. admm    — the paper's algorithm: qwen2-1.5b at full width (bf16,
               seeded random teacher) pruned by layer-wise ADMM on
               synthetic tokens (``PrivacyPreservingPruner`` with
               ``launch.prune.prune_config_for(scheme="tile_pattern",
@@ -134,7 +158,7 @@ result line is printed:
               then ``launch.serve --reduced --artifact --packed`` as
               subprocesses: both exit 0, serve prefilling through the
               blockwise fallback (head_dim 16).
-11. admm_cnn — VGG-16 at full width (ImageNet head, 224 x 224, fp32)
+12. admm_cnn — VGG-16 at full width (ImageNet head, 224 x 224, fp32)
               pruned by layer-wise ADMM ``pattern_shared`` alpha 0.25
               (batch 32, 4 iterations; some pruned leaf off the greedy
               projection), retrained by 10 masked AdamW steps on
@@ -144,7 +168,7 @@ result line is printed:
               ``pattern_conv`` launch per stride-1 3x3 conv (counts zeroed
               around it); the fp32 top-1 gate of ``[cnn]``. Seconds per
               iteration and per step, peak memory.
-12. pipeline — the privacy-preserving pruning service
+13. pipeline — the privacy-preserving pruning service
               (``launch.pipeline.main`` in process, full scale, quick
               budgets, no stage retries: every stage must succeed on
               its one attempt): VGG-16 at width 1.0 on 32 x 32 x 3
@@ -166,7 +190,7 @@ result line is printed:
               tokens, 16 new; counts zeroed around it: ``pattern_gemm``
               launched, every flash call on wgmma, no fallback) and fp32
               dense-pruned vs packed greedy tokens identical.
-13. report  — one ``{"kernels": [...]}`` JSON line covering all four
+14. report  — one ``{"kernels": [...]}`` JSON line covering all four
               kernels (each a sum over the bf16 shapes its served path
               launches; the GEMMs' ``lm_head`` at M = 512 and 2048, which
               prefill never launches, and every GEMM at a verify chunk's
@@ -292,6 +316,21 @@ SOLO_MS = (1, 64, 200)
 # at M = batch x draft_k = 16 (skinny); [speculative]'s targets are dense,
 # so these rows are checked and timed apart from the served path
 VERIFY_MS = (16,)
+# every distinct h2o-danube-1.8b packed GEMM ([window]); its layer GEMMs
+# run at M = 4 (decode, drafter steps), 256 / 1024 / 4160 (continuous
+# admissions), 16 256 / 16 640 (4 x 4064 and 4 x 4160 prefill chunks), its
+# head at M = 4 and 1 (the last token of a chunk, of an admission)
+DANUBE_GEMMS = (
+    ("wq", 2560, 2560, False, None),
+    ("wk/wv", 2560, 640, False, None),
+    ("wo", 2560, 2560, False, None),
+    ("w_gate", 2560, 6912, False, "silu"),
+    ("w_up", 2560, 6912, False, None),
+    ("w_down", 6912, 2560, False, None),
+    ("lm_head", 2560, 32000, False, None),
+)
+DANUBE_MS = (4, 256, 1024, 4160, 16256, 16640)
+DANUBE_HEAD_MS = (1, 4)
 FLASH_SHAPES = dict(H=12, KV=2, hd=128)
 # (B, S, causal, window): the served prefill chunks (B = 4, S = 128, 512),
 # the ragged edge (S = 200), a sliding window, a non-causal call, and
@@ -301,6 +340,15 @@ FLASH_CASES = ((4, 128, True, None), (4, 200, True, None),
                (4, 512, False, None), (1, 64, True, None),
                (1, 200, True, None), (1, 512, True, None))
 FLASH_SERVED = ((4, 128), (4, 512), (1, 64), (1, 200), (1, 512))
+# h2o-danube-1.8b's heads (32 / 8 of 80, window 4096), every call causal
+# with the window: [window]'s chunked prefills (B = 4, S = 4160 and 4064),
+# its continuous admissions (B = 1, S = 4160, 1024, 256) and a ragged
+# B = 4, S = 200 that no phase launches
+WINDOW = 4096
+FLASH_HD80 = dict(H=32, KV=8, hd=80)
+FLASH_HD80_CASES = tuple((B, S, True, WINDOW) for B, S in (
+    (4, 4160), (4, 4064), (1, 4160), (1, 1024), (1, 256), (4, 200)))
+FLASH_HD80_SERVED = ((4, 4160), (4, 4064), (1, 4160), (1, 1024), (1, 256))
 # (batch, H = W, C, A): every distinct stride-1 3x3 conv of VGG-16 at
 # 224 x 224, batch 32, and of ResNet-18 (CIFAR stem) at 32 x 32, batch 256
 VGG16_CONVS = tuple((32, h, c, a) for h, c, a in (
@@ -408,115 +456,152 @@ def phase_build() -> None:
                   f"stores {spills}", flush=True)
 
 
+def qwen2_gemm_ms(name: str) -> list:
+    # the head runs on one token in an admission, never at M = 64 or 200
+    return [M for M in sorted(GEMM_MS + SOLO_MS + VERIFY_MS)
+            if not (name == "lm_head" and M in SOLO_MS[1:])]
+
+
+def qwen2_gemm_on_path(name: str, M: int) -> bool:
+    # the prefills compute the last token's logits only: the head runs at
+    # M = batch ([serve], decode) or 1 (an admission); bf16 layer GEMMs
+    # never at M = 1
+    return M not in VERIFY_MS and (M in (1, 4) if name == "lm_head"
+                                   else M > 1)
+
+
 def check_pattern_gemm(gen) -> list:
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
-        tol = TOL[dtype]
-        for name, Q, P, has_bias, act in QWEN2_GEMMS:
-            w = torch.empty((Q, P), device="cuda")
-            torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-            w = (w / math.sqrt(Q)).to(dtype)
-            w = project_tile_pattern(w.T, block_p=128).T.contiguous()
-            wpb, li = pg_mod.pack_tile_pattern_blocked(w, block_p=128)
-            b = (torch.randn(P, generator=gen, device="cuda") * 0.1).to(dtype) \
-                if has_bias else None
-            for M in sorted(GEMM_MS + SOLO_MS + VERIFY_MS):
-                if name == "lm_head" and M in SOLO_MS[1:]:
-                    continue                # the head runs on one token
-                x = torch.randn((M, Q), generator=gen, device="cuda").to(dtype)
-                y = pg_mod.pattern_gemm(x, wpb, li, b, activation=act)
-                torch.cuda.synchronize()
-                r = pg_mod.pattern_gemm_ref(x, wpb, li, b, activation=act)
-                err = (y.float() - r.float()).abs().max().item()
-                if not torch.allclose(y.float(), r.float(), rtol=tol, atol=tol):
-                    fail(f"pattern_gemm {name} M={M} {dtype}: max err {err}")
-                ms = timed_ms(lambda: pg_mod.pattern_gemm(
-                    x, wpb, li, b, activation=act), 20)
-                plain = timed_ms(lambda: pg_mod.pattern_gemm_ref(
-                    x, wpb, li, b, activation=act), 3)
-                variant = pg_mod.tiled_variant(M, Q, wpb.shape[1], dtype)
-                earlier = None                  # the WMMA tile at this shape
-                if variant == "wgmma":
-                    earlier = timed_ms(lambda: pg_mod._launch(
-                        x, wpb, li, b, act, "wmma"), 20)
-                lib = timed_ms(lambda: torch.matmul(x, w), 20)
-                nb, Kp, bp = wpb.shape
-                t_b, by = bound(nbytes(x, wpb, li, b, y),
-                                2.0 * M * Kp * nb * bp, dtype)
-                rows.append(dict(kernel="pattern_gemm", shape=f"{name} M={M}",
-                                 # the prefills compute the last token's
-                                 # logits only: the head runs at M = batch
-                                 # ([serve], decode) or 1 (an admission);
-                                 # bf16 layer GEMMs never at M = 1
-                                 on_path=M not in VERIFY_MS and (
-                                     M in (1, 4) if name == "lm_head"
-                                     else M > 1),
-                                 dtype=str(dtype).split(".")[-1],
-                                 variant=variant, max_abs_err=err, ms=ms,
-                                 earlier_ms=earlier, plain_ms=plain,
-                                 bound_ms=t_b, bound_by=by, library_ms=lib))
-                print("[kernels] " + json.dumps(rows[-1]), flush=True)
-            del w, wpb, li
+        rows += check_pattern_gemm_cases(gen, dtype, "", QWEN2_GEMMS,
+                                         qwen2_gemm_ms, qwen2_gemm_on_path)
+        rows += check_pattern_gemm_cases(
+            gen, dtype, "danube ", DANUBE_GEMMS,
+            lambda name: DANUBE_HEAD_MS if name == "lm_head" else DANUBE_MS,
+            lambda name, M: True, earlier_route=False)
+    return rows
+
+
+def check_pattern_gemm_cases(gen, dtype, prefix: str, gemms, ms_of,
+                             on_path, earlier_route: bool = True) -> list:
+    """``pattern_gemm`` for each (name, Q, P, bias, activation) of
+    ``gemms`` at each M of ``ms_of(name)`` in ``dtype``, the shape named
+    ``prefix + name``; ``earlier_route``: time the WMMA tile beside a
+    wgmma call."""
+    rows = []
+    tol = TOL[dtype]
+    for name, Q, P, has_bias, act in gemms:
+        w = torch.empty((Q, P), device="cuda")
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        w = (w / math.sqrt(Q)).to(dtype)
+        w = project_tile_pattern(w.T, block_p=128).T.contiguous()
+        wpb, li = pg_mod.pack_tile_pattern_blocked(w, block_p=128)
+        b = (torch.randn(P, generator=gen, device="cuda") * 0.1).to(dtype) \
+            if has_bias else None
+        for M in ms_of(name):
+            x = torch.randn((M, Q), generator=gen, device="cuda").to(dtype)
+            y = pg_mod.pattern_gemm(x, wpb, li, b, activation=act)
+            torch.cuda.synchronize()
+            r = pg_mod.pattern_gemm_ref(x, wpb, li, b, activation=act)
+            err = (y.float() - r.float()).abs().max().item()
+            if not torch.allclose(y.float(), r.float(), rtol=tol, atol=tol):
+                fail(f"pattern_gemm {prefix}{name} M={M} {dtype}: max err "
+                     f"{err}")
+            ms = timed_ms(lambda: pg_mod.pattern_gemm(
+                x, wpb, li, b, activation=act), 20)
+            plain = timed_ms(lambda: pg_mod.pattern_gemm_ref(
+                x, wpb, li, b, activation=act), 3)
+            variant = pg_mod.tiled_variant(M, Q, wpb.shape[1], dtype)
+            earlier = None                  # the WMMA tile at this shape
+            if variant == "wgmma" and earlier_route:
+                earlier = timed_ms(lambda: pg_mod._launch(
+                    x, wpb, li, b, act, "wmma"), 20)
+            lib = timed_ms(lambda: torch.matmul(x, w), 20)
+            nb, Kp, bp = wpb.shape
+            t_b, by = bound(nbytes(x, wpb, li, b, y),
+                            2.0 * M * Kp * nb * bp, dtype)
+            rows.append(dict(kernel="pattern_gemm",
+                             shape=f"{prefix}{name} M={M}",
+                             on_path=on_path(name, M),
+                             dtype=str(dtype).split(".")[-1],
+                             variant=variant, max_abs_err=err, ms=ms,
+                             earlier_ms=earlier, plain_ms=plain,
+                             bound_ms=t_b, bound_by=by, library_ms=lib))
+            print("[kernels] " + json.dumps(rows[-1]), flush=True)
+        del w, wpb, li
     return rows
 
 
 def check_flash(gen) -> list:
     rows = []
-    H, KV, hd = (FLASH_SHAPES[k] for k in ("H", "KV", "hd"))
     for dtype in (torch.bfloat16, torch.float32):
-        tol = TOL[dtype]
-        for B, S, causal, window in FLASH_CASES:
-            q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
-            k = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(dtype)
-            v = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(dtype)
-            kw = dict(causal=causal, window=window)
-            o = fa_mod.flash_attention(q, k, v, **kw)
+        for heads, cases, served in (
+                (FLASH_SHAPES, FLASH_CASES,
+                 [(B, S, True, None) for B, S in FLASH_SERVED]),
+                (FLASH_HD80, FLASH_HD80_CASES,
+                 [(B, S, True, WINDOW) for B, S in FLASH_HD80_SERVED])):
+            rows += check_flash_cases(gen, dtype, heads, cases, served)
+    return rows
+
+
+def check_flash_cases(gen, dtype, heads: dict, cases, served) -> list:
+    """``flash_attention`` at each (B, S, causal, window) of ``cases``
+    with ``heads`` (H, KV, hd) in ``dtype``; ``served``: the cases a
+    phase's main path launches."""
+    rows = []
+    H, KV, hd = (heads[k] for k in ("H", "KV", "hd"))
+    tol = TOL[dtype]
+    for B, S, causal, window in cases:
+        q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(dtype)
+        v = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(dtype)
+        kw = dict(causal=causal, window=window)
+        o = fa_mod.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        r = fa_mod.flash_attention_ref(q, k, v, **kw)
+        err = (o.float() - r.float()).abs().max().item()
+        if not torch.allclose(o.float(), r.float(), rtol=tol, atol=tol):
+            fail(f"flash_attention B={B} S={S} {kw} {dtype}: max err "
+                 f"{err}")
+        variant = fa_mod.flash_variant(S, hd, dtype, window, causal)
+        earlier = None                  # the SIMT kernel at this shape
+        if variant == "wgmma":
+            simt = fa_mod._launch(q, k, v, causal, window, None, "simt")
             torch.cuda.synchronize()
-            r = fa_mod.flash_attention_ref(q, k, v, **kw)
-            err = (o.float() - r.float()).abs().max().item()
-            if not torch.allclose(o.float(), r.float(), rtol=tol, atol=tol):
-                fail(f"flash_attention B={B} S={S} {kw} {dtype}: max err "
-                     f"{err}")
-            variant = fa_mod.flash_variant(S, hd, dtype, window, causal)
-            earlier = None                  # the SIMT kernel at this shape
-            if variant == "wgmma":
-                simt = fa_mod._launch(q, k, v, causal, window, None, "simt")
-                torch.cuda.synchronize()
-                if not torch.allclose(simt.float(), r.float(), rtol=tol,
-                                      atol=tol):
-                    fail(f"flash_attention simt B={B} S={S} {kw}: max err "
-                         f"{(simt.float() - r.float()).abs().max().item()}")
-                earlier = timed_ms(lambda: fa_mod._launch(
-                    q, k, v, causal, window, None, "simt"))
-            ms = timed_ms(lambda: fa_mod.flash_attention(q, k, v, **kw))
-            plain = timed_ms(lambda: fa_mod.flash_attention_ref(
-                q, k, v, **kw), 3)
-            pos = torch.arange(S, device="cuda")
-            seen = torch.ones((S, S), dtype=torch.bool, device="cuda")
-            if causal:
-                seen &= pos[:, None] >= pos[None, :]
-            if window is not None:
-                seen &= pos[:, None] - pos[None, :] < window
-            pairs = int(seen.sum())                 # (q, k) pairs computed
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            if window is None:
-                lib = timed_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal, enable_gqa=True))
-            else:                          # SDPA takes a window as a mask
-                lib = timed_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=seen, enable_gqa=True))
-            t_b, by = bound(nbytes(q, k, v, o), 4.0 * B * H * hd * pairs, dtype)
-            shape = (f"B={B} S={S} H={H} KV={KV} hd={hd} "
-                     + ("causal" if causal else "non-causal")
-                     + (f" window={window}" if window else ""))
-            rows.append(dict(kernel="flash_attention", shape=shape,
-                             on_path=causal and window is None
-                             and (B, S) in FLASH_SERVED,
-                             dtype=str(dtype).split(".")[-1], variant=variant,
-                             max_abs_err=err, ms=ms, earlier_ms=earlier,
-                             plain_ms=plain, bound_ms=t_b, bound_by=by,
-                             library_ms=lib))
-            print("[kernels] " + json.dumps(rows[-1]), flush=True)
+            if not torch.allclose(simt.float(), r.float(), rtol=tol,
+                                  atol=tol):
+                fail(f"flash_attention simt B={B} S={S} {kw}: max err "
+                     f"{(simt.float() - r.float()).abs().max().item()}")
+            earlier = timed_ms(lambda: fa_mod._launch(
+                q, k, v, causal, window, None, "simt"))
+        ms = timed_ms(lambda: fa_mod.flash_attention(q, k, v, **kw))
+        plain = timed_ms(lambda: fa_mod.flash_attention_ref(
+            q, k, v, **kw), 3)
+        pos = torch.arange(S, device="cuda")
+        seen = torch.ones((S, S), dtype=torch.bool, device="cuda")
+        if causal:
+            seen &= pos[:, None] >= pos[None, :]
+        if window is not None:
+            seen &= pos[:, None] - pos[None, :] < window
+        pairs = int(seen.sum())                 # (q, k) pairs computed
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if window is None:
+            lib = timed_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True))
+        else:                          # SDPA takes a window as a mask
+            lib = timed_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=seen, enable_gqa=True))
+        t_b, by = bound(nbytes(q, k, v, o), 4.0 * B * H * hd * pairs, dtype)
+        shape = (f"B={B} S={S} H={H} KV={KV} hd={hd} "
+                 + ("causal" if causal else "non-causal")
+                 + (f" window={window}" if window else ""))
+        rows.append(dict(kernel="flash_attention", shape=shape,
+                         on_path=(B, S, causal, window) in served,
+                         dtype=str(dtype).split(".")[-1], variant=variant,
+                         max_abs_err=err, ms=ms, earlier_ms=earlier,
+                         plain_ms=plain, bound_ms=t_b, bound_by=by,
+                         library_ms=lib))
+        print("[kernels] " + json.dumps(rows[-1]), flush=True)
     return rows
 
 
@@ -1265,7 +1350,7 @@ def continuous_main(tag: str, smi: str, eng, reqs: list) -> dict:
     return {"results": results, "launches": launches}
 
 
-TRACE_REPEATS = 3
+TRACE_REPEATS = 2
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx")
 
@@ -1791,6 +1876,320 @@ def phase_speculative(smi: str, art) -> dict:
     spec_fp32(tag, cfg)
     return {k: a["launches"][k] + b["launches"][k]
             for k in ("pattern_gemm", "flash_attention")}
+
+
+# ------------------------------------------- sliding-window (ring) serving
+
+WIN = dict(batch=4, max_seq=4352, wrap_prompt=4160, decode_prompt=4064,
+           new=64, cont_lens=(4160, 1024, 256), cont_new=(64, 32, 48),
+           cont_requests=8, cont_chunk=8, gap_s=0.05, draft_k=4,
+           fp32_layers=4)
+
+
+def window_requests(vocab: int, lens, new, seed: int) -> list:
+    g = torch.Generator().manual_seed(seed)
+    return [Request(uid=i, prompt=torch.randint(0, vocab, (n,), generator=g),
+                    max_new_tokens=m) for i, (n, m) in enumerate(zip(lens,
+                                                                     new))]
+
+
+def window_serve_requests(vocab: int) -> list:
+    """(a): 4 prompts of 4 160 tokens (the prefill wraps the ring) and 4 of
+    4 064 (the decode wraps it), 64 new tokens each."""
+    B = WIN["batch"]
+    return window_requests(
+        vocab, (WIN["wrap_prompt"],) * B + (WIN["decode_prompt"],) * B,
+        (WIN["new"],) * (2 * B), 10)
+
+
+def window_flash_gate(tag: str, what: str, L: int, prefills: int) -> None:
+    """Every prefill attention call on flash's wgmma route, ``L`` a
+    forward, no blockwise fallback."""
+    want = L * prefills
+    if (fa_mod.LAUNCHES != want or fa_mod.ROUTE_LAUNCHES["wgmma"] != want
+            or attention.PREFILL_FALLBACKS):
+        fail(f"[{tag}] {what}: flash must launch {L} x {prefills} times on "
+             f"wgmma: {fa_mod.LAUNCHES} launches, by route "
+             f"{fa_mod.ROUTE_LAUNCHES}, {attention.PREFILL_FALLBACKS} "
+             f"blockwise fallbacks")
+
+
+def ring_graph_against_eager(tag: str, eng, chunk) -> dict:
+    """One chunk through the engine's graphs and through ``LM.prefill`` /
+    ``LM.decode_many`` called eagerly: logits and tokens bit-identical;
+    then the graphs' prefill ms and decode ms a step (medians of 3)."""
+    model, params = eng.model, eng.params
+    steps = WIN["new"] - 1
+    prompts, mask = eng.pad_prompts(chunk)
+    eng.set_rows(chunk, mask)
+    keys = fold_key_grid(eng.rows["keys"], torch.zeros_like(
+        eng.rows["keys"]), steps + 1)
+    logits = eng.prefill(prompts)[1].clone()
+    tok0 = eng.sample(logits, keys[0])
+    toks = eng.decode(tok0, steps).clone()
+    cache, want = model.prefill(params, prompts, eng.max_seq_len)
+    _, rest = model.decode_many(params, cache, tok0, steps,
+                                sampler=eng.sample, keys=keys[1:])
+    S = prompts.shape[1]
+    same = (torch.equal(logits, want),
+            torch.equal(toks, torch.cat([tok0, rest], dim=1)))
+    print(f"[{tag}] chunk S={S}: graph against eager, prefill logits "
+          f"bit-identical {same[0]}, decode tokens ({steps} steps, positions"
+          f" {S} .. {S + steps}, ring of {cache['slot_pos'].shape[1]}) "
+          f"bit-identical {same[1]}", flush=True)
+    if not all(same):
+        fail(f"[{tag}] S={S}: the ring graphs disagree with the eager path")
+    del cache
+    prefill_ms = median_s(lambda: eng.prefill(prompts)) * 1e3
+    decode_ms = median_s(lambda: eng.decode(tok0, steps)) * 1e3 / steps
+    return {"S": S, "prefill_graph_ms": prefill_ms,
+            "decode_graph_ms_per_step": decode_ms,
+            "decode_graph_tok_s": len(chunk) / (decode_ms / 1e3)}
+
+
+def window_a(tag: str, smi: str, model, art) -> dict:
+    """(a) the loaded artifact through the launcher's ``ServeEngine``: the
+    main path (counts zeroed around it), graph against eager per chunk,
+    readings and a profile of a decode step on the wrapped ring."""
+    cfg = model.config
+    L = cfg.num_layers
+    reqs = window_serve_requests(cfg.vocab_size)
+    eng = launch_serve.make_engine(model, art, batch=WIN["batch"],
+                                   max_seq=WIN["max_seq"], packed=True,
+                                   device=DEV)
+    t0 = time.perf_counter()
+    eng.generate(reqs)                 # captures: decode, S = 4064, 4160
+    torch.cuda.synchronize()
+    print(f"[{tag}] (a) ServeEngine(batch_size={WIN['batch']}, max_seq_len="
+          f"{WIN['max_seq']}): ring cache of {eng.cache['slot_pos'].shape[1]}"
+          f" slots; graphs captured in {time.perf_counter() - t0:.2f} s "
+          f"(first use), one pool of {eng.graph_pool.reserved} bytes",
+          flush=True)
+    reset_launches()                                    # the main path
+    t0 = time.perf_counter()
+    results = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(("pattern_gemm", "flash_attention"))
+    routes = {"pattern_gemm": dict(pg_mod.ROUTE_LAUNCHES),
+              "flash_attention": dict(fa_mod.ROUTE_LAUNCHES)}
+    n_tok = sum(len(r.tokens) for r in results)
+    print(f"[{tag}] (a) generate({len(reqs)} requests: 4 x "
+          f"{WIN['wrap_prompt']} + 4 x {WIN['decode_prompt']} prompt tokens,"
+          f" {WIN['new']} new) wall {wall * 1e3:.1f} ms, {n_tok} tokens, "
+          f"{n_tok / wall:.1f} tok/s; launches {json.dumps(launches)} by "
+          f"route {json.dumps(routes)}, blockwise fallbacks "
+          f"{attention.PREFILL_FALLBACKS} ({smi})", flush=True)
+    window_flash_gate(tag, "(a) generate", L, 2)
+    if not (routes["pattern_gemm"]["skinny"]
+            and routes["pattern_gemm"]["wgmma"]):
+        fail(f"[{tag}] pattern_gemm must launch on skinny (decode) and "
+             f"wgmma (prefill): {routes['pattern_gemm']}")
+    for r in results:
+        if len(r.tokens) != WIN["new"] or not all(
+                0 <= t < cfg.vocab_size for t in r.tokens):
+            fail(f"[{tag}] request {r.uid}: bad tokens {r.tokens[:8]}...")
+    B = WIN["batch"]
+    chunks = [ring_graph_against_eager(tag, eng, reqs[i:i + B])
+              for i in (B, 0)]                  # S = 4064, then 4160
+    print(f"[{tag}] (a) graph readings: " + json.dumps(chunks)
+          + f" ({smi})", flush=True)
+    prompts, mask = eng.pad_prompts(reqs[:B])
+    eng.set_rows(reqs[:B], mask)
+    tok0 = eng.sample(eng.prefill(prompts)[1], fold_key_grid(
+        eng.rows["keys"], torch.zeros_like(eng.rows["keys"]), 1)[0])
+    profile(tag, "(a) decode step on the wrapped ring (C = 4096), graph",
+            lambda: eng.decode(tok0, 8), per=8)
+    return dict(launches, chunks=chunks, tok_s=n_tok / wall)
+
+
+def window_b(tag: str, smi: str, model, art) -> dict:
+    """(b) the loaded artifact through ``ContinuousEngine``: 8 requests at
+    seeded arrivals (counts zeroed around them), each bit-identical to
+    its solo run through the same engine."""
+    cfg = model.config
+    L = cfg.num_layers
+    n, lens, new = (WIN["cont_requests"], WIN["cont_lens"],
+                    WIN["cont_new"])
+    reqs = window_requests(cfg.vocab_size, [lens[i % 3] for i in range(n)],
+                           [new[i % 3] for i in range(n)], 11)
+    g = torch.Generator().manual_seed(12)
+    gaps = torch.empty(n - 1, dtype=torch.float64).exponential_(
+        1.0 / WIN["gap_s"], generator=g)
+    arrivals = [0.0] + torch.cumsum(gaps, 0).tolist()
+    eng = ContinuousEngine(model, art, packed=True, batch_size=WIN["batch"],
+                           max_seq_len=WIN["max_seq"],
+                           chunk_steps=WIN["cont_chunk"], device=DEV)
+    eng.generate(reqs[:3])                    # captures each S, decode
+    torch.cuda.synchronize()
+    reset_launches()                                    # the main path
+    t0 = time.perf_counter()
+    results = eng.generate(reqs, arrivals=arrivals)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(("pattern_gemm", "flash_attention"))
+    routes = {"pattern_gemm": dict(pg_mod.ROUTE_LAUNCHES),
+              "flash_attention": dict(fa_mod.ROUTE_LAUNCHES)}
+    st = eng.stats
+    n_tok = sum(len(r.tokens) for r in results)
+    print(f"[{tag}] (b) ContinuousEngine(batch_size={WIN['batch']}, "
+          f"max_seq_len={WIN['max_seq']}, chunk_steps={WIN['cont_chunk']}):"
+          f" {n} requests (prompts {lens}, budgets {new} cycling; seeded "
+          f"exponential gaps, mean {WIN['gap_s'] * 1e3:.0f} ms) wall "
+          f"{wall * 1e3:.1f} ms, {n_tok} tokens, {n_tok / wall:.1f} tok/s, "
+          f"occupancy {st['occupancy']:.4f}, {st['chunks']} chunks, "
+          f"statuses {json.dumps(st['statuses'])}; launches "
+          f"{json.dumps(launches)} by route {json.dumps(routes)}, blockwise "
+          f"fallbacks {attention.PREFILL_FALLBACKS} ({smi})", flush=True)
+    window_flash_gate(tag, "(b) admissions", L, n)
+    if not (routes["pattern_gemm"]["skinny"]
+            and routes["pattern_gemm"]["wgmma"]):
+        fail(f"[{tag}] (b) pattern_gemm must launch on skinny and wgmma: "
+             f"{routes['pattern_gemm']}")
+    for r, q in zip(results, reqs):
+        if r.status != "ok" or len(r.tokens) != q.max_new_tokens:
+            fail(f"[{tag}] (b) request {r.uid}: {r.status}, "
+                 f"{len(r.tokens)} tokens")
+    same = [r.tokens == eng.generate([q])[0].tokens
+            for r, q in zip(results, reqs)]
+    print(f"[{tag}] (b) each request bit-identical to its solo run through "
+          f"the same engine (batch {WIN['batch']}, other rows idle): "
+          f"{sum(same)}/{len(same)}", flush=True)
+    if not all(same):
+        fail(f"[{tag}] (b) continuous tokens depend on chunk-mates on the "
+             f"ring")
+    return dict(launches, tok_s=n_tok / wall)
+
+
+def window_c(tag: str, smi: str, model, art) -> dict:
+    """(c) ``SpeculativeEngine``: the artifact bound packed drafts for its
+    pruned weights bound dense, 4 x 4 064-token prompts, rounds crossing
+    the wrap; counts zeroed around the main path, rounds graph against
+    eager."""
+    cfg = model.config
+    L = cfg.num_layers
+    B = WIN["batch"]
+    reqs = window_requests(cfg.vocab_size, (WIN["decode_prompt"],) * B,
+                           (WIN["new"],) * B, 13)
+    eng = SpeculativeEngine(model, art.params, art, batch_size=B,
+                            max_seq_len=WIN["max_seq"],
+                            draft_k=WIN["draft_k"], device=DEV)
+    eng.generate(reqs)                                 # captures
+    torch.cuda.synchronize()
+    reset_launches()                                   # the main path
+    t0 = time.perf_counter()
+    out = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(("pattern_gemm", "flash_attention"))
+    routes = {"pattern_gemm": dict(pg_mod.ROUTE_LAUNCHES),
+              "flash_attention": dict(fa_mod.ROUTE_LAUNCHES)}
+    st = eng.stats
+    n_tok = sum(len(r.tokens) for r in out)
+    reading = {"wall_ms": wall * 1e3, "tokens": n_tok,
+               "tok_s": n_tok / wall,
+               **{k: st[k] for k in ("rounds", "drafted", "accepted",
+                                     "acceptance_rate", "demoted")}}
+    print(f"[{tag}] (c) SpeculativeEngine(draft_k={WIN['draft_k']}, "
+          f"max_seq_len={WIN['max_seq']}), 4 x {WIN['decode_prompt']} "
+          f"prompt tokens, {WIN['new']} new: " + json.dumps(reading)
+          + f"; launches {json.dumps(launches)} by route "
+          + json.dumps(routes) + f" ({smi})", flush=True)
+    window_flash_gate(tag, "(c) target and drafter prefills", L, 2)
+    if st["demoted"] or not (routes["pattern_gemm"]["skinny"]
+                             and routes["pattern_gemm"]["wgmma"]):
+        fail(f"[{tag}] (c) the packed drafter must draft (skinny) and "
+             f"prefill (wgmma), undemoted: {routes['pattern_gemm']}, "
+             f"{st['demotions']}")
+    for r in out:
+        if len(r.tokens) != WIN["new"]:
+            fail(f"[{tag}] (c) request {r.uid}: {len(r.tokens)} tokens")
+    round_against_eager(tag, eng, reqs, rounds=20)
+    return dict(launches, **reading)
+
+
+def window_fp32(tag: str, cfg) -> None:
+    """At ``fp32_layers`` layers of full width in fp32, on the same ring
+    shapes: (a) packed greedy tokens equal the dense-pruned ones; (c)
+    speculative tokens (the packed artifact drafting) equal plain
+    decoding of the dense-pruned weights."""
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                num_layers=WIN["fp32_layers"])
+    model = LM(cfg32, device=DEV)
+    art = greedy_prune(model.init(torch.Generator(device=DEV).manual_seed(
+        0)), TILE_PCFG, device=DEV).pack(device=DEV)
+    reqs = window_serve_requests(cfg.vocab_size)
+    engine = lambda p, packed: launch_serve.make_engine(  # noqa: E731
+        model, p, batch=WIN["batch"], max_seq=WIN["max_seq"], packed=packed,
+        device=DEV)
+    dense = [r.tokens for r in engine(art, False).generate(reqs)]
+    packed = [r.tokens for r in engine(art, True).generate(reqs)]
+    plain = dense[WIN["batch"]:]                  # the 4 x 4 064 prompts
+    spec = SpeculativeEngine(model, art.params, art,
+                             batch_size=WIN["batch"],
+                             max_seq_len=WIN["max_seq"],
+                             draft_k=WIN["draft_k"], device=DEV)
+    got = [r.tokens for r in spec.generate(reqs[WIN["batch"]:])]
+    print(f"[{tag}] fp32, {WIN['fp32_layers']} of {cfg.num_layers} layers "
+          f"at full width, the (a) requests: packed greedy tokens identical "
+          f"to dense-pruned {packed == dense} ({sum(len(t) for t in packed)}"
+          f" tokens); (c) on the 4 x {WIN['decode_prompt']} prompts, "
+          f"speculative tokens identical to plain dense-pruned decoding "
+          f"{got == plain} (acceptance "
+          f"{spec.stats['acceptance_rate']:.4f})", flush=True)
+    if packed != dense:
+        fail(f"[{tag}] fp32 packed tokens differ from dense-pruned on the "
+             f"ring: " + json.dumps(agreement(packed, dense)))
+    if got != plain:
+        fail(f"[{tag}] fp32 speculative tokens differ from plain decoding "
+             f"on the ring: " + json.dumps(agreement(got, plain)))
+
+
+def phase_window(smi: str) -> dict:
+    """h2o-danube-1.8b at full width (24 layers, d_model 2560, 32 / 8 heads
+    of 80, window 4096), bf16, seeded random weights, greedy tile-pattern
+    4 of 8 at block_p 128 on the card, packed, saved and loaded; then (a)
+    ``ServeEngine``, (b) ``ContinuousEngine``, (c) ``SpeculativeEngine``
+    on a ring cache of 4 096 slots, and the fp32 bar at 4 layers."""
+    tag = "window"
+    cfg = get_config("h2o-danube-1.8b")
+    torch.cuda.reset_peak_memory_stats()
+    model = LM(cfg, device=DEV)
+    t0 = time.perf_counter()
+    art = greedy_prune(model.init(torch.Generator(device=DEV).manual_seed(
+        0)), TILE_PCFG, device=DEV).pack(device=DEV)
+    torch.cuda.synchronize()
+    print(f"[{tag}] h2o-danube-1.8b L={cfg.num_layers} d_model={cfg.d_model}"
+          f" heads {cfg.num_heads}/{cfg.num_kv_heads} of {cfg.head_dim} "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} window "
+          f"{cfg.sliding_window} {cfg.param_dtype}; init+prune+pack "
+          f"{time.perf_counter() - t0:.2f} s; weight bytes dense "
+          f"{art.dense_bytes()} packed {art.packed_bytes()} ({smi})",
+          flush=True)
+    check_exact(tag, art)
+    loaded = save_and_load(tag, art, cfg)
+    del art
+    torch.cuda.empty_cache()
+    a = window_a(tag, smi, model, loaded)
+    torch.cuda.empty_cache()
+    b = window_b(tag, smi, model, loaded)
+    torch.cuda.empty_cache()
+    c = window_c(tag, smi, model, loaded)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[{tag}] readings: prefill ms per chunk (graph) "
+          + json.dumps({ch["S"]: ch["prefill_graph_ms"]
+                        for ch in a["chunks"]})
+          + ", decode ms per step (graph) "
+          + json.dumps({ch["S"]: ch["decode_graph_ms_per_step"]
+                        for ch in a["chunks"]})
+          + f", tokens/s (a) {a['tok_s']:.1f} (b) {b['tok_s']:.1f} (c) "
+          f"{c['tok_s']:.1f}, acceptance (c) {c['acceptance_rate']:.4f}, "
+          f"peak device memory {peak} bytes ({smi})", flush=True)
+    del loaded, model
+    torch.cuda.empty_cache()
+    window_fp32(tag, cfg)
+    return {k: a[k] + b[k] + c[k] for k in ("pattern_gemm",
+                                             "flash_attention")}
 
 
 # ------------------------------------------------ the paper's ADMM pruning
@@ -2658,6 +3057,7 @@ def main() -> int:
         cont = timed("continuous", phase_continuous, smi, served)
         spec = timed("speculative", phase_speculative, smi, served)
         del served
+        win = timed("window", phase_window, smi)
         admm = timed("admm", phase_admm, smi)
         admm_conv = timed("admm_cnn", phase_admm_cnn, smi)
         pipe = timed("pipeline", phase_pipeline, smi)
@@ -2668,8 +3068,10 @@ def main() -> int:
                         "through ContinuousEngine serving 12 "
                         f"({cont['pattern_gemm']}) + the same artifact "
                         "drafting for its pruned weights, speculative, "
-                        f"serving 4 ({spec['pattern_gemm']}) + the "
-                        "ADMM-pruned "
+                        f"serving 4 ({spec['pattern_gemm']}) + "
+                        "h2o-danube-1.8b on a ring cache, chunked, "
+                        "continuous and speculative serving 8 + 8 + 4 "
+                        f"({win['pattern_gemm']}) + the ADMM-pruned "
                         f"one serving 4 ({admm['pattern_gemm']}) + the "
                         "pipeline's saved 4-layer one serving 4 "
                         f"({pipe['pattern_gemm']})",
@@ -2678,8 +3080,11 @@ def main() -> int:
                            "artifact through ContinuousEngine serving 12 "
                            f"({cont['flash_attention']}) + speculative "
                            "serving of 4 requests, two arms "
-                           f"({spec['flash_attention']}) + the "
-                           "ADMM-pruned one serving 4 "
+                           f"({spec['flash_attention']}) + "
+                           "h2o-danube-1.8b (hd 80, window 4096) on a ring "
+                           "cache, chunked, continuous and speculative "
+                           f"serving 8 + 8 + 4 ({win['flash_attention']}) "
+                           "+ the ADMM-pruned one serving 4 "
                            f"({admm['flash_attention']}) + the pipeline's "
                            f"saved 4-layer one serving 4 "
                            f"({pipe['flash_attention']})",
@@ -2691,8 +3096,8 @@ def main() -> int:
                         f"({pipe['pattern_conv']})",
         "column_gemm": "column-pruned qwen2-1.5b serving 8 requests",
     }
-    launches = {k: launches[k] + cont[k] + spec[k] + admm[k] + pipe[k]
-                for k in launches}
+    launches = {k: launches[k] + cont[k] + spec[k] + win[k] + admm[k]
+                + pipe[k] for k in launches}
     launches.update(pattern_conv=sum(conv) + admm_conv
                     + pipe["pattern_conv"],
                     column_gemm=column["column_gemm"])

@@ -1,4 +1,5 @@
-"""Architecture registry of the port (the archs ported so far)."""
+"""Architecture registry of the port (the dense-family archs of the
+reference)."""
 
 from __future__ import annotations
 
@@ -6,9 +7,14 @@ import dataclasses
 from typing import Dict
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.granite_3_2b import CONFIG as _granite_3_2b
+from repro_torch.configs.h2o_danube_1_8b import CONFIG as _h2o_danube_1_8b
+from repro_torch.configs.phi4_mini_3_8b import CONFIG as _phi4_mini_3_8b
 from repro_torch.configs.qwen2_1_5b import CONFIG as _qwen2_1_5b
 
-ARCHS: Dict[str, ModelConfig] = {c.name: c for c in (_qwen2_1_5b,)}
+ARCHS: Dict[str, ModelConfig] = {
+    c.name: c for c in (_qwen2_1_5b, _granite_3_2b, _h2o_danube_1_8b,
+                        _phi4_mini_3_8b)}
 
 
 def get_config(name: str) -> ModelConfig:

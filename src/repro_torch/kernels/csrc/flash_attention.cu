@@ -19,7 +19,7 @@
 // loads must overlap them. Two routes, chosen by the wrapper
 // (flash_attention.py:flash_variant) and named by the caller:
 //
-//  - wgmma (bf16, hd 64 or 128): a block is one producer warp plus one or
+//  - wgmma (bf16, hd 64, 80 or 128): a block is one producer warp plus one or
 //    two consumer warpgroups, each owning 64 query rows of one (b, h). The
 //    producer loads the q tile once by TMA and streams the band's 64-key K
 //    and V tiles through a two-stage mbarrier ring; the maps run over
@@ -36,8 +36,16 @@
 //    see is skipped. The grid runs the heaviest causal q tiles first. The
 //    epilogue stages O over the q tile and writes it with TMA stores,
 //    which clip rows past S.
-//  - simt (fp32, any route the wgmma kernel does not take; hd 32, 64 or
-//    128): one block per 64-row q tile keeps each 64 x 64 score tile in
+//    hd 80 (h2o-danube-1.8b) runs the HD = 128 instance on maps whose
+//    innermost dimension is the real 80 columns (a 160-byte row stride):
+//    TMA zero-fills columns 80..127 of the second 64-column box of every
+//    q, K and V load, so they add nothing to Q K^T or P V, and the output
+//    store clips at column 80. A box partly out of bounds still delivers
+//    its full byte count to the mbarrier, as at the ragged S edge. The
+//    zero columns waste 3/8 of the MMA work; a 64 + 16 box layout would
+//    not.
+//  - simt (fp32, any route the wgmma kernel does not take; hd 32, 64, 80
+//    or 128): one block per 64-row q tile keeps each 64 x 64 score tile in
 //    shared memory and does both products with fp32 FMAs: each thread owns
 //    one query row's quarter (16 scores, hd / 4 output columns), the 4
 //    threads of a row meeting through warp shuffles. fp32 stays fp32: TF32
@@ -182,6 +190,7 @@ int simt_hd(const void* q, const void* k, const void* v, void* o, int B,
   switch (hd) {
     case 32: return launch_simt<T, 32>(q, k, v, o, B, S, H, KV, scale, causal, window, s);
     case 64: return launch_simt<T, 64>(q, k, v, o, B, S, H, KV, scale, causal, window, s);
+    case 80: return launch_simt<T, 80>(q, k, v, o, B, S, H, KV, scale, causal, window, s);
     case 128: return launch_simt<T, 128>(q, k, v, o, B, S, H, KV, scale, causal, window, s);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -409,7 +418,8 @@ flash_wgmma(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// maps over (hd, heads, S, B), innermost first, in 64-column boxes
+// maps over (hd, heads, S, B), innermost first, in 64-column boxes; an hd
+// below the instance's HD leaves the boxes' last columns out of bounds
 inline bool head_map(CUtensorMap* map, const void* p, int hd, int heads,
                      int S, int B, int rows) {
   const cuuint64_t d[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)S,
@@ -421,16 +431,17 @@ inline bool head_map(CUtensorMap* map, const void* p, int hd, int heads,
                   CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
+// hd: the operands' real head dim, HD or (80 under HD = 128) less
 template <int HD, int WG>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int H, int KV, float scale, int causal, int window,
+           int S, int H, int KV, int hd, float scale, int causal, int window,
            cudaStream_t s) {
   using C = Cfg<HD, WG>;
   CUtensorMap tq, tk, tv, to;
-  if (!head_map(&tq, q, HD, H, S, B, C::BQ) ||
-      !head_map(&tk, k, HD, KV, S, B, BKV) ||
-      !head_map(&tv, v, HD, KV, S, B, BKV) ||
-      !head_map(&to, o, HD, H, S, B, 64))
+  if (!head_map(&tq, q, hd, H, S, B, C::BQ) ||
+      !head_map(&tk, k, hd, KV, S, B, BKV) ||
+      !head_map(&tv, v, hd, KV, S, B, BKV) ||
+      !head_map(&to, o, hd, H, S, B, 64))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.B = B; a.S = S; a.H = H; a.KV = KV;
@@ -452,9 +463,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // window <= 0 means no sliding window. `variant` is the route the caller
-// chose (V_*; flash_attention.py:flash_variant): wgmma (bf16, hd 64 or
-// 128, 16-byte aligned operands) with `block_q` of 64 or 128 query rows,
-// or simt (bf16 or fp32, hd 32, 64 or 128). Returns cudaGetLastError(), or
+// chose (V_*; flash_attention.py:flash_variant): wgmma (bf16, hd 64, 80
+// or 128, 16-byte aligned operands) with `block_q` of 64 or 128 query
+// rows, or simt (bf16 or fp32, hd 32, 64, 80 or 128). Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for arguments the variant does not take.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int S,
@@ -466,16 +477,17 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (variant == V_WGMMA) {
-    if (!is_bf16 || (hd != 64 && hd != 128) ||
+    if (!is_bf16 || (hd != 64 && hd != 80 && hd != 128) ||
         (block_q != 64 && block_q != 128))
       return (int)cudaErrorInvalidValue;
     if (hd == 64)
       return block_q == 64
-                 ? fa90::launch<64, 1>(q, k, v, out, B, S, H, KV, scale, causal, window, s)
-                 : fa90::launch<64, 2>(q, k, v, out, B, S, H, KV, scale, causal, window, s);
+                 ? fa90::launch<64, 1>(q, k, v, out, B, S, H, KV, hd, scale, causal, window, s)
+                 : fa90::launch<64, 2>(q, k, v, out, B, S, H, KV, hd, scale, causal, window, s);
+    // hd 80 on the HD = 128 instance: see the wgmma note at the top
     return block_q == 64
-               ? fa90::launch<128, 1>(q, k, v, out, B, S, H, KV, scale, causal, window, s)
-               : fa90::launch<128, 2>(q, k, v, out, B, S, H, KV, scale, causal, window, s);
+               ? fa90::launch<128, 1>(q, k, v, out, B, S, H, KV, hd, scale, causal, window, s)
+               : fa90::launch<128, 2>(q, k, v, out, B, S, H, KV, hd, scale, causal, window, s);
   }
   if (variant != V_SIMT) return (int)cudaErrorInvalidValue;
   if (is_bf16)

@@ -22,8 +22,10 @@ from repro_torch.kernels.sm90 import VARIANTS
 
 LAUNCHES = 0
 
-HEAD_DIMS = (32, 64, 128)
-WGMMA_HEAD_DIMS = (64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
+# hd 80 runs the HD = 128 wgmma instance on 80-column maps (TMA zero-fills
+# the rest)
+WGMMA_HEAD_DIMS = (64, 80, 128)
 FLASH_ROUTES = ("wgmma", "simt")
 # launches per route (plain ints)
 ROUTE_LAUNCHES = dict.fromkeys(FLASH_ROUTES, 0)
@@ -33,8 +35,8 @@ _DTYPES = (torch.float32, torch.bfloat16)
 def flash_variant(S: int, hd: int, dtype: torch.dtype,
                   window: Optional[int] = None, causal: bool = True,
                   aligned: bool = True) -> str:
-    """The device kernel a CUDA call launches: ``wgmma`` (bf16, hd 64 or
-    128, 16-byte ``aligned`` base pointers) or ``simt`` (fp32, whose
+    """The device kernel a CUDA call launches: ``wgmma`` (bf16, hd 64, 80
+    or 128, 16-byte ``aligned`` base pointers) or ``simt`` (fp32, whose
     tensor-core form would be TF32 and miss the 2e-5 tolerance, and any
     other head dim). The wgmma kernel takes every S (TMA zero-fills the
     ragged edge), causal or not, with or without a sliding ``window``, so

@@ -7,6 +7,9 @@
         --reduced --artifact /tmp/qwen2_artifact --packed [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
         --reduced --speculative /tmp/qwen2_artifact --draft-k 4
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch h2o-danube-1.8b --reduced --artifact /tmp/danube_artifact \
+        --packed --prompt-len 40     # a ring of 32: the prompt wraps it
 
 Loads a raw checkpoint (``--ckpt``: params in the reference's stacked
 layout, as ``repro.launch.prune`` writes them) or a saved

@@ -7,8 +7,9 @@ forward included, runs ``blockwise_attention``, the plain q-chunked
 online-softmax version (differentiable by autograd). Decode attends one
 new position against the KV cache, and a speculative verify chunk K
 positions (``chunk_attention``), with plain tensor ops (XLA ops in the
-reference, not Pallas kernels). Ring caches for sliding-window models
-are not ported yet.
+reference, not Pallas kernels). A sliding-window model keeps a RING
+cache of ``window`` slots with explicit per-slot positions (position p
+in slot p % C), so its cache is O(window) whatever the sequence length.
 """
 
 from __future__ import annotations
@@ -34,11 +35,12 @@ def flash_prefill_supported(seq_len: int, num_heads: int, num_kv_heads: int,
                             head_dim: int) -> bool:
     """Can the ``flash_attention`` kernel serve this prefill shape?
 
-    The kernel's own limits: a head dim in ``HEAD_DIMS`` and an exact GQA
-    ratio. It takes every S (TMA zero-fills the ragged edge), so unlike
-    the reference's Pallas kernel it needs no S divisible by its block. A
-    shape that fails takes ``blockwise_attention``, so serving never
-    crashes on a shape the kernel does not take.
+    The kernel's own limits: a head dim in ``HEAD_DIMS`` (32, 64, 80 or
+    128) and an exact GQA ratio. It takes every S (TMA zero-fills the
+    ragged edge), so unlike the reference's Pallas kernel it needs no S
+    divisible by its block. A shape that fails takes
+    ``blockwise_attention``, so serving never crashes on a shape the
+    kernel does not take.
     """
     if seq_len <= 0 or num_kv_heads <= 0:
         return False
@@ -46,9 +48,10 @@ def flash_prefill_supported(seq_len: int, num_heads: int, num_kv_heads: int,
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      causal: bool = True,
+                      causal: bool = True, window: Optional[int] = None,
                       use_flash: bool = False) -> torch.Tensor:
-    """Full-sequence attention of q (B, S, H, hd), k/v (B, S, KV, hd).
+    """Full-sequence attention of q (B, S, H, hd), k/v (B, S, KV, hd),
+    a query seeing only keys less than ``window`` positions back.
 
     ``use_flash`` is the serving request: on CUDA tensors of a supported
     shape it launches the flash kernel; an unsupported shape takes
@@ -59,9 +62,11 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, S, H, hd = q.shape
     if use_flash and q.device.type == "cuda":
         if flash_prefill_supported(S, H, k.shape[2], hd):
-            return flash.flash_attention(q, k, v, causal=causal)
+            return flash.flash_attention(q, k, v, causal=causal,
+                                         window=window)
         PREFILL_FALLBACKS += 1
-    return blockwise_attention(q, k, v, causal=causal, chunk=min(512, S))
+    return blockwise_attention(q, k, v, causal=causal, window=window,
+                               chunk=min(512, S))
 
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -131,24 +136,23 @@ def slot_prompt_rows(capacity: int, prompt_len: int, ring: bool,
                      device=None):
     """Cache geometry for writing a fresh ``prompt_len``-token prompt into
     one slot -> ``(rows, keep, slot_pos_row)``: the cache slot indices
-    ``(keep,)`` the prompt's positions land in, and the full
-    ``(capacity,)`` int32 slot_pos row for the slot: fresh positions where
-    written, ``-1`` (empty, masked by ``decode_attention``) elsewhere.
-    Resetting a slot's row to this is what hides a retired occupant's
-    stale KV when a batch slot is reused mid-decode: the bytes stay, the
-    mask hides them. Only full caches are ported (the ring branch comes
-    with sliding-window models).
+    ``(keep,)`` the prompt's LAST ``keep`` positions land in (a ring cache
+    keeps only the trailing ``min(C, S)``, position p in slot p % C), and
+    the full ``(capacity,)`` int32 slot_pos row for the slot: fresh
+    positions where written, ``-1`` (empty, masked by
+    ``decode_attention``) elsewhere. Resetting a slot's row to this is
+    what hides a retired occupant's stale KV when a batch slot is reused
+    mid-decode: the bytes stay, the mask hides them.
     """
-    if ring:
-        raise NotImplementedError(
-            "ring caches (sliding-window attention) are not ported yet")
     S, C = prompt_len, capacity
-    if S > C:
+    if not ring and S > C:
         raise ValueError(f"prompt_len={S} exceeds cache capacity={C}")
-    rows = torch.arange(S, dtype=torch.int32, device=device)
+    keep = min(C, S)
+    pos = torch.arange(S - keep, S, dtype=torch.int32, device=device)
+    rows = pos % C if ring else pos
     slot_pos_row = torch.full((C,), -1, dtype=torch.int32, device=device)
-    slot_pos_row[:S] = rows
-    return rows, S, slot_pos_row
+    slot_pos_row[rows.long()] = pos
+    return rows, keep, slot_pos_row
 
 
 def chunk_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -222,29 +226,37 @@ def cache_insert(cache: torch.Tensor, new: torch.Tensor, rows: torch.Tensor,
                                     val, old)
 
 
-def chunk_rows(pos: torch.Tensor, K: int) -> torch.Tensor:
-    """Absolute positions ``pos[b] .. pos[b] + K - 1`` of each row's next
-    K positions, (B, K): a full cache's slots, unclamped (the rows past
-    its capacity are the overflow ``chunk_slots`` drops)."""
-    return pos[:, None] + torch.arange(K, dtype=pos.dtype, device=pos.device)
+def chunk_rows(pos: torch.Tensor, K: int, capacity: int, ring: bool):
+    """Each row's next K positions -> ``(idx, rows)``, each (B, K): the
+    absolute positions ``pos[b] .. pos[b] + K - 1`` and the cache slots
+    they land in, ``idx % C`` on a ring, else ``idx`` unclamped (the rows
+    past a full cache's capacity are the overflow ``chunk_slots``
+    drops)."""
+    idx = pos[:, None] + torch.arange(K, dtype=pos.dtype, device=pos.device)
+    return idx, (idx % capacity if ring else idx)
 
 
-def chunk_slots(pos: torch.Tensor, K: int, capacity: int):
-    """Full-cache slots of each row's next K positions -> ``(idx, slot,
-    src, write)``, each (B, K): positions ``idx``, cache slots ``slot``
-    (long), and for each write the chunk column ``src`` whose value it
-    carries and whether it writes at all.
+def chunk_slots(pos: torch.Tensor, K: int, capacity: int, ring: bool):
+    """Cache slots of each row's next K positions -> ``(idx, slot, src,
+    write)``, each (B, K): positions ``idx``, cache slots ``slot`` (long),
+    and for each write the chunk column ``src`` whose value it carries
+    and whether it writes at all.
 
-    A position past the capacity is dropped, as the reference's scatter
-    drops it, with no host sync: its slot is clamped to C - 1, and it
-    writes what slot C - 1 ends with, the chunk's own position C - 1
-    (``src``) when the chunk reaches it, else nothing (``write`` False,
-    the old value written back). So every write to one slot carries the
-    same value, and the in-place scatter is deterministic.
+    On a ring (K <= C, so a row's K slots are distinct) column j writes
+    slot ``idx % C`` with its own value. In a full cache a position past
+    the capacity is dropped, as the reference's scatter drops it, with no
+    host sync: its slot is clamped to C - 1, and it writes what slot
+    C - 1 ends with, the chunk's own position C - 1 (``src``) when the
+    chunk reaches it, else nothing (``write`` False, the old value
+    written back). So every write to one slot carries the same value, and
+    the in-place scatter is deterministic.
     """
-    idx = chunk_rows(pos, K)
-    last = (capacity - 1 - pos).clamp(0, K - 1).long()
+    idx, rows = chunk_rows(pos, K, capacity, ring)
     cols = torch.arange(K, device=pos.device)
+    if ring:
+        return (idx, rows.long(), cols[None, :].expand(idx.shape),
+                torch.ones_like(idx, dtype=torch.bool))
+    last = (capacity - 1 - pos).clamp(0, K - 1).long()
     inside = idx < capacity
     src = torch.where(inside, cols[None, :], last[:, None])
     write = inside | (pos < capacity)[:, None]

@@ -11,8 +11,9 @@ kernel has no backward, as the reference's has none), runs
 carry autograd; ``init``, ``prefill`` and decode run under
 ``torch.no_grad``. ``verify_chunk``, ``cache_snapshot`` and
 ``cache_rollback`` are the speculative engine's chunked verify and rewind.
-Only the dense family without a sliding window is ported; other families
-raise.
+A ``sliding_window`` model attends to the last ``window`` positions in
+every forward and serves from a ring cache (``_cache_ring``). Only the
+dense family is ported; other families raise.
 """
 
 from __future__ import annotations
@@ -58,9 +59,6 @@ class LM:
         if config.family != "dense":
             raise NotImplementedError(
                 f"family {config.family!r} is not ported yet (dense only)")
-        if config.sliding_window is not None:
-            raise NotImplementedError(
-                "sliding-window attention (ring caches) is not ported yet")
         if config.input_kind != "tokens":
             raise NotImplementedError("embedding inputs are not ported yet")
         self.config = config
@@ -165,6 +163,7 @@ class LM:
         if kv is not None:
             kv.append((k, v))
         out = prefill_attention(q, k, v, causal=cfg.causal,
+                                window=cfg.sliding_window,
                                 use_flash=use_flash)
         x = x + dense_apply(out.reshape(B, S, cfg.attn_dim), bp["attn"]["wo"])
         return self._mlp(bp, x)
@@ -231,6 +230,15 @@ class LM:
                 "pos": torch.zeros((batch,), dtype=torch.int32,
                                    device=self.device)}
 
+    def _cache_ring(self, cache: Dict[str, Any]) -> bool:
+        """The decode-side ring rule: a cache rings iff a sliding window
+        bounds its capacity (C <= window). ``prefill`` follows the
+        reference's other rule, a ring iff ``window < seq_len``; so a
+        windowed model served at ``seq_len <= window`` prefills a full
+        cache and decodes it as a ring, a position past C wrapping."""
+        w = self.config.sliding_window
+        return w is not None and cache["slot_pos"].shape[1] <= w
+
     @torch.no_grad()
     def prefill(self, params, tokens: torch.Tensor, seq_len: int,
                 cache: Optional[Dict[str, Any]] = None):
@@ -239,23 +247,23 @@ class LM:
         With ``cache`` (one of ``init_cache(B, seq_len)``) the prompt is
         written into it IN PLACE (slots past the prompt marked empty)
         instead of a new one: a captured decode graph keeps reading the
-        same tensors.
+        same tensors. A ring cache keeps the prompt's last C positions,
+        position p in slot p % C; a full one refuses a prompt past C.
         """
         B, S = tokens.shape
         if cache is None:
             cache = self.init_cache(B, seq_len)
-        else:
-            cache["slot_pos"].fill_(-1)
-        if S > cache["slot_pos"].shape[1]:
-            raise ValueError(f"prompt_len={S} exceeds cache capacity="
-                             f"{cache['slot_pos'].shape[1]}")
+        C = cache["slot_pos"].shape[1]
+        ring = cache_capacity(seq_len, self.config.sliding_window).ring
+        rows, keep, sp_row = slot_prompt_rows(C, S, ring,
+                                              device=tokens.device)
         h, kv = self.hidden_states(params, tokens, collect_kv=True,
                                    use_flash=True)
         for layer, (k, v) in enumerate(kv):
-            cache["k"][layer][:, :S] = k
-            cache["v"][layer][:, :S] = v
-        cache["slot_pos"][:, :S] = torch.arange(S, dtype=torch.int32,
-                                                device=tokens.device)
+            for name, new in (("k", k), ("v", v)):
+                cache[name][layer].index_copy_(1, rows.long(),
+                                               new[:, S - keep:])
+        cache["slot_pos"].copy_(sp_row.expand(B, C))
         cache["pos"].fill_(S)
         return cache, self.lm_logits(params, h[:, -1:, :])
 
@@ -270,7 +278,8 @@ class LM:
         so one graph per S serves every slot). The prompt runs as a solo
         forward (positions 0 .. S - 1, no batch-mates, no padding;
         through ``flash_attention`` on the card), and only the slot's rows
-        change: its k/v rows 0 .. S - 1, its ``slot_pos`` row (fresh
+        change: its k/v rows of the prompt's positions (on a ring the last
+        C, position p in slot p % C), its ``slot_pos`` row (fresh
         positions where written, -1 elsewhere, so a retired occupant's
         stale KV is masked out) and its ``pos`` entry (set to S). Every
         other row stays untouched, and everything is written IN PLACE
@@ -278,16 +287,18 @@ class LM:
         """
         S = prompt.shape[1]
         dev = cache["pos"].device
-        _, _, sp_row = slot_prompt_rows(cache["slot_pos"].shape[1], S,
-                                        ring=False, device=dev)
+        rows, keep, sp_row = slot_prompt_rows(
+            cache["slot_pos"].shape[1], S, self._cache_ring(cache),
+            device=dev)
         idx = (slot.view(1) if isinstance(slot, torch.Tensor)
                else torch.tensor([slot], dtype=torch.int64, device=dev))
+        at = (idx.expand(keep), rows.long())
         h, kv = self.hidden_states(params, prompt, collect_kv=True,
                                    use_flash=True)
         for layer, (k, v) in enumerate(kv):
             for name, new in (("k", k), ("v", v)):
                 row = cache[name][layer]
-                row[:, :S].index_copy_(0, idx, new.to(row.dtype))
+                row.index_put_(at, new[0, S - keep:].to(row.dtype))
         cache["slot_pos"].index_copy_(0, idx, sp_row[None])
         cache["pos"].index_fill_(0, idx, S)
         return cache, self.lm_logits(params, h[:, -1:, :])
@@ -305,7 +316,7 @@ class LM:
         sin, cos = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
         # the new position's slot is the same in every layer's cache
         rows, slot, keep = insert_slots(pos, cache["slot_pos"].shape[1],
-                                        ring=False)
+                                        ring=self._cache_ring(cache))
         cache_insert(cache["slot_pos"], pos[:, None], rows, slot, keep)
         for layer, bp in enumerate(params["blocks"]):
             h = rmsnorm(bp["norm1"], x, cfg.norm_eps)
@@ -375,9 +386,13 @@ class LM:
 
         ``tokens`` (B, K): the last committed token, then K - 1 drafts.
         Row b runs at its own positions ``pos[b] .. pos[b] + K - 1`` (per
-        row rope and causal horizon). The chunk's k/v are inserted into
-        the cache FIRST, IN PLACE, then ``chunk_attention`` masks by
+        row rope and causal horizon). In a full cache the chunk's k/v are
+        inserted FIRST, IN PLACE, then ``chunk_attention`` masks by
         ``slot_pos <= q_pos``, so query i sees keys 0 .. i of the chunk.
+        A ring cache attends in two parts: the chunk's k/v beside the
+        UNMODIFIED ring (an insert at pos + j evicts pos + j - C, which
+        query pos + i < pos + j may still see), then writes them; a chunk
+        longer than the ring (K > C) raises ``ValueError``.
         ``pos`` advances by K: a caller that may reject a suffix takes a
         ``cache_snapshot`` before and ``cache_rollback`` after. The GEMMs
         run at M = B * K (packed weights through their kernels, dense ones
@@ -388,18 +403,32 @@ class LM:
         x = self.embed_inputs(params, tokens)
         B, K = tokens.shape
         pos = cache["pos"]
-        idx, slot, src, write = chunk_slots(pos, K,
-                                            cache["slot_pos"].shape[1])
+        C = cache["slot_pos"].shape[1]
+        ring = self._cache_ring(cache)
+        if ring and K > C:
+            raise ValueError(f"verify chunk of {K} tokens exceeds the ring "
+                             f"cache's window capacity {C}: lower draft_k")
+        idx, slot, src, write = chunk_slots(pos, K, C, ring)
         sin, cos = rope_tables(idx, cfg.head_dim, cfg.rope_theta)
+        # every layer masks against one view: the ring's pre-chunk slots
+        # beside the chunk's positions, or the full cache after the insert
+        sp_ring = (torch.cat([cache["slot_pos"], idx], dim=1) if ring
+                   else None)
         cache_insert_chunk(cache["slot_pos"], idx, slot, src, write)
         for layer, bp in enumerate(params["blocks"]):
             h = rmsnorm(bp["norm1"], x, cfg.norm_eps)
             q, k, v = self._qkv(bp, h, sin, cos)
             kc, vc = cache["k"][layer], cache["v"][layer]
+            if ring:
+                attn = chunk_attention(
+                    q, torch.cat([kc, k.to(kc.dtype)], dim=1),
+                    torch.cat([vc, v.to(vc.dtype)], dim=1), sp_ring, idx,
+                    window=cfg.sliding_window)
             cache_insert_chunk(kc, k, slot, src, write)
             cache_insert_chunk(vc, v, slot, src, write)
-            attn = chunk_attention(q, kc, vc, cache["slot_pos"], idx,
-                                   window=cfg.sliding_window)
+            if not ring:
+                attn = chunk_attention(q, kc, vc, cache["slot_pos"], idx,
+                                       window=cfg.sliding_window)
             x = x + dense_apply(attn.reshape(B, K, cfg.attn_dim),
                                 bp["attn"]["wo"])
             x = self._mlp(bp, x)
@@ -412,10 +441,13 @@ class LM:
         """The cache rows the next K inserted positions overwrite, so
         ``cache_rollback`` can rewind exactly: per layer k/v (B, K, KV,
         hd), their ``slot_pos`` (B, K), ``pos`` and the chunk's slots
-        (``chunk_slots``). No host sync; every shape is fixed by (B, K)."""
+        (``chunk_slots``). A ring needs them: a rejected insert that
+        wrapped overwrote live window rows. No host sync; every shape is
+        fixed by (B, K)."""
         self._require_kv_family("cache_snapshot")
         pos = cache["pos"]
-        _, slot, src, write = chunk_slots(pos, K, cache["slot_pos"].shape[1])
+        _, slot, src, write = chunk_slots(pos, K, cache["slot_pos"].shape[1],
+                                          self._cache_ring(cache))
         b = torch.arange(pos.shape[0], device=pos.device)[:, None]
         return {"k": [t[b, slot] for t in cache["k"]],
                 "v": [t[b, slot] for t in cache["v"]],

@@ -66,6 +66,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device, same_device
+from repro_torch.models.attention import cache_capacity
 from repro_torch.models.transformer import LM, finite_rows
 from repro_torch.runtime.telemetry import MetricsRegistry, Telemetry
 from repro_torch.serve.graphs import DecodeGraph, GraphPool, PrefillGraph
@@ -660,11 +661,15 @@ class ContinuousEngine(_Engine):
                              t_first=t_first, arrival=arr[order])
             return order, Result(uid=uid, tokens=tokens, status=status)
 
-        capacity = self.cache["slot_pos"].shape[1]
+        # a ring cache (window < max_seq_len) serves any length: it keeps
+        # the last ``window`` positions
+        spec = cache_capacity(self.max_seq_len,
+                              self.model.config.sliding_window)
+        capacity = spec.capacity
         oversized = set()
         for i, r in enumerate(requests):
             S = len(r.prompt)
-            if S + r.max_new_tokens - 1 > capacity:
+            if not spec.ring and S + r.max_new_tokens - 1 > capacity:
                 if self.strict:
                     raise ValueError(
                         f"request uid={r.uid}: prompt {S} + max_new_tokens "

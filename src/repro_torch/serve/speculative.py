@@ -55,6 +55,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.checkpoint import ArtifactError
+from repro_torch.models.attention import cache_capacity
 from repro_torch.models.transformer import LM
 from repro_torch.runtime.telemetry import MetricsRegistry, Telemetry
 from repro_torch.serve.engine import (
@@ -164,6 +165,18 @@ class SpeculativeEngine:
             m._require_kv_family(f"speculative serving ({who})")
         if self.draft_model.config.vocab_size != model.config.vocab_size:
             raise ValueError("drafter and target must share a vocabulary")
+        # each cache as its prefill builds it; a ring must hold a round's
+        # K-token verify chunk
+        self._specs = [(cache_capacity(max_seq_len, m.config.sliding_window),
+                        who)
+                       for m, who in ((model, "target"),
+                                      (self.draft_model, "draft"))]
+        for spec, who in self._specs:
+            if spec.ring and draft_k > spec.capacity:
+                raise ValueError(
+                    f"draft_k={draft_k} needs a {draft_k}-token verify "
+                    f"chunk, larger than the {who} ring cache's window "
+                    f"{spec.capacity}")
         self.target = target_engine or ServeEngine(
             model, params, batch_size=batch_size, max_seq_len=max_seq_len,
             packed=packed, seed=seed, device=device)
@@ -392,21 +405,22 @@ class SpeculativeEngine:
         return results
 
     def _validate(self, requests: List[Request]) -> None:
-        """Per-chunk capacity: prefill left-pads the chunk to its longest
-        prompt and every row decodes from there, and the last round a row
-        needs writes K rows from at most ``S_pad + max_new - 2``. Rounds
-        past a row's budget may overflow (dropped writes, discarded
-        tokens)."""
+        """Per-chunk capacity of each full cache: prefill left-pads the
+        chunk to its longest prompt and every row decodes from there, and
+        the last round a row needs writes K rows from at most ``S_pad +
+        max_new - 2``. Rounds past a row's budget may overflow (dropped
+        writes, discarded tokens). A ring cache takes any length."""
         K = self.draft_k
         s_pad = max(len(r.prompt) for r in requests)
         for r in requests:
-            # both caches hold max_seq_len positions
-            if s_pad + r.max_new_tokens + K > self.max_seq_len:
-                raise ValueError(
-                    f"request uid={r.uid}: padded prompt {s_pad} + "
-                    f"max_new_tokens {r.max_new_tokens} + draft_k {K} "
-                    f"exceeds target cache capacity {self.max_seq_len}: "
-                    f"raise max_seq_len")
+            need = s_pad + r.max_new_tokens + K
+            for spec, who in self._specs:
+                if not spec.ring and need > spec.capacity:
+                    raise ValueError(
+                        f"request uid={r.uid}: padded prompt {s_pad} + "
+                        f"max_new_tokens {r.max_new_tokens} + draft_k {K} "
+                        f"exceeds {who} cache capacity {spec.capacity}: "
+                        f"raise max_seq_len")
 
     def _record_dispatch(self, t_disp: float, **fields) -> None:
         """A dispatch's wall into the straggler monitor and the trace."""

@@ -111,8 +111,11 @@ def test_flash_and_conv_constants_match_their_sources():
     src = (_build.CSRC / "flash_attention.cu").read_text()
     assert int(re.search(r"constexpr int BKV = (\d+);", src).group(1)) == 64
     assert "block_q != 64 && block_q != 128" in src
-    assert "hd != 64 && hd != 128" in src
-    assert fa.WGMMA_HEAD_DIMS == (64, 128)
+    assert "hd != 64 && hd != 80 && hd != 128" in src
+    assert fa.WGMMA_HEAD_DIMS == (64, 80, 128)
+    simt = re.findall(r"case (\d+): return launch_simt<T, (\d+)>", src)
+    assert [(int(a), int(b)) for a, b in simt] == [
+        (n, n) for n in fa.HEAD_DIMS]
     src = (_build.CSRC / "pattern_conv.cu").read_text()
     consts = {k: int(v) for k, v in re.findall(
         r"constexpr int (CK|BM|MAX_SLOTS) = (\d+);", src)}
@@ -148,6 +151,10 @@ def test_an_unknown_flash_variant_raises_before_any_launch():
     (512, 128, torch.float32, None, True, True, "simt"),     # fp32
     (512, 64, torch.float32, 50, False, True, "simt"),
     (512, 128, torch.bfloat16, None, True, False, "simt"),   # unaligned
+    (4160, 80, torch.bfloat16, 4096, True, True, "wgmma"),   # hd 80
+    (200, 80, torch.bfloat16, None, True, True, "wgmma"),
+    (4160, 80, torch.float32, 4096, True, True, "simt"),
+    (200, 80, torch.bfloat16, 4096, True, False, "simt"),
 ])
 def test_flash_variant_routes(S, hd, dtype, window, causal, aligned, want):
     assert fa.flash_variant(S, hd, dtype, window, causal,

@@ -324,6 +324,12 @@ FLASH_WGMMA_CASES = (
     (1, 260, 4, 2, 64, True, 100),
     (2, 200, 6, 2, 64, False, None),
     (1, 130, 4, 2, 128, False, 40),
+    # hd 80 (h2o-danube-1.8b's 32 / 8 heads): the HD = 128 instance on
+    # 80-column maps, ragged S, windows, not causal
+    (2, 300, 32, 8, 80, True, None),
+    (1, 260, 32, 8, 80, True, 100),
+    (1, 70, 4, 1, 80, True, 64),
+    (2, 200, 8, 2, 80, False, None),
 )
 
 
@@ -346,6 +352,17 @@ def test_flash_wgmma_matches_plain(cuda, B, S, H, KV, hd, causal, window):
     simt = fa._launch(q, k, v, causal, window, None, "simt")
     torch.testing.assert_close(simt.float(), want.float(), rtol=2e-2,
                                atol=2e-2)
+
+
+@pytest.mark.parametrize("window", [None, 100])
+def test_flash_hd80_fp32_simt_matches_plain(cuda, window):
+    """fp32 at hd 80 runs the simt kernel within the fp32 2e-5."""
+    g = torch.Generator(device=cuda).manual_seed(80)
+    q, k, v = _qkv(g, 2, 260, 32, 8, 80, cuda, torch.float32)
+    assert fa.flash_variant(260, 80, q.dtype, window, True) == "simt"
+    got = fa.flash_attention(q, k, v, causal=True, window=window)
+    want = fa.flash_attention_ref(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
 def test_flash_wgmma_refuses_what_it_does_not_take(cuda):
@@ -699,6 +716,22 @@ def test_prune_then_serve_launchers_on_the_card(cuda, tmp_path):
     assert "packed, cuda" in out
 
 
+def test_prune_then_serve_danube_launchers_on_the_card(cuda, tmp_path):
+    """``--arch h2o-danube-1.8b --reduced`` (window 32, head_dim 16: the
+    blockwise fallback with the window) pruned and served packed on the
+    card, prompts of 40 tokens past the ring of 32."""
+    art = str(tmp_path / "artifact")
+    _launcher("repro_torch.launch.prune", "--arch", "h2o-danube-1.8b",
+              "--reduced", "--scheme", "tile_pattern", "--rate", "2",
+              "--iters", "2", "--seq", "40", "--tile-block", "32", "--out",
+              str(tmp_path / "out"), "--artifact-out", art)
+    out = _launcher("repro_torch.launch.serve", "--arch", "h2o-danube-1.8b",
+                    "--reduced", "--artifact", art, "--packed",
+                    "--requests", "2", "--prompt-len", "40", "--max-new",
+                    "6")
+    assert "packed, cuda" in out
+
+
 class _Killed(Exception):
     pass
 
@@ -854,25 +887,37 @@ def _outcome(results):
     return [(r.uid, r.tokens, r.status) for r in results]
 
 
-@pytest.mark.parametrize("which", ["reduced", "full_width_2_layers"])
+# h2o-danube-1.8b's full width (32 / 8 heads of 80) at 2 layers, its
+# window cut to 64 so that short prompts wrap the ring (C = 64 of
+# max_seq_len 96)
+RING_CFG = dataclasses.replace(get_config("h2o-danube-1.8b"), num_layers=2,
+                               sliding_window=64)
+
+
+@pytest.mark.parametrize("which", ["reduced", "full_width_2_layers",
+                                   "ring_full_width_2_layers"])
 def test_continuous_graphs_match_eager_and_solo(cuda, which):
     """The continuous engine through its slot graphs against the same
     schedule run eagerly (``graphs`` off): the same tokens, statuses and
     stats; each request equals its run alone through an engine of the
     same batch size. Reduced: head_dim 16, so prefill takes the blockwise
     fallback; qwen2-1.5b's full width at 2 layers takes flash's wgmma
-    route for every admission."""
+    route for every admission, and so does the ring of ``RING_CFG`` at
+    hd 80 (a prompt of 80 past the ring, budgets across the wrap)."""
+    lens = (40, 17, 64, 9, 33, 17)
     if which == "reduced":
         cfg, block = reduced_config("qwen2-1.5b",
                                     param_dtype="bfloat16"), 32
-    else:
+    elif which == "full_width_2_layers":
         cfg, block = dataclasses.replace(get_config("qwen2-1.5b"),
                                          num_layers=2), 128
+    else:
+        cfg, block, lens = RING_CFG, 128, (80, 17, 64, 9, 33, 17)
     model = LM(cfg, device=cuda)
     art = greedy_prune(model.init(torch.Generator(device=cuda).manual_seed(
         0)), PruneConfig(scheme="tile_pattern", overrides={
             ".*": {"tile_block_p": block}})).pack()
-    reqs = _mixed_requests(cfg.vocab_size)
+    reqs = _mixed_requests(cfg.vocab_size, lens=lens)
 
     def engine(graphs):
         eng = ContinuousEngine(model, art, packed=True, batch_size=4,
@@ -982,6 +1027,43 @@ def test_speculative_round_graph_matches_eager(lm_art):
     got = [r.tokens for r in eng.generate(reqs)]
     assert got == [r.tokens for r in eager.generate(reqs)]
     assert eng.stats == eager.stats
+
+
+def test_speculative_ring_round_graph_matches_eager(cuda):
+    """``RING_CFG`` (hd 80, ring of 64): the packed artifact drafts for
+    its pruned weights bound dense, rounds crossing the wrap; round
+    graph replays against eager rounds bit for bit (both caches, pending
+    tokens, round blocks), a whole generate equal to the eager engine's
+    (tokens and stats), every prefill on flash's wgmma route."""
+    model = LM(RING_CFG, device=cuda)
+    art = greedy_prune(model.init(torch.Generator(device=cuda).manual_seed(
+        0)), GRAPH_PCFG).pack()
+    g = torch.Generator().manual_seed(4)
+    reqs = [Request(uid=i, prompt=torch.randint(
+        0, RING_CFG.vocab_size, (n,), generator=g), max_new_tokens=24)
+        for i, n in enumerate((50, 70, 50, 60))]
+    kw = dict(batch_size=4, max_seq_len=96, draft_k=4, demote_below=0.0)
+    eng = SpeculativeEngine(model, art.params, art, **kw)
+    eng.generate(reqs)                                # captures
+    eng.prefill_chunk(reqs)
+    start = _spec_state(eng)
+    eng.greedy_rounds(6)
+    graph = _spec_state(eng)
+    _spec_restore(eng, start)
+    eng.graphs = False
+    eng.greedy_rounds(6)
+    assert all(torch.equal(a, b) for a, b in zip(graph, _spec_state(eng)))
+    eng.graphs = True
+    eager = SpeculativeEngine(model, art.params, art, **kw)
+    eager.graphs = False
+    _zero_counts()
+    got = [r.tokens for r in eng.generate(reqs)]
+    torch.cuda.synchronize()
+    assert fa.ROUTE_LAUNCHES["wgmma"] == 2 * RING_CFG.num_layers
+    assert attention.PREFILL_FALLBACKS == 0
+    assert got == [r.tokens for r in eager.generate(reqs)]
+    assert eng.stats == eager.stats
+    assert [len(t) for t in got] == [24] * 4
 
 
 def test_speculative_column_packed_drafter(cuda):

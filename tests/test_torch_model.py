@@ -149,15 +149,15 @@ def test_unported_families_raise():
     with pytest.raises(NotImplementedError):
         LM(dataclasses.replace(cfg, family="moe"), device="cpu")
     with pytest.raises(NotImplementedError):
-        LM(dataclasses.replace(cfg, sliding_window=16), device="cpu")
+        LM(dataclasses.replace(cfg, family="ssm"), device="cpu")
 
 
 def test_flash_prefill_gate_agrees_with_reference():
     """The port's gate is its kernel's limits: every shape the reference
     sends to its kernel, the port does too on the head dims its kernel
     takes; it also takes a ragged S (513, 600, 1000), which the
-    reference's Pallas tiling refuses; head dims 16 and 80 and an inexact
-    GQA ratio are refused."""
+    reference's Pallas tiling refuses; head dim 80 (h2o-danube-1.8b) is
+    taken, head dim 16 and an inexact GQA ratio are refused."""
     from repro.models.attention import flash_prefill_supported as j_gate
     from repro_torch.kernels.flash_attention import HEAD_DIMS
     from repro_torch.models.attention import flash_prefill_supported
@@ -166,13 +166,13 @@ def test_flash_prefill_gate_agrees_with_reference():
     for s in (0, 1, 16, 200, 512, 513, 600, 1000, 1024, 1536):
         for h, kv in heads:
             exact = kv > 0 and h % kv == 0
+            assert 80 in HEAD_DIMS
             for hd in HEAD_DIMS:
                 ok = flash_prefill_supported(s, h, kv, hd)
                 assert ok == (s > 0 and exact)
                 if j_gate(s, h, kv):
                     assert ok
-            for hd in (16, 80):
-                assert not flash_prefill_supported(s, h, kv, hd)
+            assert not flash_prefill_supported(s, h, kv, 16)
     for s in (513, 600, 1000):
         assert not j_gate(s, 12, 2)
         assert all(flash_prefill_supported(s, 12, 2, hd) for hd in HEAD_DIMS)
