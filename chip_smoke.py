@@ -25,7 +25,13 @@ result line is printed:
               call, each held to the plain version, and h2o-danube-1.8b's
               heads (32 / 8 of 80, window 4096) at the shapes [window]
               launches (B = 4, S = 4160 and 4064; B = 1, S = 4160, 1024,
-              256) and a ragged B = 4, S = 200.
+              256) and a ragged B = 4, S = 200; and [families]' shapes:
+              every distinct packed GEMM of pixtral-12b (M = 4 and
+              4 096), hubert-xlarge (M = 12 000, ``w_up`` with GELU),
+              granite-3-2b and phi4-mini-3.8b (M = 4, 512, 2 048), and
+              their prefills' flash calls (hubert's bidirectional at hd
+              80 and a ragged S = 1 500), checked in bf16 and fp32 and
+              timed in bf16 only.
 4. serve    — qwen2-1.5b at full width (28 layers, d_model 1536, vocab
               151 936, bf16), seeded random weights, greedy tile-pattern
               prune (4 of 8 lanes, block_p 128), packed, saved to a
@@ -49,7 +55,9 @@ result line is printed:
               time, the kernels that hold it) of both prefills and, at
               S = 512, of both decodes; in each profile the launches the
               wrappers counted (graph replays included) must equal the
-              trace's launches of their device functions.
+              trace's launches of their device functions, a trace that
+              lost records retaken up to 3 times (``exact_trace``: only
+              an exact trace passes, one that counts more fails).
 5. identity — the same model in fp32, served dense-pruned and packed: the
               greedy tokens must be identical.
 6. cnn      — VGG-16 (ImageNet head, 224 x 224, batch 32) and ResNet-18
@@ -131,7 +139,37 @@ result line is printed:
               Readings: prefill ms per chunk, decode ms per step (graph
               medians), tokens/s, acceptance, peak device memory, a
               profile of a decode step on the wrapped ring.
-11. admm    — the paper's algorithm: qwen2-1.5b at full width (bf16,
+11. families — (a) pixtral-12b at full width and depth (40 layers,
+              d_model 5120, 32 / 8 heads of 128, vocab 131 072, bf16),
+              seeded random weights pruned greedily a layer at a time
+              (tile 4 of 8, block_p 128), packed and bound; the main
+              path, counts zeroed around it: a 4 x 1 024 prefill on
+              seeded patch embeddings (``max_seq_len`` 1 088), then 32
+              ``decode_step``s on seeded (4, 1, 5 120) embeddings, as the
+              reference's dry run decodes (the engines refuse a model
+              fed embeddings: decoding feeds token ids back); gates:
+              launches as designed, flash on wgmma (40 a prefill), no
+              fallback; readings: weight bytes dense and packed, prefill
+              ms, decode ms a step, profiles of a prefill and a decode
+              step, peak memory; at 4 of 40 layers in fp32 the same
+              argmax and logits within 2e-5 packed against dense-pruned
+              at the prefill and every step; the artifact at 2 of 40
+              layers saved, loaded, every leaf bit-equal, no ``embed``.
+              (b) hubert-xlarge at full width and depth (48 layers,
+              16 / 16 heads of 80, GELU, bidirectional), its 504-wide
+              head left dense: one encoder forward (``hidden_states``
+              with flash, ``lm_logits``) on 8 x 1 500 seeded frames, the
+              same gates (flash 48 a forward), ms, a profile; the fp32
+              bar at 4 of 48 layers on every frame. (c) layer-wise ADMM
+              on N(0, 1) synthetic embeddings, pixtral-12b at 2 of 40
+              layers, ``[admm]``'s settings: seconds per iteration, busy
+              share, peak memory; packed, one prefill. (d) granite-3-2b
+              (hd 64, its 49 155-wide head dense) and phi4-mini-3.8b
+              (its 3 072 x 200 064 head packed) at full width and depth
+              served as ``[serve]`` serves qwen2-1.5b: prefill ms a
+              chunk and decode ms a step from graph replays, fp32 token
+              identity at 4 layers. Each part prints its ``[time]``.
+12. admm    — the paper's algorithm: qwen2-1.5b at full width (bf16,
               seeded random teacher) pruned by layer-wise ADMM on
               synthetic tokens (``PrivacyPreservingPruner`` with
               ``launch.prune.prune_config_for(scheme="tile_pattern",
@@ -158,7 +196,7 @@ result line is printed:
               then ``launch.serve --reduced --artifact --packed`` as
               subprocesses: both exit 0, serve prefilling through the
               blockwise fallback (head_dim 16).
-12. admm_cnn — VGG-16 at full width (ImageNet head, 224 x 224, fp32)
+13. admm_cnn — VGG-16 at full width (ImageNet head, 224 x 224, fp32)
               pruned by layer-wise ADMM ``pattern_shared`` alpha 0.25
               (batch 32, 4 iterations; some pruned leaf off the greedy
               projection), retrained by 10 masked AdamW steps on
@@ -168,7 +206,7 @@ result line is printed:
               ``pattern_conv`` launch per stride-1 3x3 conv (counts zeroed
               around it); the fp32 top-1 gate of ``[cnn]``. Seconds per
               iteration and per step, peak memory.
-13. pipeline — the privacy-preserving pruning service
+14. pipeline — the privacy-preserving pruning service
               (``launch.pipeline.main`` in process, full scale, quick
               budgets, no stage retries: every stage must succeed on
               its one attempt): VGG-16 at width 1.0 on 32 x 32 x 3
@@ -190,7 +228,7 @@ result line is printed:
               tokens, 16 new; counts zeroed around it: ``pattern_gemm``
               launched, every flash call on wgmma, no fallback) and fp32
               dense-pruned vs packed greedy tokens identical.
-14. report  — one ``{"kernels": [...]}`` JSON line covering all four
+15. report  — one ``{"kernels": [...]}`` JSON line covering all four
               kernels (each a sum over the bf16 shapes its served path
               launches; the GEMMs' ``lm_head`` at M = 512 and 2048, which
               prefill never launches, and every GEMM at a verify chunk's
@@ -331,6 +369,47 @@ DANUBE_GEMMS = (
 )
 DANUBE_MS = (4, 256, 1024, 4160, 16256, 16640)
 DANUBE_HEAD_MS = (1, 4)
+# [families]' packed GEMMs, each model's distinct ones. pixtral-12b (a):
+# its layer GEMMs at M = 4 (a decode step) and 4 096 (a 4 x 1 024
+# prefill), its head at M = 4 (the prefill's last positions, each step)
+PIXTRAL_GEMMS = (
+    ("wq", 5120, 4096, False, None),
+    ("wk/wv", 5120, 1024, False, None),
+    ("wo", 4096, 5120, False, None),
+    ("w_gate", 5120, 14336, False, "silu"),
+    ("w_up", 5120, 14336, False, None),
+    ("w_down", 14336, 5120, False, None),
+    ("lm_head", 5120, 131072, False, None),
+)
+PIXTRAL_MS = (4, 4096)
+# hubert-xlarge (b): one encoder forward of 8 x 1 500 frames (M = 12 000);
+# its 504-wide head stays dense
+HUBERT_GEMMS = (
+    ("wq/wk/wv/wo", 1280, 1280, False, None),
+    ("w_up", 1280, 5120, False, "gelu"),
+    ("w_down", 5120, 1280, False, None),
+)
+HUBERT_MS = (12000,)
+# granite-3-2b and phi4-mini-3.8b (d), served as [serve] serves qwen2:
+# layer GEMMs at M = 4, 512 and 2 048, the head at M = 4; granite's
+# 49 155-wide head stays dense
+GRANITE_GEMMS = (
+    ("wq", 2048, 2048, False, None),
+    ("wk/wv", 2048, 512, False, None),
+    ("wo", 2048, 2048, False, None),
+    ("w_gate", 2048, 8192, False, "silu"),
+    ("w_up", 2048, 8192, False, None),
+    ("w_down", 8192, 2048, False, None),
+)
+PHI4_GEMMS = (
+    ("wq", 3072, 3072, False, None),
+    ("wk/wv", 3072, 1024, False, None),
+    ("wo", 3072, 3072, False, None),
+    ("w_gate", 3072, 8192, False, "silu"),
+    ("w_up", 3072, 8192, False, None),
+    ("w_down", 8192, 3072, False, None),
+    ("lm_head", 3072, 200064, False, None),
+)
 FLASH_SHAPES = dict(H=12, KV=2, hd=128)
 # (B, S, causal, window): the served prefill chunks (B = 4, S = 128, 512),
 # the ragged edge (S = 200), a sliding window, a non-causal call, and
@@ -349,6 +428,16 @@ FLASH_HD80 = dict(H=32, KV=8, hd=80)
 FLASH_HD80_CASES = tuple((B, S, True, WINDOW) for B, S in (
     (4, 4160), (4, 4064), (1, 4160), (1, 1024), (1, 256), (4, 200)))
 FLASH_HD80_SERVED = ((4, 4160), (4, 4064), (1, 4160), (1, 1024), (1, 256))
+# [families]' prefills: pixtral-12b (32 / 8 of 128) on 4 x 1 024 patches,
+# causal; hubert-xlarge (16 / 16 of 80) on 8 x 1 500 frames, both ways (S
+# no multiple of any tile); granite-3-2b (32 / 8 of 64) and phi4-mini-3.8b
+# (24 / 8 of 128) on [serve]'s chunks
+FAMILY_FLASH = (
+    (dict(H=32, KV=8, hd=128), ((4, 1024, True, None),)),
+    (dict(H=16, KV=16, hd=80), ((8, 1500, False, None),)),
+    (dict(H=32, KV=8, hd=64), ((4, 128, True, None), (4, 512, True, None))),
+    (dict(H=24, KV=8, hd=128), ((4, 128, True, None), (4, 512, True, None))),
+)
 # (batch, H = W, C, A): every distinct stride-1 3x3 conv of VGG-16 at
 # 224 x 224, batch 32, and of ResNet-18 (CIFAR stem) at 32 x 32, batch 256
 VGG16_CONVS = tuple((32, h, c, a) for h, c, a in (
@@ -479,15 +568,25 @@ def check_pattern_gemm(gen) -> list:
             gen, dtype, "danube ", DANUBE_GEMMS,
             lambda name: DANUBE_HEAD_MS if name == "lm_head" else DANUBE_MS,
             lambda name, M: True, earlier_route=False)
+        for prefix, gemms, ms in (("pixtral ", PIXTRAL_GEMMS, PIXTRAL_MS),
+                                  ("hubert ", HUBERT_GEMMS, HUBERT_MS),
+                                  ("granite ", GRANITE_GEMMS, GEMM_MS),
+                                  ("phi4 ", PHI4_GEMMS, GEMM_MS)):
+            rows += check_pattern_gemm_cases(
+                gen, dtype, prefix, gemms,
+                lambda name, ms=ms: (4,) if name == "lm_head" else ms,
+                lambda name, M: True, earlier_route=False,
+                timed=dtype == torch.bfloat16)
     return rows
 
 
 def check_pattern_gemm_cases(gen, dtype, prefix: str, gemms, ms_of,
-                             on_path, earlier_route: bool = True) -> list:
+                             on_path, earlier_route: bool = True,
+                             timed: bool = True) -> list:
     """``pattern_gemm`` for each (name, Q, P, bias, activation) of
     ``gemms`` at each M of ``ms_of(name)`` in ``dtype``, the shape named
     ``prefix + name``; ``earlier_route``: time the WMMA tile beside a
-    wgmma call."""
+    wgmma call; ``timed``: time the calls (else only check them)."""
     rows = []
     tol = TOL[dtype]
     for name, Q, P, has_bias, act in gemms:
@@ -507,16 +606,18 @@ def check_pattern_gemm_cases(gen, dtype, prefix: str, gemms, ms_of,
             if not torch.allclose(y.float(), r.float(), rtol=tol, atol=tol):
                 fail(f"pattern_gemm {prefix}{name} M={M} {dtype}: max err "
                      f"{err}")
-            ms = timed_ms(lambda: pg_mod.pattern_gemm(
-                x, wpb, li, b, activation=act), 20)
-            plain = timed_ms(lambda: pg_mod.pattern_gemm_ref(
-                x, wpb, li, b, activation=act), 3)
+            del r
             variant = pg_mod.tiled_variant(M, Q, wpb.shape[1], dtype)
-            earlier = None                  # the WMMA tile at this shape
-            if variant == "wgmma" and earlier_route:
-                earlier = timed_ms(lambda: pg_mod._launch(
-                    x, wpb, li, b, act, "wmma"), 20)
-            lib = timed_ms(lambda: torch.matmul(x, w), 20)
+            ms = plain = earlier = lib = None
+            if timed:
+                ms = timed_ms(lambda: pg_mod.pattern_gemm(
+                    x, wpb, li, b, activation=act), 20)
+                plain = timed_ms(lambda: pg_mod.pattern_gemm_ref(
+                    x, wpb, li, b, activation=act), 3)
+                if variant == "wgmma" and earlier_route:  # the WMMA tile
+                    earlier = timed_ms(lambda: pg_mod._launch(
+                        x, wpb, li, b, act, "wmma"), 20)
+                lib = timed_ms(lambda: torch.matmul(x, w), 20)
             nb, Kp, bp = wpb.shape
             t_b, by = bound(nbytes(x, wpb, li, b, y),
                             2.0 * M * Kp * nb * bp, dtype)
@@ -541,13 +642,20 @@ def check_flash(gen) -> list:
                 (FLASH_HD80, FLASH_HD80_CASES,
                  [(B, S, True, WINDOW) for B, S in FLASH_HD80_SERVED])):
             rows += check_flash_cases(gen, dtype, heads, cases, served)
+        for heads, cases in FAMILY_FLASH:
+            rows += check_flash_cases(gen, dtype, heads, cases, cases,
+                                      earlier_route=False,
+                                      timed=dtype == torch.bfloat16)
     return rows
 
 
-def check_flash_cases(gen, dtype, heads: dict, cases, served) -> list:
+def check_flash_cases(gen, dtype, heads: dict, cases, served,
+                      earlier_route: bool = True,
+                      timed: bool = True) -> list:
     """``flash_attention`` at each (B, S, causal, window) of ``cases``
     with ``heads`` (H, KV, hd) in ``dtype``; ``served``: the cases a
-    phase's main path launches."""
+    phase's main path launches; ``earlier_route``: check and time the
+    SIMT kernel beside a wgmma call; ``timed``: time the calls."""
     rows = []
     H, KV, hd = (heads[k] for k in ("H", "KV", "hd"))
     tol = TOL[dtype]
@@ -563,20 +671,24 @@ def check_flash_cases(gen, dtype, heads: dict, cases, served) -> list:
         if not torch.allclose(o.float(), r.float(), rtol=tol, atol=tol):
             fail(f"flash_attention B={B} S={S} {kw} {dtype}: max err "
                  f"{err}")
+        del r
         variant = fa_mod.flash_variant(S, hd, dtype, window, causal)
-        earlier = None                  # the SIMT kernel at this shape
-        if variant == "wgmma":
+        earlier = ms = plain = lib = None   # earlier: the SIMT kernel
+        if variant == "wgmma" and earlier_route:
             simt = fa_mod._launch(q, k, v, causal, window, None, "simt")
             torch.cuda.synchronize()
+            r = fa_mod.flash_attention_ref(q, k, v, **kw)
             if not torch.allclose(simt.float(), r.float(), rtol=tol,
                                   atol=tol):
                 fail(f"flash_attention simt B={B} S={S} {kw}: max err "
                      f"{(simt.float() - r.float()).abs().max().item()}")
+            del r, simt
             earlier = timed_ms(lambda: fa_mod._launch(
                 q, k, v, causal, window, None, "simt"))
-        ms = timed_ms(lambda: fa_mod.flash_attention(q, k, v, **kw))
-        plain = timed_ms(lambda: fa_mod.flash_attention_ref(
-            q, k, v, **kw), 3)
+        if timed:
+            ms = timed_ms(lambda: fa_mod.flash_attention(q, k, v, **kw))
+            plain = timed_ms(lambda: fa_mod.flash_attention_ref(
+                q, k, v, **kw), 3)
         pos = torch.arange(S, device="cuda")
         seen = torch.ones((S, S), dtype=torch.bool, device="cuda")
         if causal:
@@ -585,7 +697,9 @@ def check_flash_cases(gen, dtype, heads: dict, cases, served) -> list:
             seen &= pos[:, None] - pos[None, :] < window
         pairs = int(seen.sum())                 # (q, k) pairs computed
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        if window is None:
+        if not timed:
+            pass
+        elif window is None:
             lib = timed_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, enable_gqa=True))
         else:                          # SDPA takes a window as a mask
@@ -992,15 +1106,62 @@ TRACED_KERNEL = {
 }
 
 
-def profile(tag: str, what: str, fn, per: int = 1, names: tuple = (),
-            quiet: bool = False) -> list:
-    """Where the time of ``fn`` goes, per ``per`` (decode steps): wall
-    clock against the device's busy time (sum of kernel self times under
-    torch.profiler) and the kernels that hold most of it. For each kernel
-    in ``names`` the launches its wrapper counted during ``fn`` (graph
-    replays included) must equal the trace's launches of its device
-    functions. Returns the trace's raw events; ``quiet``: print, sum and
-    gate nothing."""
+PROFILE_RETAKES = 3        # traces retaken after one that lost records
+RETAKE_S: dict = {}        # seconds spent on retakes, by phase tag
+
+
+def exact_trace(tag: str, what: str, take, retakes: int = PROFILE_RETAKES,
+                first=None):
+    """The launch gate against torch.profiler, with its retake rule.
+
+    ``take()`` traces the path once -> ``(counted, traced, out)``: by
+    kernel, the launches its wrapper counted during the trace and the
+    trace's launches of its device functions. The profiler drops device
+    records on the card (0 to thousands per whole-path trace, PR 18), so a
+    trace that counts fewer launches of some kernel than its wrapper did
+    is retaken, up to ``retakes`` times, each printed with its loss by
+    kernel. Passes on the first trace whose counts equal the counted ones
+    exactly -> its ``out``. Fails when none does, when a trace counts MORE
+    launches than were counted (no lost record explains that), or when a
+    kernel was never launched. ``first``: a trace already taken, tried
+    before any retake."""
+    for attempt in range(retakes + 1):
+        t0 = time.perf_counter()
+        counted, traced, out = (first if attempt == 0 and first is not None
+                                else take())
+        if attempt:
+            RETAKE_S[tag] = RETAKE_S.get(tag, 0.0) + (time.perf_counter()
+                                                      - t0)
+        over = {n: traced[n] - c for n, c in counted.items() if traced[n] > c}
+        if over:
+            fail(f"[{tag}] {what}: the trace counts more launches than the "
+                 f"wrappers did, by {over} (counted {counted}, traced "
+                 f"{traced})")
+        if not all(counted.values()):
+            fail(f"[{tag}] {what}: a kernel was not launched: counted "
+                 f"{counted}")
+        if traced == counted:
+            return out
+        lost = {n: c - traced[n] for n, c in counted.items() if traced[n] < c}
+        print(f"[profile] {tag} {what}: trace {attempt + 1} lost device "
+              f"records of {json.dumps(lost)} (counted {json.dumps(counted)})"
+              + (f"; retake {attempt + 1} of {retakes}" if attempt < retakes
+                 else ""), flush=True)
+    fail(f"[{tag}] {what}: no trace of {retakes + 1} counted the launches "
+         f"the wrappers did (the last: counted {counted}, traced {traced})")
+
+
+WARM_SPINS = 64            # device sleeps that open a gated trace
+
+
+def _trace(fn, per: int, names: tuple, warm: bool = False):
+    """One torch.profiler trace of ``fn`` -> (profile, wall s per ``per``,
+    the launches the wrappers counted during it). ``warm``: the trace
+    opens with ``WARM_SPINS`` short device sleeps (``spin_kernel``) and a
+    synchronize before ``fn``: a trace drops its first device records
+    (on the card, hubert-xlarge's forward lost the same 3 of its first
+    layer's GEMM records in each of 4 traces, its first GEMMs a dozen
+    kernels after the trace opened)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
 
@@ -1008,22 +1169,45 @@ def profile(tag: str, what: str, fn, per: int = 1, names: tuple = (),
     reset_launches()
     with trace(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
+        if warm:
+            for _ in range(WARM_SPINS):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / per
-    counted = launch_counts(names)
-    events = prof.profiler.kineto_results.events()
+    return prof, wall, launch_counts(names)
+
+
+def profile(tag: str, what: str, fn, per: int = 1, names: tuple = (),
+            quiet: bool = False) -> list:
+    """Where the time of ``fn`` goes, per ``per`` (decode steps): wall
+    clock against the device's busy time (sum of kernel self times under
+    torch.profiler) and the kernels that hold most of it. For each kernel
+    in ``names`` the launches its wrapper counted during ``fn`` (graph
+    replays included) must equal the trace's launches of its device
+    functions, under ``exact_trace``'s retake rule (``fn`` runs again for
+    a retake). Returns the trace's raw events; ``quiet``: one trace,
+    printed, summed and gated nothing."""
     if quiet:
-        return events
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+        return _trace(fn, per, names)[0].profiler.kineto_results.events()
+
+    def take():
+        prof, wall, counted = _trace(fn, per, names, warm=True)
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "spin_kernel" not in e.key]
+        traced = {n: sum(e.count for e in kernels
+                         if re.search(TRACED_KERNEL[n], e.key))
+                  for n in names}
+        return counted, traced, (prof, wall, kernels, counted, traced)
+
+    prof, wall, kernels, counted, traced = exact_trace(tag, what, take)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / per
     launches = sum(e.count for e in kernels) / per
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     attn = [e for e in kernels if "flash" in e.key]
-    traced = {n: sum(e.count for e in kernels
-                     if re.search(TRACED_KERNEL[n], e.key)) for n in names}
 
     def ms(events):
         return {e.key[:60]: [round(e.self_device_time_total / 1e3 / per, 3),
@@ -1035,10 +1219,7 @@ def profile(tag: str, what: str, fn, per: int = 1, names: tuple = (),
           + json.dumps(ms(top)) + "; attention: " + json.dumps(ms(attn))
           + f"; launches counted {json.dumps(counted)}, traced "
           + json.dumps(traced), flush=True)
-    if counted != traced or not all(traced.values()):
-        fail(f"[{tag}] {what}: counted launches {counted} are not the "
-             f"trace's {traced}")
-    return events
+    return prof.profiler.kineto_results.events()
 
 
 def token_identity(tag: str, cfg, pcfg, note: str = "") -> None:
@@ -1365,8 +1546,10 @@ def trace_loss(tag: str, eng, reqs: list, arrivals: list) -> None:
     placed by the first record where the run departs from the fullest.
     ``orphans``: kernel-launch calls on the host whose device record is
     missing (a kernel of a graph replay shares its replay's call, so its
-    loss is not one). Gate: no run traces more launches of a counted
-    kernel than were counted, nor fewer by more than its measured loss."""
+    loss is not one). Gate: every run counts the same launches, and
+    ``exact_trace``'s rule holds over the runs: no run traces more
+    launches of a counted kernel than were counted, and the run that
+    lost least is exact, or else a retake of the plain run is."""
     from collections import Counter
 
     CUDA = torch.autograd.DeviceType.CUDA
@@ -1381,24 +1564,27 @@ def trace_loss(tag: str, eng, reqs: list, arrivals: list) -> None:
         torch.cuda.synchronize()
         run()
 
+    def traced(fn):
+        events = profile(tag, "", fn, quiet=True)
+        dev = sorted((e for e in events if e.device_type() == CUDA
+                      and "spin_kernel" not in e.name()),
+                     key=lambda e: e.start_ns())
+        seq = [e.name() for e in dev]
+        return events, dev, seq, launch_counts(names), {
+            n: sum(1 for k in seq if re.search(TRACED_KERNEL[n], k))
+            for n in names}
+
     runs = []
     for spin in (False, True):
         for _ in range(TRACE_REPEATS):
-            events = profile(tag, "", spun if spin else run, quiet=True)
-            dev = sorted((e for e in events if e.device_type() == CUDA
-                          and "spin_kernel" not in e.name()),
-                         key=lambda e: e.start_ns())
+            events, dev, seq, counted, seen_n = traced(spun if spin else run)
             seen = {e.correlation_id() for e in dev}
             orphans = sum(1 for e in events if e.device_type() != CUDA
                           and e.name() in LAUNCH_CALLS
                           and e.correlation_id() not in seen)
-            seq = [e.name() for e in dev]
-            runs.append((spin, launch_counts(names), {
-                n: sum(1 for k in seq if re.search(TRACED_KERNEL[n], k))
-                for n in names}, seq, orphans))
+            runs.append((spin, counted, seen_n, seq, orphans))
     full = max((r[3] for r in runs), key=len)
-    bad = []
-    for spin, counted, traced, seq, orphans in runs:
+    for spin, counted, seen_n, seq, orphans in runs:
         m = len(full) - len(seq)
         lost = Counter(full) - Counter(seq)
         i = next((i for i, (a, b) in enumerate(zip(seq, full)) if a != b),
@@ -1415,17 +1601,19 @@ def trace_loss(tag: str, eng, reqs: list, arrivals: list) -> None:
               f"records, {where}; lost by kernel "
               + json.dumps({k[:48]: v for k, v in lost.most_common(6)})
               + f"; orphan launch calls {orphans}; launches counted "
-              + json.dumps(counted) + ", traced " + json.dumps(traced),
+              + json.dumps(counted) + ", traced " + json.dumps(seen_n),
               flush=True)
-        short = {n: counted[n] - traced[n] for n in names}
-        if any(v < 0 for v in short.values()) or sum(short.values()) > m:
-            bad.append((counted, traced, m))
     if any(r[1] != runs[0][1] for r in runs):
         fail(f"[{tag}] one scripted schedule counted different launches: "
              f"{[r[1] for r in runs]}")
-    if bad:
-        fail(f"[{tag}] counted launches the trace's loss does not explain "
-             f"(counted, traced, records lost): {bad}")
+    what = "whole path on a scripted schedule"
+    for _, counted, seen_n, _, _ in runs:
+        if any(seen_n[n] > counted[n] for n in names):
+            fail(f"[{tag}] {what}: the trace counts more launches than the "
+                 f"wrappers did (counted {counted}, traced {seen_n})")
+    best = min(runs, key=lambda r: sum(r[1][n] - r[2][n] for n in names))
+    exact_trace(tag, what, lambda: traced(run)[3:] + (None,),
+                first=(best[1], best[2], None))
 
 
 def continuous_reliability(tag: str, eng, reqs: list, solo: dict) -> None:
@@ -2973,6 +3161,422 @@ def phase_pipeline(smi: str) -> dict:
     return dict(lm, pattern_conv=conv)
 
 
+# ------------------------------------------------------------- families
+
+FAM = dict(batch=4, patches=1024, max_seq=1088, steps=32,   # pixtral (a)
+           frames=8, frame_len=1500,                        # hubert (b)
+           fp32_layers=4, artifact_layers=2, admm_layers=2)
+GEMM_NAMES = ("pattern_gemm", "flash_attention")
+
+
+def tile_pcfg_for(cfg) -> PruneConfig:
+    """``TILE_PCFG``, the head left out where its width is no multiple of
+    block_p 128: both packages' tile projection refuses such a head
+    (hubert-xlarge's 504, granite-3-2b's 49 155), so it stays dense."""
+    if cfg.vocab_size % 128 == 0:
+        return TILE_PCFG
+    return dataclasses.replace(TILE_PCFG, exclude=tuple(TILE_PCFG.exclude)
+                               + (r"lm_head",))
+
+
+def prune_by_layer(params: dict, pcfg) -> PrunedArtifact:
+    """``greedy_prune`` one block at a time, each unpruned block dropped as
+    soon as it is pruned, and no masks kept (serving reads none): the
+    whole-tree call holds the unpruned tree, the pruned one and their bf16
+    masks at once, 3 x 23.2 GB for pixtral-12b. Empties ``params``."""
+    blocks = params.pop("blocks")
+    rest = greedy_prune(params, pcfg, device=DEV)
+    params.clear()
+    pruned, specs = [], []
+    for i in range(len(blocks)):
+        one = greedy_prune({"blocks": [blocks[i]]}, pcfg, device=DEV)
+        blocks[i] = None
+        pruned.append(one.params["blocks"][0])
+        specs.append(one.specs["blocks"][0])
+    return PrunedArtifact(params={"blocks": pruned, **rest.params},
+                          masks=None, specs={"blocks": specs, **rest.specs},
+                          meta=rest.meta)
+
+
+def launch_gate(tag: str, what: str, launches: dict, want: dict) -> None:
+    """A main path's launches: each kernel exactly as often as ``want``
+    says, every flash call on the wgmma route, no blockwise fallback."""
+    routes = dict(fa_mod.ROUTE_LAUNCHES,
+                  blockwise_fallbacks=attention.PREFILL_FALLBACKS)
+    print(f"[{tag}] {what}: launches {json.dumps(launches)} (designed "
+          f"{json.dumps(want)}); flash by route {json.dumps(routes)}",
+          flush=True)
+    if launches != want:
+        fail(f"[{tag}] {what}: launches {launches}, designed {want}")
+    if routes["wgmma"] != launches["flash_attention"] or \
+            routes["blockwise_fallbacks"]:
+        fail(f"[{tag}] {what}: flash off the wgmma route: {routes}")
+
+
+def logits_bar(tag: str, what: str, got: torch.Tensor,
+               want: torch.Tensor) -> float:
+    """fp32 packed against dense-pruned logits: the same argmax at every
+    position and ``allclose`` at 2e-5 -> max |difference|."""
+    err = (got - want).abs().max().item()
+    same = torch.equal(got.argmax(-1), want.argmax(-1))
+    close = torch.allclose(got, want, rtol=TOL[torch.float32],
+                           atol=TOL[torch.float32])
+    if not (same and close and bool(torch.isfinite(got).all())):
+        fail(f"[{tag}] fp32 {what}: argmax identical {same}, within 2e-5 "
+             f"{close}, max |packed - dense-pruned| {err}")
+    return err
+
+
+def fp32_arm(cfg, layers: int, pcfg):
+    """(model, packed params, dense-pruned params) at ``layers`` layers of
+    full width in fp32."""
+    cfg32 = dataclasses.replace(cfg, num_layers=layers, param_dtype="float32")
+    model = LM(cfg32, device=DEV)
+    art = greedy_prune(model.init(torch.Generator(device=DEV).manual_seed(
+        0)), pcfg, device=DEV).pack(device=DEV)
+    return model, art.bind(model, packed=True), art.params
+
+
+def pixtral_main(tag: str, smi: str) -> dict:
+    """(a) pixtral-12b at full width and depth, bf16: prune a layer at a
+    time, pack, bind; the main path a 4 x 1 024 prefill on seeded patch
+    embeddings, then 32 decode steps on seeded (4, 1, 5 120) embeddings,
+    as the reference's dry run decodes; readings and profiles."""
+    cfg = get_config("pixtral-12b")
+    model = LM(cfg, device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    dense_bytes = sum(nbytes(w) for _, w in tree_items(params))
+    art = prune_by_layer(params, TILE_PCFG).pack(device=DEV)
+    check_exact(tag, art)
+    packed = art.bind(model, packed=True)
+    packed_bytes = art.packed_bytes()
+    del art                                  # the dense-pruned tree
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    peak_setup = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"[{tag}] (a) pixtral-12b L={cfg.num_layers} d_model="
+          f"{cfg.d_model} attn_dim={cfg.attn_dim} heads {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} of {cfg.head_dim} d_ff={cfg.d_ff} vocab="
+          f"{cfg.vocab_size} {cfg.param_dtype}: init + prune by layer + "
+          f"pack {t_setup:.2f} s; weight bytes dense {dense_bytes} packed "
+          f"{packed_bytes} (lane-index tables included); peak device memory "
+          f"while pruning and packing {peak_setup} bytes ({smi})",
+          flush=True)
+    g = torch.Generator(device=DEV).manual_seed(1)
+    B, S, D = FAM["batch"], FAM["patches"], cfg.d_model
+    x = torch.randn((B, S, D), generator=g, device=DEV).to(torch.bfloat16)
+    steps = torch.randn((FAM["steps"], B, 1, D), generator=g,
+                        device=DEV).to(torch.bfloat16)
+
+    def main_path():
+        cache, logits = model.prefill(packed, x, FAM["max_seq"])
+        out = [logits]
+        for e in steps:
+            cache, logits = model.decode_step(packed, cache, e)
+            out.append(logits)
+        return out
+
+    main_path()                                      # first use
+    torch.cuda.synchronize()
+    reset_launches()                                 # the main path
+    out = main_path()
+    torch.cuda.synchronize()
+    launches = launch_counts(GEMM_NAMES)
+    L = cfg.num_layers
+    launch_gate(tag, f"(a) prefill {B} x {S} + {FAM['steps']} decode steps",
+                launches, {"pattern_gemm": (1 + FAM["steps"]) * (7 * L + 1),
+                           "flash_attention": L})
+    logits = torch.stack([o[:, 0] for o in out])
+    if logits.shape != (1 + FAM["steps"], B, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        fail(f"[{tag}] (a) logits {tuple(logits.shape)} not finite")
+    prefill_ms = median_s(lambda: model.prefill(packed, x, FAM["max_seq"]))
+    cache, _ = model.prefill(packed, x, FAM["max_seq"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for e in steps:
+        model.decode_step(packed, cache, e)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) / FAM["steps"]
+    profile(tag, f"(a) prefill {B} x {S}", lambda: model.prefill(
+        packed, x, FAM["max_seq"]), names=GEMM_NAMES)
+    cache, _ = model.prefill(packed, x, FAM["max_seq"])
+    profile(tag, "(a) decode step", lambda: model.decode_step(
+        packed, cache, steps[0]), names=("pattern_gemm",))
+    print(f"[{tag}] (a) prefill {B} x {S} patch embeddings "
+          f"{prefill_ms * 1e3:.2f} ms (eager, median of 3); decode {decode_ms * 1e3:.3f} ms a step "
+          f"(eager, mean of {FAM['steps']}); peak device memory serving "
+          f"{torch.cuda.max_memory_allocated()} bytes ({smi})", flush=True)
+    del packed, cache, out
+    torch.cuda.empty_cache()
+    return launches
+
+
+def pixtral_checks(tag: str) -> None:
+    """(a) the fp32 bar at 4 of 40 layers (packed against dense-pruned:
+    the same argmax at the prefill and every decode step, logits within
+    2e-5) and the artifact round trip at 2 of 40 layers."""
+    cfg = get_config("pixtral-12b")
+    model, packed, dense = fp32_arm(cfg, FAM["fp32_layers"], TILE_PCFG)
+    g = torch.Generator(device=DEV).manual_seed(1)
+    B, S, D = FAM["batch"], FAM["patches"], cfg.d_model
+    x = torch.randn((B, S, D), generator=g, device=DEV)
+    steps = torch.randn((FAM["steps"], B, 1, D), generator=g, device=DEV)
+    cd, ld = model.prefill(dense, x, FAM["max_seq"])
+    cp, lp = model.prefill(packed, x, FAM["max_seq"])
+    errs = [logits_bar(tag, "(a) prefill", lp, ld)]
+    for i, e in enumerate(steps):
+        ld = model.decode_step(dense, cd, e)[1]
+        lp = model.decode_step(packed, cp, e)[1]
+        errs.append(logits_bar(tag, f"(a) decode step {i}", lp, ld))
+    print(f"[{tag}] (a) fp32, {FAM['fp32_layers']} of {cfg.num_layers} "
+          f"layers at full width: packed argmax identical to dense-pruned "
+          f"at the prefill and all {FAM['steps']} decode steps, max |logit "
+          f"difference| {max(errs):.3g} (2e-5)", flush=True)
+    del model, packed, dense, cd, cp
+    torch.cuda.empty_cache()
+    cfg2 = dataclasses.replace(cfg, num_layers=FAM["artifact_layers"])
+    model2 = LM(cfg2, device=DEV)
+    art = greedy_prune(model2.init(torch.Generator(device=DEV).manual_seed(
+        0)), TILE_PCFG, device=DEV).pack(device=DEV)
+    loaded = save_and_load(tag, art, cfg2)
+    if "embed" in loaded.params or "embed" in loaded.packed:
+        fail(f"[{tag}] the artifact grew an embed leaf")
+    print(f"[{tag}] (a) artifact at {FAM['artifact_layers']} of "
+          f"{cfg.num_layers} layers: no embed leaf, every leaf bit-equal "
+          f"after the round trip", flush=True)
+    del art, loaded
+    torch.cuda.empty_cache()
+
+
+def hubert_main(tag: str, smi: str) -> dict:
+    """(b) hubert-xlarge at full width and depth, bf16: pruned and packed
+    (its 504-wide head dense), one encoder forward (``hidden_states`` with
+    flash, then ``lm_logits``) on 8 x 1 500 seeded frame embeddings; then
+    the fp32 bar at 4 of 48 layers."""
+    cfg = get_config("hubert-xlarge")
+    model = LM(cfg, device=DEV)
+    pcfg = tile_pcfg_for(cfg)
+    t0 = time.perf_counter()
+    art = greedy_prune(model.init(torch.Generator(device=DEV).manual_seed(
+        0)), pcfg, device=DEV).pack(device=DEV)
+    check_exact(tag, art)
+    packed = art.bind(model, packed=True)
+    head = art.params["lm_head"]
+    head_dense = not is_packed(packed["lm_head"]) and handler_for(
+        "tile_pattern").pack(head, LayerSpec(scheme="tile_pattern",
+                                             tile_block_p=128)) is None
+    print(f"[{tag}] (b) hubert-xlarge L={cfg.num_layers} d_model="
+          f"{cfg.d_model} heads {cfg.num_heads}/{cfg.num_kv_heads} of "
+          f"{cfg.head_dim} d_ff={cfg.d_ff} {cfg.ffn_type} causal="
+          f"{cfg.causal}: init + prune + pack {time.perf_counter() - t0:.2f}"
+          f" s; weight bytes dense {art.dense_bytes()} packed "
+          f"{art.packed_bytes()}; lm_head {tuple(head.shape)} dense (504 % "
+          f"128 = {cfg.vocab_size % 128}: the tile projection and packer "
+          f"refuse it): {head_dense}", flush=True)
+    if not head_dense:
+        fail(f"[{tag}] (b) hubert's lm_head was packed")
+    del art
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=DEV).manual_seed(2)
+    x = torch.randn((FAM["frames"], FAM["frame_len"], cfg.d_model),
+                    generator=g, device=DEV).to(torch.bfloat16)
+
+    def forward():
+        h, _ = model.hidden_states(packed, x, use_flash=True)
+        return model.lm_logits(packed, h)
+
+    forward()
+    torch.cuda.synchronize()
+    reset_launches()                                 # the main path
+    logits = forward()
+    torch.cuda.synchronize()
+    launches = launch_counts(GEMM_NAMES)
+    L = cfg.num_layers
+    launch_gate(tag, f"(b) encoder forward {FAM['frames']} x "
+                f"{FAM['frame_len']}", launches,
+                {"pattern_gemm": 6 * L, "flash_attention": L})
+    want = (FAM["frames"], FAM["frame_len"], cfg.vocab_size)
+    if tuple(logits.shape) != want or not bool(torch.isfinite(logits).all()):
+        fail(f"[{tag}] (b) logits {tuple(logits.shape)}, want {want}")
+    ms = median_s(forward) * 1e3
+    profile(tag, "(b) encoder forward", forward, names=GEMM_NAMES)
+    print(f"[{tag}] (b) encoder forward of {FAM['frames']} x "
+          f"{FAM['frame_len']} frames -> logits {want}: {ms:.2f} ms (median "
+          f"of 3); peak device memory {torch.cuda.max_memory_allocated()} "
+          f"bytes ({smi})", flush=True)
+    del packed, logits
+    torch.cuda.empty_cache()
+    model4, packed4, dense4 = fp32_arm(cfg, FAM["fp32_layers"], pcfg)
+    x32 = x.float()
+    got = model4.lm_logits(packed4, model4.hidden_states(
+        packed4, x32, use_flash=True)[0])
+    want_l = model4.lm_logits(dense4, model4.hidden_states(
+        dense4, x32, use_flash=True)[0])
+    err = logits_bar(tag, "(b) encoder forward", got, want_l)
+    print(f"[{tag}] (b) fp32, {FAM['fp32_layers']} of {L} layers at full "
+          f"width: packed argmax identical to dense-pruned on every one of "
+          f"{FAM['frames'] * FAM['frame_len']} frames, max |logit "
+          f"difference| {err:.3g} (2e-5)", flush=True)
+    return launches
+
+
+def pixtral_admm(tag: str, smi: str) -> dict:
+    """(c) the paper's algorithm on synthetic embeddings: pixtral-12b at
+    full width, 2 of 40 layers, layer-wise ADMM at ``[admm]``'s settings
+    on N(0, 1) embeddings; then packed, one 4 x 1 024 prefill."""
+    cfg = dataclasses.replace(get_config("pixtral-12b"),
+                              num_layers=FAM["admm_layers"])
+    model = LM(cfg, device=DEV)
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    adapter = LMAdapter(model, seq_len=ADMM_SEQ)
+    if adapter.synthetic_kind != "normal_embeddings":
+        fail(f"[{tag}] (c) the adapter draws {adapter.synthetic_kind}")
+    pcfg = prune_config_for(scheme="tile_pattern", rate=2, iters=ADMM_ITERS,
+                            batch=ADMM_BATCH)
+    pruner = PrivacyPreservingPruner(adapter, pcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stamps = [time.perf_counter()]
+    result = pruner.run_layerwise(
+        as_key(1), params, callback=lambda it, m: stamps.append(
+            time.perf_counter()))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    per_iter = [b - a for a, b in zip(stamps, stamps[1:])]
+    finite_history(tag, result.history)
+    split = profiled_iteration(tag, pruner, params)
+    art = result.to_artifact(arch="pixtral-12b", scheme="tile_pattern",
+                             rate=2.0)
+    if (art.privacy or {}).get("generator") != "normal_embeddings":
+        fail(f"[{tag}] (c) manifest privacy block {art.privacy}")
+    print(f"[{tag}] (c) pixtral-12b {FAM['admm_layers']} of 40 layers at "
+          f"full width, layer-wise ADMM tile_pattern 4 of 8, batch "
+          f"{ADMM_BATCH} x {ADMM_SEQ} N(0, 1) embeddings, {ADMM_ITERS} "
+          f"iterations: {statistics.median(per_iter[-6:]):.4f} s per "
+          f"iteration (median of the last 6; each {json.dumps(per_iter)}); "
+          f"one iteration's device busy share "
+          f"{100 * split['busy_share']:.1f}% ({split['kernel_launches']} "
+          f"launches); peak device memory {peak} bytes; manifest privacy "
+          f"{json.dumps(art.privacy)} ({smi})", flush=True)
+    art = art.pack(device=DEV)
+    check_exact(tag, art)
+    packed = art.bind(model, packed=True)
+    x = torch.randn((FAM["batch"], FAM["patches"], cfg.d_model),
+                    generator=torch.Generator(device=DEV).manual_seed(3),
+                    device=DEV).to(torch.bfloat16)
+    model.prefill(packed, x, FAM["max_seq"])
+    torch.cuda.synchronize()
+    reset_launches()                                 # the main path
+    _, logits = model.prefill(packed, x, FAM["max_seq"])
+    torch.cuda.synchronize()
+    launches = launch_counts(GEMM_NAMES)
+    L = cfg.num_layers
+    launch_gate(tag, "(c) prefill of the ADMM-pruned model", launches,
+                {"pattern_gemm": 7 * L + 1, "flash_attention": L})
+    if not bool(torch.isfinite(logits).all()):
+        fail(f"[{tag}] (c) prefill logits not finite")
+    del pruner, result, art, packed, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def served_family(tag: str, smi: str, name: str) -> dict:
+    """(d) ``name`` at full width and depth, bf16, tile packed, served by
+    the launcher's engine through its CUDA graphs as ``[serve]`` serves
+    qwen2-1.5b (4 x 512 + 4 x 128 prompt tokens, 32 new): the main path
+    with counts zeroed around it; prefill ms per chunk and decode ms per
+    step from graph replays; then fp32 token identity at 4 layers."""
+    cfg = get_config(name)
+    model = LM(cfg, device=DEV)
+    pcfg = tile_pcfg_for(cfg)
+    t0 = time.perf_counter()
+    art = greedy_prune(model.init(torch.Generator(device=DEV).manual_seed(
+        0)), pcfg, device=DEV).pack(device=DEV)
+    check_exact(tag, art)
+    head = art.packed["lm_head"]
+    print(f"[{tag}] (d) {name} L={cfg.num_layers} d_model={cfg.d_model} "
+          f"heads {cfg.num_heads}/{cfg.num_kv_heads} of {cfg.head_dim} "
+          f"vocab={cfg.vocab_size}: init + prune + pack "
+          f"{time.perf_counter() - t0:.2f} s; weight bytes dense "
+          f"{art.dense_bytes()} packed {art.packed_bytes()}; lm_head "
+          f"{tuple(head.shape)} packed {is_packed(head)} (vocab % 128 = "
+          f"{cfg.vocab_size % 128}); prefill flash route at S = 512: "
+          f"{fa_mod.flash_variant(512, cfg.head_dim, torch.bfloat16)} (hd "
+          f"{cfg.head_dim})", flush=True)
+    if is_packed(head) != (cfg.vocab_size % 128 == 0):
+        fail(f"[{tag}] (d) {name}'s lm_head packed {is_packed(head)}")
+    reqs = make_requests(cfg.vocab_size)
+    eng = launch_serve.make_engine(model, art, batch=4, max_seq=544,
+                                   packed=True, device=DEV)
+    for r in (reqs[0], reqs[4]):          # captures: decode, S = 512 and 128
+        eng.generate([r])
+    torch.cuda.synchronize()
+    reset_launches()                                 # the main path
+    t0 = time.perf_counter()
+    results = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(GEMM_NAMES)
+    L = cfg.num_layers
+    # two chunks, each a prefill and 31 decode steps (graph replays), each
+    # forward 7 GEMMs a layer and the head where it is packed
+    launch_gate(tag, f"(d) {name} generate(8 requests) in "
+                f"{wall * 1e3:.1f} ms", launches,
+                {"pattern_gemm": 2 * 32 * (7 * L + is_packed(head)),
+                 "flash_attention": 2 * L})
+    for r in results:
+        if len(r.tokens) != 32 or not all(0 <= t < cfg.vocab_size
+                                          for t in r.tokens):
+            fail(f"[{tag}] (d) request {r.uid}: bad tokens {r.tokens[:8]}")
+    readings = {}
+    for S, chunk in ((128, reqs[4:]), (512, reqs[:4])):
+        prompts, mask = eng.pad_prompts(chunk)
+        eng.set_rows(chunk, mask)
+        readings[f"prefill_graph_ms_S{S}"] = median_s(
+            lambda: eng.prefill(prompts)) * 1e3
+    tok0 = eng.prefill(prompts)[1].argmax(-1)
+    readings["decode_graph_ms_per_step"] = median_s(
+        lambda: eng.decode(tok0, 31)) * 1e3 / 31
+    print(f"[{tag}] (d) {name}: " + json.dumps(readings) + f" ({smi})",
+          flush=True)
+    del eng, art
+    torch.cuda.empty_cache()
+    token_identity(tag, dataclasses.replace(
+        cfg, num_layers=FAM["fp32_layers"], param_dtype="float32"), pcfg,
+        note=f", {name} at {FAM['fp32_layers']} of {L} layers")
+    return launches
+
+
+def phase_families(smi: str) -> dict:
+    """The embedding-input families and the two dense configs new to the
+    card. Returns the main paths' launch counts, summed."""
+    tag = "families"
+    parts = (("(a) pixtral-12b", lambda: pixtral_main(tag, smi)),
+             ("(a) pixtral-12b fp32 bar and artifact",
+              lambda: pixtral_checks(tag) or {}),
+             ("(b) hubert-xlarge", lambda: hubert_main(tag, smi)),
+             ("(c) ADMM on synthetic embeddings",
+              lambda: pixtral_admm(tag, smi)),
+             ("(d) granite-3-2b",
+              lambda: served_family(tag, smi, "granite-3-2b")),
+             ("(d) phi4-mini-3.8b",
+              lambda: served_family(tag, smi, "phi4-mini-3.8b")))
+    total = dict.fromkeys(GEMM_NAMES, 0)
+    for what, fn in parts:
+        t0 = time.perf_counter()
+        for k, v in fn().items():
+            total[k] += v
+        torch.cuda.empty_cache()
+        print(f"[time] {tag} {what} {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    return total
+
+
 META = {
     "pattern_gemm": ("src/repro_torch/kernels/csrc/pattern_gemm.cu",
                      "src/repro/kernels/pattern_gemm.py:124"),
@@ -3043,7 +3647,8 @@ def main() -> int:
         t = time.perf_counter()
         out = fn(*args)
         torch.cuda.empty_cache()
-        print(f"[time] {tag} {time.perf_counter() - t:.1f} s", flush=True)
+        print(f"[time] {tag} {time.perf_counter() - t:.1f} s (profile "
+              f"retakes {RETAKE_S.get(tag, 0.0):.1f} s)", flush=True)
         return out
 
     with torch.no_grad():
@@ -3058,6 +3663,7 @@ def main() -> int:
         spec = timed("speculative", phase_speculative, smi, served)
         del served
         win = timed("window", phase_window, smi)
+        fam = timed("families", phase_families, smi)
         admm = timed("admm", phase_admm, smi)
         admm_conv = timed("admm_cnn", phase_admm_cnn, smi)
         pipe = timed("pipeline", phase_pipeline, smi)
@@ -3071,7 +3677,12 @@ def main() -> int:
                         f"serving 4 ({spec['pattern_gemm']}) + "
                         "h2o-danube-1.8b on a ring cache, chunked, "
                         "continuous and speculative serving 8 + 8 + 4 "
-                        f"({win['pattern_gemm']}) + the ADMM-pruned "
+                        f"({win['pattern_gemm']}) + [families]: pixtral-12b "
+                        "prefilling 4 x 1024 patch embeddings and decoding "
+                        "32 steps, hubert-xlarge encoding 8 x 1500 frames, "
+                        "the ADMM-pruned 2-layer pixtral-12b prefilling, "
+                        "granite-3-2b and phi4-mini-3.8b serving 8 requests "
+                        f"each ({fam['pattern_gemm']}) + the ADMM-pruned "
                         f"one serving 4 ({admm['pattern_gemm']}) + the "
                         "pipeline's saved 4-layer one serving 4 "
                         f"({pipe['pattern_gemm']})",
@@ -3084,6 +3695,11 @@ def main() -> int:
                            "h2o-danube-1.8b (hd 80, window 4096) on a ring "
                            "cache, chunked, continuous and speculative "
                            f"serving 8 + 8 + 4 ({win['flash_attention']}) "
+                           "+ [families]: pixtral-12b (hd 128, causal), "
+                           "hubert-xlarge (hd 80, bidirectional, S 1500), "
+                           "the ADMM-pruned pixtral-12b, granite-3-2b (hd "
+                           "64) and phi4-mini-3.8b "
+                           f"({fam['flash_attention']}) "
                            "+ the ADMM-pruned one serving 4 "
                            f"({admm['flash_attention']}) + the pipeline's "
                            f"saved 4-layer one serving 4 "
@@ -3096,8 +3712,8 @@ def main() -> int:
                         f"({pipe['pattern_conv']})",
         "column_gemm": "column-pruned qwen2-1.5b serving 8 requests",
     }
-    launches = {k: launches[k] + cont[k] + spec[k] + win[k] + admm[k]
-                + pipe[k] for k in launches}
+    launches = {k: launches[k] + cont[k] + spec[k] + win[k] + fam[k]
+                + admm[k] + pipe[k] for k in launches}
     launches.update(pattern_conv=sum(conv) + admm_conv
                     + pipe["pattern_conv"],
                     column_gemm=column["column_gemm"])

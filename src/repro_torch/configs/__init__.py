@@ -1,5 +1,5 @@
-"""Architecture registry of the port (the dense-family archs of the
-reference)."""
+"""Architecture registry of the port: the reference's dense-family archs
+and its two embedding-input ones (vlm, audio)."""
 
 from __future__ import annotations
 
@@ -9,12 +9,14 @@ from typing import Dict
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.granite_3_2b import CONFIG as _granite_3_2b
 from repro_torch.configs.h2o_danube_1_8b import CONFIG as _h2o_danube_1_8b
+from repro_torch.configs.hubert_xlarge import CONFIG as _hubert_xlarge
 from repro_torch.configs.phi4_mini_3_8b import CONFIG as _phi4_mini_3_8b
+from repro_torch.configs.pixtral_12b import CONFIG as _pixtral_12b
 from repro_torch.configs.qwen2_1_5b import CONFIG as _qwen2_1_5b
 
 ARCHS: Dict[str, ModelConfig] = {
     c.name: c for c in (_qwen2_1_5b, _granite_3_2b, _h2o_danube_1_8b,
-                        _phi4_mini_3_8b)}
+                        _phi4_mini_3_8b, _pixtral_12b, _hubert_xlarge)}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -27,7 +29,7 @@ def get_config(name: str) -> ModelConfig:
 
 def reduced_config(name: str, **overrides) -> ModelConfig:
     """Small variant of an arch with the same topology knobs (mirrors
-    ``repro.configs.reduced_config`` for the dense family)."""
+    ``repro.configs.reduced_config`` for the families the port has)."""
     cfg = get_config(name)
     small = dict(
         num_layers=2,

@@ -5,9 +5,10 @@ projections are the computation-intensive GEMMs the paper's CONV layers
 stand for. The port's LM keeps ``params["blocks"]`` as a per-layer list,
 so ``layer_params`` indexes it and ``with_layer_params`` returns a tree
 with a new list (the old tree is left as it was). Synthetic data in the
-paper's spirit: uniform token ids, no prior knowledge of the client's
-corpus. Every forward here runs dense weights with autograd, attention
-on ``blockwise_attention``. ``per_example_loss`` is the hook the
+paper's spirit, no prior knowledge of the client's corpus: uniform token
+ids, or N(0, 1) embeddings for a model whose front end is a stub. Every
+forward here runs dense weights with autograd, attention on
+``blockwise_attention``. ``per_example_loss`` is the hook the
 membership-inference report (``privacy/report.py``) reads.
 """
 
@@ -19,7 +20,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.admm_traditional import per_example_cross_entropy
-from repro_torch.core.synthetic import synthetic_tokens
+from repro_torch.core.synthetic import synthetic_embeddings, synthetic_tokens
 from repro_torch.models.transformer import LM
 from repro_torch.utils.tree import tree_map
 
@@ -30,9 +31,6 @@ class LMAdapter:
 
     model: LM
     seq_len: int = 128
-
-    # which no-prior-knowledge generator feeds the pruner (provenance)
-    synthetic_kind = "uniform_tokens"
 
     def __post_init__(self):
         self.num_layers = self.config.num_layers
@@ -45,12 +43,23 @@ class LMAdapter:
     def device(self) -> torch.device:
         return self.model.device
 
+    @property
+    def synthetic_kind(self) -> str:
+        """Which no-prior-knowledge generator feeds the pruner
+        (provenance)."""
+        return ("uniform_tokens" if self.config.input_kind == "tokens"
+                else "normal_embeddings")
+
     # ---- SequentialAdapter protocol ---------------------------------------
 
     def synthetic_batch(self, gen: torch.Generator,
                         batch_size: int) -> torch.Tensor:
-        return synthetic_tokens(gen, batch_size, self.seq_len,
-                                self.config.vocab_size, device=self.device)
+        cfg = self.config
+        if cfg.input_kind == "tokens":
+            return synthetic_tokens(gen, batch_size, self.seq_len,
+                                    cfg.vocab_size, device=self.device)
+        return synthetic_embeddings(gen, batch_size, self.seq_len,
+                                    cfg.d_model, device=self.device)
 
     def embed(self, params, batch):
         return self.model.embed_inputs(params, batch)

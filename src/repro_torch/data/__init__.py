@@ -3,7 +3,10 @@
 from repro_torch.data.pipeline import (
     ClassificationPipeline,
     DataConfig,
+    EmbeddingPipeline,
     TokenPipeline,
+    make_pipeline_for,
 )
 
-__all__ = ["ClassificationPipeline", "DataConfig", "TokenPipeline"]
+__all__ = ["ClassificationPipeline", "DataConfig", "EmbeddingPipeline",
+           "TokenPipeline", "make_pipeline_for"]

@@ -8,8 +8,7 @@ real loader has: step-indexed, resumable, on one device.
 A batch is a pure function of (seed, step): it is drawn from a
 ``torch.Generator`` seeded by splitmix64 of the two (``fold_in``), so a
 restart at step K regenerates the stream from K with no loader state.
-The values follow the reference's distributions, not its bits. The
-embedding-input pipeline waits for the embedding-input model families.
+The values follow the reference's distributions, not its bits.
 """
 
 from __future__ import annotations
@@ -28,6 +27,7 @@ class DataConfig:
     seq_len: int = 1024
     global_batch: int = 8
     vocab_size: int = 32_000
+    d_model: int = 0                 # EmbeddingPipeline
     num_classes: int = 10            # ClassificationPipeline
     image_hwc: Tuple[int, int, int] = (32, 32, 3)
     seed: int = 1234
@@ -70,6 +70,33 @@ class TokenPipeline:
             step += 1
 
 
+class EmbeddingPipeline:
+    """(embeddings, labels) stream for a model whose front end is a stub:
+    ``batch_at(step)`` is pure in (seed, step), ``inputs`` (B, S, D) fp32
+    N(0, 1), ``labels`` (B, S) int32 uniform over the vocabulary (the
+    reference's dtypes)."""
+
+    def __init__(self, config: DataConfig, *, device: DeviceLike = None):
+        self.config = config
+        self.device = resolve_device(device)
+
+    def batch_at(self, step: int) -> Dict[str, torch.Tensor]:
+        cfg = self.config
+        g = _generator(cfg.seed, step, self.device)
+        B, S = cfg.global_batch, cfg.seq_len
+        emb = torch.randn((B, S, cfg.d_model), generator=g,
+                          device=self.device)
+        labels = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                               device=self.device, dtype=torch.int32)
+        return {"inputs": emb, "labels": labels}
+
+    def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1
+
+
 class ClassificationPipeline:
     """Labelled image stream, the client's "confidential" set: each class
     has a fixed prototype image and a sample is its prototype plus noise,
@@ -104,3 +131,16 @@ class ClassificationPipeline:
         while True:
             yield self.batch_at(step)
             step += 1
+
+
+def make_pipeline_for(kind: str, config: DataConfig, *,
+                      device: DeviceLike = None):
+    """The pipeline of an input kind: 'lm' | 'embeddings' |
+    'classification'."""
+    if kind == "lm":
+        return TokenPipeline(config, device=device)
+    if kind == "embeddings":
+        return EmbeddingPipeline(config, device=device)
+    if kind == "classification":
+        return ClassificationPipeline(config, device=device)
+    raise ValueError(f"unknown pipeline kind '{kind}'")

@@ -142,6 +142,11 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Result]:
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     if cfg.encoder_only:
         raise SystemExit(f"{args.arch} is encoder-only; no decode serving")
+    if cfg.input_kind != "tokens":
+        raise SystemExit(
+            f"{args.arch} takes {cfg.input_kind} from a stub front end; "
+            "decode serving feeds sampled token ids back, so it is served "
+            "at the LM level (LM.prefill / LM.decode_step on embeddings)")
     if args.packed and not args.artifact:
         raise SystemExit("--packed requires --artifact")
     dev = resolve_device(args.device)

@@ -3,8 +3,9 @@
 ``prefill_attention`` is the full-sequence attention of the LM: on the
 card a serving call (``use_flash``) of a shape ``flash_prefill_supported``
 admits runs the ``flash_attention`` kernel; every other call, a training
-forward included, runs ``blockwise_attention``, the plain q-chunked
-online-softmax version (differentiable by autograd). Decode attends one
+forward included, runs ``blockwise_attention``, the q-chunked
+online-softmax version with the reference's recompute backward (a causal
+window visits only its band of kv chunks). Decode attends one
 new position against the KV cache, and a speculative verify chunk K
 positions (``chunk_attention``), with plain tensor ops (XLA ops in the
 reference, not Pallas kernels). A sliding-window model keeps a RING
@@ -73,40 +74,94 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: Optional[int] = None,
                         chunk: int = 512,
                         softmax_scale: Optional[float] = None) -> torch.Tensor:
-    """Q-chunk online-softmax attention, the reference's ``_qchunk_fwd``:
-    q pre-scaled in its dtype, fp32 scores and (m, l, acc), every kv chunk
-    of the sequence visited (masked ones add exp(NEG_INF - m) = 0)."""
+    """Q-chunk online-softmax attention with a recompute backward, the
+    reference's ``blockwise_attention`` (its ``_flash_vjp``): the forward
+    keeps only each q chunk's softmax stats (m, l) beside the output, and
+    the backward recomputes the score tiles from them in two passes (dq
+    over the kv band, then dk / dv over the q band) instead of autograd
+    keeping every tile. A causal window visits only its band of kv
+    chunks, so it costs O(S * window), not O(S^2)."""
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(
+        q.shape[-1])
+    return _BlockwiseAttention.apply(q, k, v, causal, window,
+                                     min(chunk, q.shape[1]), float(scale))
+
+
+def _blockwise_qchunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: Optional[int] = None,
+                      chunk: int = 512,
+                      softmax_scale: Optional[float] = None,
+                      banded: bool = True) -> torch.Tensor:
+    """The plain q-chunk loop, differentiated by autograd (the test oracle
+    of ``blockwise_attention``, as the reference's ``_blockwise_qchunk``
+    is of its custom VJP). ``banded=False`` visits every kv chunk."""
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(
+        q.shape[-1])
+    return _qchunk_fwd(q, k, v, causal=causal, window=window,
+                       chunk=min(chunk, q.shape[1]), scale=float(scale),
+                       banded=banded)[0]
+
+
+def kv_band(n: int, chunk: int, causal: bool, window: Optional[int]) -> int:
+    """kv chunks a q chunk visits: the causal window's band, else all n. A
+    non-causal window bounds only the past, so it takes no band."""
+    if window is not None and causal:
+        return min(n, (window - 1) // chunk + 2)
+    return n
+
+
+def _band_start(qi: int, band: int, n: int) -> int:
+    return max(qi - (band - 1), 0) if band < n else 0
+
+
+def _chunk_mask(q_pos, k_pos, causal: bool, window: Optional[int]):
+    ok = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                    device=q_pos.device)
+    if causal:
+        ok &= q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        ok &= q_pos[:, None] - k_pos[None, :] < window
+    return ok
+
+
+def _scores(qc, kc, q_pos, k_pos, causal: bool, window: Optional[int]):
+    """One masked fp32 score tile (B, c, c, KV, G) of a q chunk (B, c, KV,
+    G, hd) against a kv chunk (B, c, KV, hd), q pre-scaled."""
+    s = torch.einsum("bqkgd,bpkd->bqpkg", qc, kc)
+    ok = _chunk_mask(q_pos, k_pos, causal, window)
+    return torch.where(ok[None, :, :, None, None], s,
+                       torch.full_like(s, NEG_INF))
+
+
+def _qchunk_fwd(q, k, v, *, causal: bool, window: Optional[int], chunk: int,
+                scale: float, banded: bool = True):
+    """The reference's ``_qchunk_fwd``: q pre-scaled in its dtype, fp32
+    scores and (m, l, acc), each q chunk's kv band visited (masked entries
+    add exp(NEG_INF - m) = 0) -> (out (B, S, H, hd), m, l), the stats
+    (n, B, c, KV, G) for the backward."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
-    chunk = min(chunk, S)
     if S % chunk:
         raise ValueError(f"S={S} not divisible by chunk={chunk}")
     n = S // chunk
-    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(hd)
+    band = kv_band(n, chunk, causal, window) if banded else n
     qs = (q.to(torch.float32) * scale).to(q.dtype)
     qg = qs.reshape(B, S, KV, G, hd).to(torch.float32)
     kf, vf = k.to(torch.float32), v.to(torch.float32)
     pos = torch.arange(chunk, device=q.device)
-    out = torch.empty((B, S, KV, G, hd), dtype=torch.float32, device=q.device)
+    outs, ms, ls = [], [], []
     for qi in range(n):
         qc = qg[:, qi * chunk:(qi + 1) * chunk]             # (B, c, KV, G, hd)
         q_pos = qi * chunk + pos
         m = torch.full((B, chunk, KV, G), NEG_INF, device=q.device)
         l = torch.zeros((B, chunk, KV, G), device=q.device)
         acc = torch.zeros((B, chunk, KV, G, hd), device=q.device)
-        for kj in range(n):
-            kc = kf[:, kj * chunk:(kj + 1) * chunk]
+        j0 = _band_start(qi, band, n)
+        for kj in range(j0, j0 + band):
             vc = vf[:, kj * chunk:(kj + 1) * chunk]
-            s = torch.einsum("bqkgd,bpkd->bqpkg", qc, kc)
-            k_pos = kj * chunk + pos
-            ok = torch.ones((chunk, chunk), dtype=torch.bool, device=q.device)
-            if causal:
-                ok &= q_pos[:, None] >= k_pos[None, :]
-            if window is not None:
-                ok &= q_pos[:, None] - k_pos[None, :] < window
-            s = torch.where(ok[None, :, :, None, None], s,
-                            torch.full_like(s, NEG_INF))
+            s = _scores(qc, kf[:, kj * chunk:(kj + 1) * chunk], q_pos,
+                        kj * chunk + pos, causal, window)
             m_new = torch.maximum(m, s.amax(dim=2))
             p = torch.exp(s - m_new[:, :, None])
             corr = torch.exp(m - m_new)
@@ -115,9 +170,91 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                               p.to(v.dtype).to(torch.float32), vc)
             acc = acc * corr[..., None] + pv
             m = m_new
-        out[:, qi * chunk:(qi + 1) * chunk] = (
-            acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
-    return out.reshape(B, S, H, hd).to(q.dtype)
+        outs.append((acc / l.clamp_min(1e-30)[..., None]).to(q.dtype))
+        ms.append(m)
+        ls.append(l)
+    out = torch.cat(outs, dim=1).reshape(B, S, H, hd).to(q.dtype)
+    return out, torch.stack(ms), torch.stack(ls)
+
+
+def _qchunk_bwd(q, k, v, out, m_all, l_all, dout, *, causal: bool,
+                window: Optional[int], chunk: int, scale: float):
+    """The reference's ``_qchunk_bwd_impl``: score tiles recomputed from
+    the forward's (m, l), so p = exp(s - m) / l exactly. Pass A: dq, each
+    q chunk over its kv band; pass B: dk / dv, each kv chunk over the q
+    chunks that see it (under causality the band after it)."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    n = S // chunk
+    band = kv_band(n, chunk, causal, window)
+    f32 = torch.float32
+    pos = torch.arange(chunk, device=q.device)
+    qg = (q.to(f32) * scale).to(q.dtype).reshape(B, S, KV, G, hd).to(f32)
+    do = dout.reshape(B, S, KV, G, hd)
+    D = (do.to(f32) * out.reshape(B, S, KV, G, hd).to(f32)).sum(dim=-1)
+    do = do.to(f32)
+    kf, vf = k.to(f32), v.to(f32)
+    linv = 1.0 / l_all.clamp_min(1e-30)
+
+    def rows(t, i):
+        return t[:, i * chunk:(i + 1) * chunk]
+
+    def p_tile(qi, kj):
+        s = _scores(rows(qg, qi), rows(kf, kj), qi * chunk + pos,
+                    kj * chunk + pos, causal, window)
+        return torch.exp(s - m_all[qi][:, :, None]) * linv[qi][:, :, None]
+
+    def ds_tile(p, qi, kj):
+        dP = torch.einsum("bqkgd,bpkd->bqpkg", rows(do, qi), rows(vf, kj))
+        return p * (dP - rows(D, qi)[:, :, None])
+
+    dq = []
+    for qi in range(n):                                 # pass A: dq
+        dqc = torch.zeros((B, chunk, KV, G, hd), dtype=f32, device=q.device)
+        j0 = _band_start(qi, band, n)
+        for kj in range(j0, j0 + band):
+            ds = ds_tile(p_tile(qi, kj), qi, kj)
+            dqc = dqc + torch.einsum("bqpkg,bpkd->bqkgd",
+                                     ds.to(k.dtype).to(f32), rows(kf, kj))
+        dq.append((dqc * scale).to(q.dtype))
+    qband = band if causal else n
+    dk, dv = [], []
+    for kj in range(n):                                 # pass B: dk, dv
+        dkc = torch.zeros((B, chunk, KV, hd), dtype=f32, device=q.device)
+        dvc = torch.zeros_like(dkc)
+        j0 = kj if causal else 0
+        for qi in range(j0, min(j0 + qband, n)):
+            p = p_tile(qi, kj)
+            dvc = dvc + torch.einsum("bqpkg,bqkgd->bpkd",
+                                     p.to(dout.dtype).to(f32), rows(do, qi))
+            ds = ds_tile(p, qi, kj)
+            dkc = dkc + torch.einsum("bqpkg,bqkgd->bpkd",
+                                     ds.to(q.dtype).to(f32), rows(qg, qi))
+        dk.append(dkc.to(k.dtype))
+        dv.append(dvc.to(v.dtype))
+    return (torch.cat(dq, dim=1).reshape(B, S, H, hd), torch.cat(dk, dim=1),
+            torch.cat(dv, dim=1))
+
+
+class _BlockwiseAttention(torch.autograd.Function):
+    """``_qchunk_fwd`` with ``_qchunk_bwd`` as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, chunk, scale):
+        out, m, l = _qchunk_fwd(q, k, v, causal=causal, window=window,
+                                chunk=chunk, scale=scale)
+        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.static = (causal, window, chunk, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        causal, window, chunk, scale = ctx.static
+        dq, dk, dv = _qchunk_bwd(*ctx.saved_tensors, dout.contiguous(),
+                                 causal=causal, window=window, chunk=chunk,
+                                 scale=scale)
+        return dq, dk, dv, None, None, None, None
 
 
 @dataclasses.dataclass

@@ -12,8 +12,12 @@ carry autograd; ``init``, ``prefill`` and decode run under
 ``torch.no_grad``. ``verify_chunk``, ``cache_snapshot`` and
 ``cache_rollback`` are the speculative engine's chunked verify and rewind.
 A ``sliding_window`` model attends to the last ``window`` positions in
-every forward and serves from a ring cache (``_cache_ring``). Only the
-dense family is ported; other families raise.
+every forward and serves from a ring cache (``_cache_ring``). The dense
+family and the two embedding-input ones are ported: ``vlm`` (pixtral)
+and ``audio`` (hubert), whose stub front ends hand the model (B, S, D)
+embeddings, so their trees have no ``embed`` table; an encoder-only
+config (``causal=False``) attends both ways in every full-sequence
+forward. The moe, ssm and hybrid families raise.
 """
 
 from __future__ import annotations
@@ -50,17 +54,21 @@ from repro_torch.models.layers import (
 )
 
 LOSS_CHUNK = 512               # sequence positions per cross-entropy chunk
+PORTED_FAMILIES = ("dense", "vlm", "audio")
+UNPORTED_FAMILIES = ("moe", "ssm", "hybrid")
 
 
 class LM:
-    """The reference's ``LM`` for ``family == "dense"``, on one device."""
+    """The reference's ``LM`` for the dense, vlm and audio families, on one
+    device."""
 
     def __init__(self, config: ModelConfig, *, device: DeviceLike = None):
-        if config.family != "dense":
+        if config.family in UNPORTED_FAMILIES:
             raise NotImplementedError(
-                f"family {config.family!r} is not ported yet (dense only)")
-        if config.input_kind != "tokens":
-            raise NotImplementedError("embedding inputs are not ported yet")
+                f"family {config.family!r} is not ported yet (ported: "
+                f"{', '.join(PORTED_FAMILIES)})")
+        if config.family not in PORTED_FAMILIES:
+            raise ValueError(f"unknown family '{config.family}'")
         self.config = config
         self.device = resolve_device(device)
         self.dtype = dtype_of(config.param_dtype)
@@ -83,19 +91,34 @@ class LM:
             for n in names:
                 block[f"mlp/{n}"] = ((cfg.d_ff, D) if n == "w_down"
                                      else (D, cfg.d_ff))
-        shapes = {"embed": (cfg.vocab_size, D), "final_norm/scale": (D,)}
+        shapes = {"final_norm/scale": (D,)}
+        if self.takes_tokens:
+            shapes["embed"] = (cfg.vocab_size, D)
         for layer in range(cfg.num_layers):
             shapes.update({f"blocks/{layer}/{k}": v for k, v in block.items()})
-        if not cfg.tie_embeddings:
+        if self.has_lm_head:
             shapes["lm_head"] = (D, cfg.vocab_size)
         return shapes
+
+    @property
+    def takes_tokens(self) -> bool:
+        """Token ids in, through an ``embed`` table; else (B, S, D)
+        embeddings from a stub front end, and no table."""
+        return self.config.input_kind == "tokens"
+
+    @property
+    def has_lm_head(self) -> bool:
+        # an embedding-input model has no table to tie its head to
+        return not (self.config.tie_embeddings and self.takes_tokens)
 
     @torch.no_grad()
     def init(self, gen: torch.Generator) -> Dict[str, Any]:
         """Random weights drawn from ``gen`` (a generator on this device)."""
         cfg, dt, dev = self.config, self.dtype, self.device
-        params: Dict[str, Any] = {
-            "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dt, dev)}
+        params: Dict[str, Any] = {}
+        if self.takes_tokens:
+            params["embed"] = embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                         dt, dev)
         blocks = []
         for _ in range(cfg.num_layers):
             attn = {"wq": dense_init(gen, cfg.d_model, cfg.attn_dim, dt, dev),
@@ -114,15 +137,24 @@ class LM:
             blocks.append(block)
         params["blocks"] = blocks
         params["final_norm"] = rmsnorm_init(cfg.d_model, dt, dev)
-        if not cfg.tie_embeddings:
+        if self.has_lm_head:
             params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
                                            dt, dev)
         return params
 
     # --------------------------------------------------------------- forward
 
-    def embed_inputs(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"][tokens]
+    def embed_inputs(self, params, inputs: torch.Tensor) -> torch.Tensor:
+        """Token ids (B, S) through the table, or (B, S, D) embeddings cast
+        to the parameter dtype."""
+        if self.takes_tokens:
+            return params["embed"][inputs]
+        if inputs.ndim != 3 or inputs.shape[-1] != self.config.d_model:
+            raise ValueError(
+                f"{self.config.name} takes (B, S, {self.config.d_model}) "
+                f"embeddings from its front end, got shape "
+                f"{tuple(inputs.shape)}")
+        return inputs.to(self.dtype)
 
     def _qkv(self, bp, h: torch.Tensor, sin, cos):
         cfg = self.config
@@ -242,7 +274,8 @@ class LM:
     @torch.no_grad()
     def prefill(self, params, tokens: torch.Tensor, seq_len: int,
                 cache: Optional[Dict[str, Any]] = None):
-        """Run the prompt, build the cache -> (cache, last-token logits).
+        """Run the prompt, tokens (B, S) or embeddings (B, S, D), build the
+        cache -> (cache, last-token logits).
 
         With ``cache`` (one of ``init_cache(B, seq_len)``) the prompt is
         written into it IN PLACE (slots past the prompt marked empty)
@@ -250,7 +283,7 @@ class LM:
         same tensors. A ring cache keeps the prompt's last C positions,
         position p in slot p % C; a full one refuses a prompt past C.
         """
-        B, S = tokens.shape
+        B, S = tokens.shape[:2]
         if cache is None:
             cache = self.init_cache(B, seq_len)
         C = cache["slot_pos"].shape[1]
@@ -270,7 +303,8 @@ class LM:
     @torch.no_grad()
     def prefill_into_slot(self, params, cache: Dict[str, Any],
                           prompt: torch.Tensor, slot):
-        """Prefill ONE prompt (1, S) into ONE slot of a LIVE decode cache
+        """Prefill ONE prompt (1, S) (or embeddings (1, S, D)) into ONE
+        slot of a LIVE decode cache
         -> (cache, last-token logits (1, 1, V)).
 
         ``slot``: a Python int or a one-element int64 tensor on the
@@ -306,7 +340,8 @@ class LM:
     @torch.no_grad()
     def decode_step(self, params, cache: Dict[str, Any],
                     tokens: torch.Tensor):
-        """One decode step for tokens (B, 1); updates ``cache`` IN PLACE
+        """One decode step for tokens (B, 1) or embeddings (B, 1, D);
+        updates ``cache`` IN PLACE
         (k/v/slot_pos and pos: the same tensors, so a captured graph of
         this step replays on them) -> (cache, logits (B, 1, V))."""
         cfg = self.config
@@ -384,7 +419,8 @@ class LM:
                      tokens: torch.Tensor):
         """K positions per row in one pass -> (cache, logits (B, K, V)).
 
-        ``tokens`` (B, K): the last committed token, then K - 1 drafts.
+        ``tokens`` (B, K) (or embeddings (B, K, D)): the last committed
+        token, then K - 1 drafts.
         Row b runs at its own positions ``pos[b] .. pos[b] + K - 1`` (per
         row rope and causal horizon). In a full cache the chunk's k/v are
         inserted FIRST, IN PLACE, then ``chunk_attention`` masks by
@@ -401,7 +437,7 @@ class LM:
         self._require_kv_family("verify_chunk")
         cfg = self.config
         x = self.embed_inputs(params, tokens)
-        B, K = tokens.shape
+        B, K = tokens.shape[:2]
         pos = cache["pos"]
         C = cache["slot_pos"].shape[1]
         ring = self._cache_ring(cache)

@@ -152,6 +152,24 @@ def _resolve_params(model: LM, params: Any, packed: bool):
     return params, None
 
 
+def require_token_input(model: LM, engine: str) -> None:
+    """An engine decodes by feeding each sampled token id back into the
+    model; a model fed embeddings by a stub front end has no table to
+    embed them with. Refuse it at construction (the reference's engines
+    fail on it inside the decode loop): such a model is served at the LM
+    level, ``prefill`` / ``decode_step`` on front-end embeddings, or
+    ``hidden_states`` then ``lm_logits`` for an encoder."""
+    cfg = model.config
+    if cfg.input_kind != "tokens":
+        raise ValueError(
+            f"{engine} cannot serve {cfg.name}: it takes {cfg.input_kind} "
+            "from a stub front end, and decoding feeds sampled token ids "
+            "back into the model, which has no embedding table; serve it "
+            "at the LM level (LM.prefill / LM.decode_step on embeddings"
+            + (", or LM.hidden_states then LM.lm_logits for an encoder"
+               if cfg.encoder_only else "") + ")")
+
+
 def _bucketed_generate(requests: Sequence[Request], batch_size: int,
                        generate_batch: Callable[[List[Request]],
                                                 List[Result]]
@@ -199,6 +217,7 @@ class _Engine:
                  max_seq_len: int, packed: bool, seed: int,
                  sampler: Callable, decode_width: int, device: DeviceLike,
                  graph_pool: Optional[GraphPool] = None):
+        require_token_input(model, type(self).__name__)
         self.device = resolve_device(device)
         if not same_device(model.device, self.device):
             raise ValueError(f"model is on {model.device}, engine on "

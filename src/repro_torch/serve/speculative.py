@@ -63,6 +63,7 @@ from repro_torch.serve.engine import (
     Result,
     ServeEngine,
     _bucketed_generate,
+    require_token_input,
 )
 from repro_torch.serve.graphs import SpeculativeRoundGraph
 from repro_torch.serve.sampler import (
@@ -162,6 +163,7 @@ class SpeculativeEngine:
         self.model = model
         self.draft_model = draft_model if draft_model is not None else model
         for m, who in ((model, "target"), (self.draft_model, "drafter")):
+            require_token_input(m, f"SpeculativeEngine ({who})")
             m._require_kv_family(f"speculative serving ({who})")
         if self.draft_model.config.vocab_size != model.config.vocab_size:
             raise ValueError("drafter and target must share a vocabulary")

@@ -1163,3 +1163,69 @@ def test_speculative_serve_launcher_on_the_card(cuda, tmp_path):
                     "--draft-k", "2", "--requests", "2", "--max-new", "6")
     assert "dense+speculative(k=2), cuda" in out
     assert "speculative:" in out and "acceptance" in out
+
+
+# --------------------------------------- the embedding-input families (card)
+
+# (B, S, H, KV, hd, causal): pixtral-12b's prefill (32 / 8 of 128, causal)
+# and hubert-xlarge's encoder (16 / 16 of 80, bidirectional, S 1 500 no
+# multiple of any tile: the kernel masks the keys past S)
+FAMILY_FLASH_CASES = ((2, 1024, 32, 8, 128, True),
+                      (2, 1500, 16, 16, 80, False),
+                      (1, 75, 16, 16, 80, False))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,H,KV,hd,causal", FAMILY_FLASH_CASES)
+def test_flash_at_the_families_shapes_matches_plain(cuda, B, S, H, KV, hd,
+                                                    causal, dtype):
+    g = torch.Generator(device=cuda).manual_seed(S + hd)
+    q, k, v = _qkv(g, B, S, H, KV, hd, cuda, dtype)
+    want_route = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert fa.flash_variant(S, hd, dtype, None, causal) == want_route
+    got = fa.flash_attention(q, k, v, causal=causal)
+    want = fa.flash_attention_ref(q, k, v, causal=causal)
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M", [4, 1500])
+def test_pattern_gemm_gelu_at_hubert_w_up(cuda, dtype, M):
+    """hubert-xlarge's ``w_up`` (1 280 -> 5 120) with the fused GELU."""
+    g = torch.Generator(device=cuda).manual_seed(M)
+    w = (torch.randn(1280, 5120, generator=g, device=cuda) / 1280 ** 0.5)
+    w = project_tile_pattern(w.to(dtype).T, block_p=128).T.contiguous()
+    wpb, li = pg.pack_tile_pattern_blocked(w, block_p=128)
+    x = torch.randn(M, 1280, generator=g, device=cuda).to(dtype)
+    got = pg.pattern_gemm(x, wpb, li, activation="gelu")
+    want = pg.pattern_gemm_ref(x, wpb, li, activation="gelu")
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+def test_pixtral_two_layers_decode_packed_against_dense_pruned(cuda):
+    """pixtral-12b at full width, 2 layers, fp32: a prefill of 2 x 64
+    patch embeddings, then one decode step on embeddings, packed against
+    dense-pruned (argmax identical, logits within 2e-5), every GEMM
+    through ``pattern_gemm``."""
+    cfg = dataclasses.replace(get_config("pixtral-12b"), num_layers=2,
+                              param_dtype="float32")
+    model = LM(cfg, device=cuda)
+    art = greedy_prune(model.init(torch.Generator(device=cuda).manual_seed(
+        0)), PruneConfig(scheme="tile_pattern")).pack()
+    packed = art.bind(model, packed=True)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(2, 64, cfg.d_model, generator=g, device=cuda)
+    e = torch.randn(2, 1, cfg.d_model, generator=g, device=cuda)
+    cd, _ = model.prefill(art.params, x, 80)
+    cp, _ = model.prefill(packed, x, 80)
+    want = model.decode_step(art.params, cd, e)[1]
+    _zero_counts()
+    got = model.decode_step(packed, cp, e)[1]
+    torch.cuda.synchronize()
+    assert pg.LAUNCHES == 7 * cfg.num_layers + 1
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)

@@ -44,8 +44,8 @@ def test_engine_import_pulls_in_no_jax():
             "repro_torch.runtime, repro_torch.launch.pipeline, "
             "repro_torch.launch.train, repro_torch.serve.slots, "
             "repro_torch.serve.scheduler, repro_torch.runtime.trace_analysis, "
-            "repro_torch.serve.speculative, "
-            "repro_torch.testing; "
+            "repro_torch.serve.speculative, repro_torch.models.model, "
+            "repro_torch.core.synthetic, repro_torch.testing; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -144,7 +144,7 @@ def test_prune_launcher_and_pipelines_refuse_a_missing_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
     from repro_torch.data import ClassificationPipeline, DataConfig
-    from repro_torch.data import TokenPipeline
+    from repro_torch.data import EmbeddingPipeline, TokenPipeline
     from repro_torch.launch import prune
 
     argv = ["--arch", "qwen2-1.5b", "--reduced", "--scheme", "tile_pattern",
@@ -153,7 +153,7 @@ def test_prune_launcher_and_pipelines_refuse_a_missing_card(tmp_path):
     with pytest.raises(RuntimeError):
         prune.main(argv)
     assert not (tmp_path / "out").exists()
-    for cls in (TokenPipeline, ClassificationPipeline):
+    for cls in (TokenPipeline, ClassificationPipeline, EmbeddingPipeline):
         with pytest.raises(RuntimeError):
             cls(DataConfig())
     result = prune.main(argv + ["--device", "cpu"])
