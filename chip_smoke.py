@@ -31,7 +31,11 @@ result line is printed:
               granite-3-2b and phi4-mini-3.8b (M = 4, 512, 2 048), and
               their prefills' flash calls (hubert's bidirectional at hd
               80 and a ragged S = 1 500), checked in bf16 and fp32 and
-              timed in bf16 only.
+              timed in bf16 only; and [moe]'s: the packed GEMMs of
+              qwen2-moe-a2.7b (M = 4, 64, 200, 512, 2 048; head 1, 4) and
+              deepseek-moe-16b (M = 4, 512, 2 048), and the MHA 16 / 16
+              hd-128 flash calls at B = 4, S = 128 and 512 and B = 1,
+              S = 64, 200 and 512, the same way.
 4. serve    — qwen2-1.5b at full width (28 layers, d_model 1536, vocab
               151 936, bf16), seeded random weights, greedy tile-pattern
               prune (4 of 8 lanes, block_p 128), packed, saved to a
@@ -169,7 +173,36 @@ result line is printed:
               served as ``[serve]`` serves qwen2-1.5b: prefill ms a
               chunk and decode ms a step from graph replays, fp32 token
               identity at 4 layers. Each part prints its ``[time]``.
-12. admm    — the paper's algorithm: qwen2-1.5b at full width (bf16,
+12. moe     — the MoE family, each part with its ``[time]``: (a)
+              qwen2-moe-a2.7b at full width and depth (24 layers,
+              d_model 2048, 16 / 16 heads of 128, 60 routed experts of
+              1 408 top-4 + 4 shared, vocab 151 936, bf16), seeded random
+              weights; tile-pattern with the routed experts not excluded
+              raises (the reference's ``ValueError``); pruned a layer at a
+              time with them excluded (tile 4 of 8, block_p 128), packed
+              (attention, shared SwiGLU and head; the experts stay dense
+              and must be the init's tensors, not copies), served by the
+              launcher's engine as ``[serve]`` serves qwen2-1.5b (8
+              requests, 32 new): launches 2 x 32 x (7 L + 1)
+              ``pattern_gemm`` and 2 L flash, all wgmma, graph ≡ eager on
+              the S = 512 chunk; readings: weight bytes, peak memory,
+              prefill ms a chunk and decode ms a step (graph replays), a
+              profile of a decode replay and a split of an eager decode
+              step (router, dispatch / combine, expert einsums,
+              ``pattern_gemm``, attention); (b) the same model through
+              ``ContinuousEngine`` (6 requests of S 512 / 200 / 64, each
+              bit-identical to its solo run) and ``SpeculativeEngine``
+              (the artifact packed drafting for its pruned weights bound
+              dense, ``[speculative]``'s settings; round graph ≡ eager);
+              (c) deepseek-moe-16b (28 layers, 64 routed top-6 + 2
+              shared, vocab 102 400) as (a); (d) at 4 layers of full
+              width in fp32, both configs: packed tokens ≡ dense-pruned,
+              continuous ≡ ``ServeEngine(batch_size=1)``; (e) the
+              artifact at 2 layers saved, loaded bit-equal and served;
+              (f) one layer-wise ADMM iteration at 2 of 24 layers on
+              uniform synthetic tokens (batch 16 x 64): seconds, busy
+              share, launches; packed, one prefill gated.
+13. admm    — the paper's algorithm: qwen2-1.5b at full width (bf16,
               seeded random teacher) pruned by layer-wise ADMM on
               synthetic tokens (``PrivacyPreservingPruner`` with
               ``launch.prune.prune_config_for(scheme="tile_pattern",
@@ -196,7 +229,7 @@ result line is printed:
               then ``launch.serve --reduced --artifact --packed`` as
               subprocesses: both exit 0, serve prefilling through the
               blockwise fallback (head_dim 16).
-13. admm_cnn — VGG-16 at full width (ImageNet head, 224 x 224, fp32)
+14. admm_cnn — VGG-16 at full width (ImageNet head, 224 x 224, fp32)
               pruned by layer-wise ADMM ``pattern_shared`` alpha 0.25
               (batch 32, 4 iterations; some pruned leaf off the greedy
               projection), retrained by 10 masked AdamW steps on
@@ -206,7 +239,7 @@ result line is printed:
               ``pattern_conv`` launch per stride-1 3x3 conv (counts zeroed
               around it); the fp32 top-1 gate of ``[cnn]``. Seconds per
               iteration and per step, peak memory.
-14. pipeline — the privacy-preserving pruning service
+15. pipeline — the privacy-preserving pruning service
               (``launch.pipeline.main`` in process, full scale, quick
               budgets, no stage retries: every stage must succeed on
               its one attempt): VGG-16 at width 1.0 on 32 x 32 x 3
@@ -228,7 +261,7 @@ result line is printed:
               tokens, 16 new; counts zeroed around it: ``pattern_gemm``
               launched, every flash call on wgmma, no fallback) and fp32
               dense-pruned vs packed greedy tokens identical.
-15. report  — one ``{"kernels": [...]}`` JSON line covering all four
+16. report  — one ``{"kernels": [...]}`` JSON line covering all four
               kernels (each a sum over the bf16 shapes its served path
               launches; the GEMMs' ``lm_head`` at M = 512 and 2048, which
               prefill never launches, and every GEMM at a verify chunk's
@@ -410,6 +443,27 @@ PHI4_GEMMS = (
     ("w_down", 8192, 3072, False, None),
     ("lm_head", 3072, 200064, False, None),
 )
+# [moe]'s packed GEMMs: qwen2-moe-a2.7b's attention projections (all four
+# 2 048 x 2 048) and shared SwiGLU (4 x 1 408 wide) at M = 4 (decode, the
+# drafter's steps), 64 / 200 / 512 (continuous admissions, the drafter's
+# 4 x 128 prefill) and 2 048 (a 4 x 512 chunk), its head at M = 1 and 4;
+# deepseek-moe-16b's shared SwiGLU (2 x 1 408) and head at M = 4, 512 and
+# 2 048 (its attention is qwen2-moe's shape). The routed experts stay
+# dense einsums.
+QWEN2_MOE_GEMMS = (
+    ("wq/wk/wv/wo", 2048, 2048, False, None),
+    ("w_gate", 2048, 5632, False, "silu"),
+    ("w_up", 2048, 5632, False, None),
+    ("w_down", 5632, 2048, False, None),
+    ("lm_head", 2048, 151936, False, None),
+)
+QWEN2_MOE_MS = (4, 64, 200, 512, 2048)
+DEEPSEEK_MOE_GEMMS = (
+    ("w_gate", 2048, 2816, False, "silu"),
+    ("w_up", 2048, 2816, False, None),
+    ("w_down", 2816, 2048, False, None),
+    ("lm_head", 2048, 102400, False, None),
+)
 FLASH_SHAPES = dict(H=12, KV=2, hd=128)
 # (B, S, causal, window): the served prefill chunks (B = 4, S = 128, 512),
 # the ragged edge (S = 200), a sliding window, a non-causal call, and
@@ -431,12 +485,16 @@ FLASH_HD80_SERVED = ((4, 4160), (4, 4064), (1, 4160), (1, 1024), (1, 256))
 # [families]' prefills: pixtral-12b (32 / 8 of 128) on 4 x 1 024 patches,
 # causal; hubert-xlarge (16 / 16 of 80) on 8 x 1 500 frames, both ways (S
 # no multiple of any tile); granite-3-2b (32 / 8 of 64) and phi4-mini-3.8b
-# (24 / 8 of 128) on [serve]'s chunks
+# (24 / 8 of 128) on [serve]'s chunks; [moe]'s MHA (16 / 16 of 128) on
+# those chunks and on [continuous]'s solo admissions
 FAMILY_FLASH = (
     (dict(H=32, KV=8, hd=128), ((4, 1024, True, None),)),
     (dict(H=16, KV=16, hd=80), ((8, 1500, False, None),)),
     (dict(H=32, KV=8, hd=64), ((4, 128, True, None), (4, 512, True, None))),
     (dict(H=24, KV=8, hd=128), ((4, 128, True, None), (4, 512, True, None))),
+    (dict(H=16, KV=16, hd=128), ((4, 128, True, None), (4, 512, True, None),
+                                 (1, 64, True, None), (1, 200, True, None),
+                                 (1, 512, True, None))),
 )
 # (batch, H = W, C, A): every distinct stride-1 3x3 conv of VGG-16 at
 # 224 x 224, batch 32, and of ResNet-18 (CIFAR stem) at 32 x 32, batch 256
@@ -575,6 +633,15 @@ def check_pattern_gemm(gen) -> list:
             rows += check_pattern_gemm_cases(
                 gen, dtype, prefix, gemms,
                 lambda name, ms=ms: (4,) if name == "lm_head" else ms,
+                lambda name, M: True, earlier_route=False,
+                timed=dtype == torch.bfloat16)
+        for prefix, gemms, ms, head in (
+                ("qwen2moe ", QWEN2_MOE_GEMMS, QWEN2_MOE_MS, (1, 4)),
+                ("deepseekmoe ", DEEPSEEK_MOE_GEMMS, GEMM_MS, (4,))):
+            rows += check_pattern_gemm_cases(
+                gen, dtype, prefix, gemms,
+                lambda name, ms=ms, head=head: (head if name == "lm_head"
+                                                else ms),
                 lambda name, M: True, earlier_route=False,
                 timed=dtype == torch.bfloat16)
     return rows
@@ -1671,14 +1738,14 @@ def continuous_reliability(tag: str, eng, reqs: list, solo: dict) -> None:
         fail(f"[{tag}] the bounded queue did not shed typed")
 
 
-def continuous_fp32(tag: str, cfg, reqs: list) -> None:
+def continuous_fp32(tag: str, cfg, reqs: list, pcfg=TILE_PCFG) -> None:
     """At ``fp32_layers`` layers of full width in fp32: the continuous
     engine's greedy tokens equal ``ServeEngine(batch_size=1)``'s."""
     cfg32 = dataclasses.replace(cfg, param_dtype="float32",
                                 num_layers=CONT["fp32_layers"])
     model = LM(cfg32, device=DEV)
     art = greedy_prune(model.init(torch.Generator(device=DEV).manual_seed(
-        0)), TILE_PCFG, device=DEV).pack(device=DEV)
+        0)), pcfg, device=DEV).pack(device=DEV)
     sub = reqs[:CONT["fp32_requests"]]
     cont = [r.tokens for r in continuous_engine(model, art).generate(sub)]
     solo_eng = ServeEngine(model, art, packed=True, batch_size=1,
@@ -3577,6 +3644,442 @@ def phase_families(smi: str) -> dict:
     return total
 
 
+# ------------------------------------------------------------------- moe
+
+MOE = dict(fp32_layers=4, artifact_layers=2, admm_layers=2,
+           cont_requests=6, split_steps=4)
+MOE_EXPERTS = (r".*experts.*",)
+MOE_NAMES = ("qwen2-moe-a2.7b", "deepseek-moe-16b")
+
+
+def moe_pcfg(cfg) -> PruneConfig:
+    """``tile_pcfg_for`` with the routed experts left out: both packages'
+    final tile projection takes a layer's (E, D, F) expert leaf whole, as
+    (E, D * F), and refuses it (E is no multiple of block_p); no scheme
+    packs a 3-D leaf, so the experts stay dense."""
+    base = tile_pcfg_for(cfg)
+    return dataclasses.replace(base, exclude=tuple(base.exclude)
+                               + MOE_EXPERTS)
+
+
+def expert_ptrs(tree) -> dict:
+    return {p: w.data_ptr() for p, w in tree_items(tree) if "/experts/" in p}
+
+
+def moe_tile_refused(tag: str, cfg, params) -> None:
+    """tile_pattern with the experts in, on one layer: the reference's
+    ``ValueError``."""
+    try:
+        greedy_prune({"blocks": [params["blocks"][0]]}, tile_pcfg_for(cfg),
+                     device=DEV)
+    except ValueError as e:
+        print(f"[{tag}] {cfg.name}: tile_pattern with the experts not "
+              f"excluded raises, as the reference's: {e}", flush=True)
+        return
+    fail(f"[{tag}] {cfg.name}: tile_pattern pruned the expert leaves")
+
+
+def moe_prepare(tag: str, smi: str, name: str):
+    """``name`` at full width and depth, bf16: init, prune a block at a
+    time (tile 4 of 8, experts left out), pack. The expert leaves of the
+    packed tree must be the init's tensors, not copies. -> (model, art)."""
+    cfg = get_config(name)
+    model = LM(cfg, device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    dense_bytes = sum(nbytes(w) for _, w in tree_items(params))
+    expert_bytes = sum(nbytes(w) for p, w in tree_items(params)
+                       if "/experts/" in p)
+    moe_tile_refused(tag, cfg, params)
+    ptrs = expert_ptrs(params)
+    art = prune_by_layer(params, moe_pcfg(cfg)).pack(device=DEV)
+    check_exact(tag, art)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    shared = expert_ptrs(art.packed) == ptrs == expert_ptrs(art.params)
+    head = art.packed["lm_head"]
+    print(f"[{tag}] {name} L={cfg.num_layers} d_model={cfg.d_model} heads "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} of {cfg.head_dim} experts "
+          f"{cfg.num_experts} (top-{cfg.moe_top_k}, width "
+          f"{cfg.expert_d_ff}) + {cfg.num_shared_experts} shared, vocab "
+          f"{cfg.vocab_size} {cfg.param_dtype}: init + prune by layer + "
+          f"pack {t_setup:.2f} s; weight bytes dense {dense_bytes} (routed "
+          f"experts {expert_bytes}) packed {art.packed_bytes()}; expert "
+          f"leaves shared with the init, not copied: {shared} "
+          f"({len(ptrs)} leaves); lm_head packed {is_packed(head)}; peak "
+          f"device memory while pruning and packing "
+          f"{torch.cuda.max_memory_allocated()} bytes ({smi})", flush=True)
+    if not shared or not ptrs:
+        fail(f"[{tag}] {name}: the expert leaves were copied")
+    if not is_packed(head):
+        fail(f"[{tag}] {name}: lm_head left dense")
+    return model, art
+
+
+def moe_decode_split(tag: str, smi: str, model, packed, cache,
+                     tok) -> None:
+    """Where one eager decode step's device time goes: torch.profiler
+    kernels, attributed to the router and slot positions, the dispatch
+    and combine einsums, the expert einsums and decode attention through
+    ``record_function`` ranges wrapped around those functions for the
+    trace, ``pattern_gemm`` by its kernels' names; the rest (norms,
+    rope, cache inserts, residuals)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, record_function
+    from torch.profiler import profile as trace
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tf_mod
+
+    labels = {"route": [(moe_mod, "_route")],
+              "dispatch/combine": [(moe_mod, "_dispatch"),
+                                   (moe_mod, "_combine")],
+              "experts": [(moe_mod, "_experts")],
+              "attention": [(tf_mod, "decode_attention")]}
+    saved = []
+
+    def ranged(label, fn):
+        def run(*a, **kw):
+            with record_function(f"moe_split:{label}"):
+                return fn(*a, **kw)
+        return run
+
+    for label, sites in labels.items():
+        for mod, attr in sites:
+            saved.append((mod, attr, getattr(mod, attr)))
+            setattr(mod, attr, ranged(label, getattr(mod, attr)))
+    steps = MOE["split_steps"]
+    start = cache["pos"].clone()
+    try:
+        model.decode_step(packed, cache, tok)              # first use
+        cache["pos"].copy_(start)
+        torch.cuda.synchronize()
+        with trace(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                cache["pos"].copy_(start)
+                model.decode_step(packed, cache, tok)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / steps
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("moe_split:")]
+    busy = sum(e.device_time_total for e in kernels) / 1e3 / steps
+    split = {label: sum(e.device_time_total for e in events
+                        if e.name == f"moe_split:{label}"
+                        and e.device_type == DeviceType.CPU) / 1e3 / steps
+             for label in labels}
+    split["pattern_gemm"] = sum(
+        e.device_time_total for e in kernels
+        if re.search(TRACED_KERNEL["pattern_gemm"], e.name)) / 1e3 / steps
+    split["rest"] = busy - sum(split.values())
+    print(f"[{tag}] one eager decode step of {model.config.name}, profiled"
+          f" ({steps} steps): wall {wall * 1e3:.2f} ms, device busy "
+          f"{busy:.3f} ms ({100 * busy / (wall * 1e3):.1f}%), "
+          f"{len(kernels) / steps:.0f} kernel launches; device ms by part "
+          + json.dumps({k: round(v, 4) for k, v in split.items()})
+          + f" ({smi})", flush=True)
+
+
+def moe_serve(tag: str, smi: str, model, art) -> dict:
+    """The main path: the packed model through the launcher's engine
+    (CUDA graphs, batch 4, ``max_seq_len`` 544): 4 x 512 + 4 x 128
+    prompts, 32 new tokens; launch gate, graph against eager on the
+    S = 512 chunk, prefill and decode graph readings, a profile of a
+    decode replay and the split of an eager decode step."""
+    cfg = model.config
+    L = cfg.num_layers
+    reqs = make_requests(cfg.vocab_size)
+    eng = launch_serve.make_engine(model, art, batch=4, max_seq=544,
+                                   packed=True, device=DEV)
+    t0 = time.perf_counter()
+    for r in (reqs[0], reqs[4]):          # captures: decode, S = 512 and 128
+        eng.generate([r])
+    torch.cuda.synchronize()
+    t_cap = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()                                 # the main path
+    t0 = time.perf_counter()
+    results = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(GEMM_NAMES)
+    # two chunks, each a prefill and 31 decode steps (graph replays), each
+    # forward 7 packed GEMMs a layer (wq, wk, wv, wo and the shared
+    # SwiGLU's three) and the head; the experts run as einsums
+    launch_gate(tag, f"{cfg.name} generate(8 requests) in "
+                f"{wall * 1e3:.1f} ms", launches,
+                {"pattern_gemm": 2 * 32 * (7 * L + 1),
+                 "flash_attention": 2 * L})
+    for r in results:
+        if len(r.tokens) != 32 or not all(0 <= t < cfg.vocab_size
+                                          for t in r.tokens):
+            fail(f"[{tag}] {cfg.name} request {r.uid}: bad tokens "
+                 f"{r.tokens[:8]}")
+    n_tok = sum(len(r.tokens) for r in results)
+    readings = {"captures_s": t_cap, "generate_ms": wall * 1e3,
+                "tok_s": n_tok / wall,
+                "peak_bytes_serving": torch.cuda.max_memory_allocated()}
+    chunk = reqs[:4]
+    prompts, mask = eng.pad_prompts(chunk)
+    eng.set_rows(chunk, mask)
+    keys = fold_key_grid(eng.rows["keys"], torch.zeros_like(
+        eng.rows["keys"]), 9)
+    logits = eng.prefill(prompts)[1].clone()
+    cache, want = model.prefill(eng.params, prompts, eng.max_seq_len)
+    tok0 = eng.sample(logits, keys[0])
+    toks = eng.decode(tok0, 8).clone()
+    _, rest = model.decode_many(eng.params, cache, tok0, 8,
+                                sampler=eng.sample, keys=keys[1:])
+    same = (torch.equal(logits, want),
+            torch.equal(toks, torch.cat([tok0, rest], dim=1)))
+    print(f"[{tag}] {cfg.name} S=512 chunk, graph against eager: prefill "
+          f"logits bit-identical {same[0]}, 8 decode tokens bit-identical "
+          f"{same[1]}", flush=True)
+    if not all(same):
+        fail(f"[{tag}] {cfg.name}: the graphs disagree with the eager path")
+    for S, ch in ((128, reqs[4:]), (512, reqs[:4])):
+        prompts, mask = eng.pad_prompts(ch)
+        eng.set_rows(ch, mask)
+        readings[f"prefill_graph_ms_S{S}"] = median_s(
+            lambda: eng.prefill(prompts)) * 1e3
+    readings["decode_graph_ms_per_step"] = median_s(
+        lambda: eng.decode(tok0, 31)) * 1e3 / 31
+    readings["decode_graph_device_ms"] = timed_ms(
+        eng.decode_graph.graph.replay, 10)
+    print(f"[{tag}] {cfg.name}: " + json.dumps(readings) + f" ({smi})",
+          flush=True)
+    profile(tag, f"{cfg.name} decode step (graph replay)",
+            lambda: eng.decode(tok0, 4), per=4, names=("pattern_gemm",))
+    cache, _ = model.prefill(eng.params, prompts, eng.max_seq_len)
+    moe_decode_split(tag, smi, model, eng.params, cache, tok0)
+    del eng, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_continuous(tag: str, smi: str, model, art) -> dict:
+    """(b) the packed model through ``ContinuousEngine`` (``[continuous]``'s
+    batch 4, ``max_seq_len`` 544, chunks of 8): requests of S 512 / 200 /
+    64 submitted at once, counts zeroed around them; each bit-identical
+    to its solo run through the same engine."""
+    cfg = model.config
+    L = cfg.num_layers
+    g = torch.Generator().manual_seed(2)
+    lens, new = CONT["lens"], CONT["new"]
+    reqs = [Request(uid=i, prompt=torch.randint(0, cfg.vocab_size,
+                                                (lens[i % 3],), generator=g),
+                    max_new_tokens=new[i % 3])
+            for i in range(MOE["cont_requests"])]
+    eng = continuous_engine(model, art)
+    eng.generate(reqs[:len(lens)])               # captures each S, decode
+    torch.cuda.synchronize()
+    reset_launches()                                 # the main path
+    t0 = time.perf_counter()
+    results = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(GEMM_NAMES)
+    routes = {"pattern_gemm": dict(pg_mod.ROUTE_LAUNCHES),
+              "flash_attention": dict(fa_mod.ROUTE_LAUNCHES),
+              "blockwise_fallbacks": attention.PREFILL_FALLBACKS}
+    st = eng.stats
+    n_tok = sum(len(r.tokens) for r in results)
+    print(f"[{tag}] (b) {cfg.name} ContinuousEngine, {len(reqs)} requests "
+          f"(prompt lengths {lens}, budgets {new}) at once: wall "
+          f"{wall * 1e3:.1f} ms, {n_tok} tokens, {n_tok / wall:.1f} tok/s, "
+          f"occupancy {st['occupancy']:.4f}, {st['chunks']} chunks; "
+          f"launches {json.dumps(launches)} by route {json.dumps(routes)} "
+          f"({smi})", flush=True)
+    for r, q in zip(results, reqs):
+        if r.status != "ok" or len(r.tokens) != q.max_new_tokens:
+            fail(f"[{tag}] (b) request {r.uid}: {r.status}, "
+                 f"{len(r.tokens)} tokens")
+    if (launches["flash_attention"] != L * len(reqs)
+            or routes["flash_attention"]["wgmma"] != L * len(reqs)
+            or routes["blockwise_fallbacks"]):
+        fail(f"[{tag}] (b) every admission must run flash on wgmma "
+             f"({L} x {len(reqs)}): {routes}")
+    if not (routes["pattern_gemm"]["skinny"]
+            and routes["pattern_gemm"]["wgmma"]):
+        fail(f"[{tag}] (b) pattern_gemm must launch on skinny and wgmma: "
+             f"{routes['pattern_gemm']}")
+    solo = [eng.generate([r])[0].tokens for r in reqs]
+    same = [r.tokens == s for r, s in zip(results, solo)]
+    print(f"[{tag}] (b) each request bit-identical to its solo run through "
+          f"the same engine: {sum(same)}/{len(same)}", flush=True)
+    if not all(same):
+        fail(f"[{tag}] (b) continuous tokens depend on chunk-mates")
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_speculative(tag: str, smi: str, model, art) -> dict:
+    """(b) ``SpeculativeEngine`` at ``[speculative]``'s settings: the
+    pruned weights bound dense verify, the artifact packed drafts (its
+    attention, shared experts and head packed; the routed experts the
+    same tensors as the target's); readings beside plain decoding; the
+    round graph against eager."""
+    cfg = model.config
+    reqs = spec_requests(cfg.vocab_size)
+    plain = plain_reading(tag, f"{cfg.name}, the pruned weights, dense",
+                          smi, plain_engine(model, art), reqs)
+    torch.cuda.empty_cache()
+    eng = spec_engine(model, art, art)
+    a = spec_arm(tag, f"(b) {cfg.name}, the pruned dense target, the "
+                 "artifact packed drafts", smi, eng, reqs, plain,
+                 expect_demoted=False)
+    round_against_eager(tag, eng, reqs)
+    del eng
+    torch.cuda.empty_cache()
+    return a["launches"]
+
+
+def moe_fp32(tag: str) -> dict:
+    """(d) each config at 4 layers of full width in fp32: packed greedy
+    tokens equal the dense-pruned ones, and the continuous engine's equal
+    ``ServeEngine(batch_size=1)``'s."""
+    for name in MOE_NAMES:
+        cfg = get_config(name)
+        pcfg = moe_pcfg(cfg)
+        token_identity(tag, dataclasses.replace(
+            cfg, num_layers=MOE["fp32_layers"], param_dtype="float32"),
+            pcfg, note=f", {name} at {MOE['fp32_layers']} of "
+            f"{cfg.num_layers} layers")
+        torch.cuda.empty_cache()
+        continuous_fp32(tag, cfg, continuous_requests(cfg.vocab_size), pcfg)
+        torch.cuda.empty_cache()
+    return {}
+
+
+def moe_artifact(tag: str, name: str) -> None:
+    """(e) ``name`` at 2 layers of full width, bf16: saved, loaded back
+    bit-equal (the expert leaves in the reference's stacked layout) and
+    served to the in-memory artifact's tokens."""
+    cfg = dataclasses.replace(get_config(name),
+                              num_layers=MOE["artifact_layers"])
+    model = LM(cfg, device=DEV)
+    art = greedy_prune(model.init(torch.Generator(device=DEV).manual_seed(
+        0)), moe_pcfg(cfg), device=DEV).pack(device=DEV)
+    loaded = save_and_load(tag, art, cfg)
+    reqs = make_requests(cfg.vocab_size)[4:]
+
+    def served(a):
+        eng = launch_serve.make_engine(model, a, batch=4, max_seq=544,
+                                       packed=True, device=DEV)
+        return [r.tokens for r in eng.generate(reqs)]
+
+    same = served(loaded) == served(art)
+    print(f"[{tag}] (e) {name} at {cfg.num_layers} layers: the loaded "
+          f"artifact serves the in-memory artifact's tokens: {same}",
+          flush=True)
+    if not same:
+        fail(f"[{tag}] (e) the loaded artifact serves other tokens")
+    del art, loaded
+    torch.cuda.empty_cache()
+
+
+def moe_admm(tag: str, smi: str, name: str) -> dict:
+    """(f) one layer-wise ADMM iteration (tile 4 of 8, experts left out)
+    of ``name`` at 2 layers of full width, bf16, on uniform synthetic
+    tokens at ``[admm]``'s batch: seconds, busy share, launches, peak;
+    then packed and one prefill, launches gated."""
+    cfg = dataclasses.replace(get_config(name),
+                              num_layers=MOE["admm_layers"])
+    model = LM(cfg, device=DEV)
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    adapter = LMAdapter(model, seq_len=ADMM_SEQ)
+    pcfg = prune_config_for(scheme="tile_pattern", rate=2, iters=1,
+                            batch=ADMM_BATCH,
+                            exclude=tuple(PruneConfig().exclude)
+                            + MOE_EXPERTS)
+    pruner = PrivacyPreservingPruner(adapter, pcfg)
+    pruner.run_layerwise(as_key(1), params)              # first use
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = pruner.run_layerwise(as_key(1), params)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    finite_history(tag, result.history)
+    split = profiled_iteration(tag, pruner, params)
+    print(f"[{tag}] (f) {name} {cfg.num_layers} of "
+          f"{get_config(name).num_layers} layers at full width, layer-wise "
+          f"ADMM tile_pattern 4 of 8 (experts left out), batch {ADMM_BATCH} "
+          f"x {ADMM_SEQ} uniform synthetic tokens: {secs:.4f} s an "
+          f"iteration; profiled: device busy share "
+          f"{100 * split['busy_share']:.1f}%, {split['kernel_launches']} "
+          f"launches, split (s) {json.dumps(split['split_s'])}; peak device "
+          f"memory {peak} bytes ({smi})", flush=True)
+    art = result.to_artifact(arch=name, scheme="tile_pattern",
+                             rate=2.0).pack(device=DEV)
+    check_exact(tag, art)
+    packed = art.bind(model, packed=True)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 128),
+                           generator=torch.Generator().manual_seed(3)).to(DEV)
+    model.prefill(packed, tokens, 160)
+    torch.cuda.synchronize()
+    reset_launches()                                 # the main path
+    _, logits = model.prefill(packed, tokens, 160)
+    torch.cuda.synchronize()
+    launches = launch_counts(GEMM_NAMES)
+    L = cfg.num_layers
+    launch_gate(tag, "(f) prefill of the ADMM-pruned model", launches,
+                {"pattern_gemm": 7 * L + 1, "flash_attention": L})
+    if not bool(torch.isfinite(logits).all()):
+        fail(f"[{tag}] (f) prefill logits not finite")
+    del pruner, result, art, packed, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_moe(smi: str) -> dict:
+    """The MoE family: (a) qwen2-moe-a2.7b and (c) deepseek-moe-16b at full
+    width and depth served through the graphs, (b) qwen2-moe-a2.7b through
+    the continuous and speculative engines, (d) the fp32 bars, (e) the
+    artifact, (f) one ADMM iteration. Returns the main paths' launch
+    counts, summed."""
+    tag = "moe"
+    total = dict.fromkeys(GEMM_NAMES, 0)
+    held = {}
+
+    def qwen_serve():
+        held["model"], held["art"] = moe_prepare(tag, smi, MOE_NAMES[0])
+        return moe_serve(tag, smi, held["model"], held["art"])
+
+    def qwen_engines():
+        out = moe_continuous(tag, smi, held["model"], held["art"])
+        spec = moe_speculative(tag, smi, held["model"], held["art"])
+        held.clear()
+        return {k: out[k] + spec[k] for k in out}
+
+    def deepseek_serve():
+        model, art = moe_prepare(tag, smi, MOE_NAMES[1])
+        return moe_serve(tag, smi, model, art)
+
+    parts = (("(a) qwen2-moe-a2.7b", qwen_serve),
+             ("(b) qwen2-moe-a2.7b continuous and speculative",
+              qwen_engines),
+             ("(c) deepseek-moe-16b", deepseek_serve),
+             ("(d) fp32 bars", lambda: moe_fp32(tag)),
+             ("(e) artifact", lambda: moe_artifact(tag, MOE_NAMES[0]) or {}),
+             ("(f) ADMM", lambda: moe_admm(tag, smi, MOE_NAMES[0])))
+    for what, fn in parts:
+        t0 = time.perf_counter()
+        for k, v in fn().items():
+            total[k] += v
+        torch.cuda.empty_cache()
+        print(f"[time] {tag} {what} {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    return total
+
+
 META = {
     "pattern_gemm": ("src/repro_torch/kernels/csrc/pattern_gemm.cu",
                      "src/repro/kernels/pattern_gemm.py:124"),
@@ -3664,6 +4167,7 @@ def main() -> int:
         del served
         win = timed("window", phase_window, smi)
         fam = timed("families", phase_families, smi)
+        moe = timed("moe", phase_moe, smi)
         admm = timed("admm", phase_admm, smi)
         admm_conv = timed("admm_cnn", phase_admm_cnn, smi)
         pipe = timed("pipeline", phase_pipeline, smi)
@@ -3682,7 +4186,13 @@ def main() -> int:
                         "32 steps, hubert-xlarge encoding 8 x 1500 frames, "
                         "the ADMM-pruned 2-layer pixtral-12b prefilling, "
                         "granite-3-2b and phi4-mini-3.8b serving 8 requests "
-                        f"each ({fam['pattern_gemm']}) + the ADMM-pruned "
+                        f"each ({fam['pattern_gemm']}) + [moe]: "
+                        "qwen2-moe-a2.7b and deepseek-moe-16b serving 8 "
+                        "requests each, qwen2-moe-a2.7b through "
+                        "ContinuousEngine serving 6 and speculative serving "
+                        "4 with its packed drafter, the ADMM-pruned 2-layer "
+                        f"one prefilling ({moe['pattern_gemm']}) + the "
+                        "ADMM-pruned "
                         f"one serving 4 ({admm['pattern_gemm']}) + the "
                         "pipeline's saved 4-layer one serving 4 "
                         f"({pipe['pattern_gemm']})",
@@ -3699,7 +4209,11 @@ def main() -> int:
                            "hubert-xlarge (hd 80, bidirectional, S 1500), "
                            "the ADMM-pruned pixtral-12b, granite-3-2b (hd "
                            "64) and phi4-mini-3.8b "
-                           f"({fam['flash_attention']}) "
+                           f"({fam['flash_attention']}) + [moe]: "
+                           "qwen2-moe-a2.7b and deepseek-moe-16b (MHA 16 / "
+                           "16 of 128) serving, continuous and speculative, "
+                           "the ADMM-pruned 2-layer one "
+                           f"({moe['flash_attention']}) "
                            "+ the ADMM-pruned one serving 4 "
                            f"({admm['flash_attention']}) + the pipeline's "
                            f"saved 4-layer one serving 4 "
@@ -3713,7 +4227,7 @@ def main() -> int:
         "column_gemm": "column-pruned qwen2-1.5b serving 8 requests",
     }
     launches = {k: launches[k] + cont[k] + spec[k] + win[k] + fam[k]
-                + admm[k] + pipe[k] for k in launches}
+                + moe[k] + admm[k] + pipe[k] for k in launches}
     launches.update(pattern_conv=sum(conv) + admm_conv
                     + pipe["pattern_conv"],
                     column_gemm=column["column_gemm"])

@@ -4,6 +4,14 @@ Prunable tensors are chosen by path pattern over the parameter tree;
 biases, norms and embeddings stay dense. Patterns match the reference's
 stacked paths (``blocks/attn/wq``), so one ``PruneConfig`` selects the same
 tensors in both packages (see ``utils.tree.reference_path``).
+
+A 3-D leaf of a layer (a MoE layer's stacked experts, (E, D, F)) is
+projected onto one of two sets, each as the reference projects it:
+``project_tree`` of a whole tree takes it whole, (E, D * F) in the
+paper's view, as the reference's vmap over the stacked layer axis hands
+it to the projection; ``project_tree`` of one layer's tree (a layer-wise
+ADMM update) takes it expert by expert, as the reference's vmap over its
+first axis does.
 """
 
 from __future__ import annotations
@@ -15,7 +23,11 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core import projections
-from repro_torch.utils.tree import reference_path, tree_map_with_path
+from repro_torch.utils.tree import (
+    is_layer_path,
+    reference_path,
+    tree_map_with_path,
+)
 
 DEFAULT_EXCLUDE = (
     r".*bias.*",
@@ -121,9 +133,14 @@ def build_specs(params: Any, config: PruneConfig) -> Any:
         params)
 
 
-def _project_leaf(w: torch.Tensor, spec: Optional[LayerSpec]) -> torch.Tensor:
+def _project_leaf(w: torch.Tensor, spec: Optional[LayerSpec],
+                  in_layer: bool = False) -> torch.Tensor:
     if spec is None:
         return w
+    if in_layer:
+        # one layer of the reference's stacked leaf: its vmap over the
+        # layer axis hands the projection this slice whole
+        return spec.project(w)
     if (spec.conv_shape is None and w.ndim > 2
             and spec.scheme not in projections.KERNEL_SCHEMES):
         # a >2-D leaf under a GEMM scheme (a conv weight pruned by column,
@@ -134,6 +151,9 @@ def _project_leaf(w: torch.Tensor, spec: Optional[LayerSpec]) -> torch.Tensor:
 
 
 def project_tree(params: Any, specs: Any) -> Any:
-    """Project every prunable leaf onto its set (spec None: identity)."""
-    return tree_map_with_path(lambda path, w, spec: _project_leaf(w, spec),
-                              params, specs)
+    """Project every prunable leaf onto its set (spec None: identity).
+    A leaf under ``blocks/<l>/`` is projected whole; any other >2-D leaf
+    under a GEMM scheme, slice by slice along its first axis."""
+    return tree_map_with_path(
+        lambda path, w, spec: _project_leaf(w, spec, is_layer_path(path)),
+        params, specs)

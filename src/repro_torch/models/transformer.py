@@ -1,4 +1,4 @@
-"""Dense-family decoder LM for serving (mirrors ``repro/models/transformer.py``).
+"""Decoder LM for serving (mirrors ``repro/models/transformer.py``).
 
 Per-layer weights are a Python list under ``params["blocks"]`` where the
 reference stacks them on a leading layer axis and scans. Any 2-D GEMM
@@ -11,13 +11,16 @@ kernel has no backward, as the reference's has none), runs
 carry autograd; ``init``, ``prefill`` and decode run under
 ``torch.no_grad``. ``verify_chunk``, ``cache_snapshot`` and
 ``cache_rollback`` are the speculative engine's chunked verify and rewind.
-A ``sliding_window`` model attends to the last ``window`` positions in
+A MoE config (``num_experts``) runs ``models/moe.py`` in place of the FFN
+in every path; its routed experts stay dense (E, D, F) leaves, and
+``train_loss`` adds the reference's load-balancing term. A
+``sliding_window`` model attends to the last ``window`` positions in
 every forward and serves from a ring cache (``_cache_ring``). The dense
-family and the two embedding-input ones are ported: ``vlm`` (pixtral)
-and ``audio`` (hubert), whose stub front ends hand the model (B, S, D)
-embeddings, so their trees have no ``embed`` table; an encoder-only
-config (``causal=False``) attends both ways in every full-sequence
-forward. The moe, ssm and hybrid families raise.
+family, the MoE one and the two embedding-input ones are ported: ``vlm``
+(pixtral) and ``audio`` (hubert), whose stub front ends hand the model
+(B, S, D) embeddings, so their trees have no ``embed`` table; an
+encoder-only config (``causal=False``) attends both ways in every
+full-sequence forward. The ssm and hybrid families raise.
 """
 
 from __future__ import annotations
@@ -52,15 +55,17 @@ from repro_torch.models.layers import (
     rmsnorm_init,
     rope_tables,
 )
+from repro_torch.models.moe import moe_apply, moe_init
 
 LOSS_CHUNK = 512               # sequence positions per cross-entropy chunk
-PORTED_FAMILIES = ("dense", "vlm", "audio")
-UNPORTED_FAMILIES = ("moe", "ssm", "hybrid")
+MOE_AUX_COEF = 0.01
+PORTED_FAMILIES = ("dense", "moe", "vlm", "audio")
+UNPORTED_FAMILIES = ("ssm", "hybrid")
 
 
 class LM:
-    """The reference's ``LM`` for the dense, vlm and audio families, on one
-    device."""
+    """The reference's ``LM`` for the dense, moe, vlm and audio families,
+    on one device."""
 
     def __init__(self, config: ModelConfig, *, device: DeviceLike = None):
         if config.family in UNPORTED_FAMILIES:
@@ -85,7 +90,18 @@ class LM:
         if cfg.qkv_bias:
             block.update({"attn/bq": (cfg.attn_dim,), "attn/bk": (cfg.kv_dim,),
                           "attn/bv": (cfg.kv_dim,)})
-        if cfg.d_ff:
+        if cfg.num_experts:
+            E, F = cfg.num_experts, cfg.expert_d_ff
+            block.update({"moe/router": (D, E),
+                          "moe/experts/w_gate": (E, D, F),
+                          "moe/experts/w_up": (E, D, F),
+                          "moe/experts/w_down": (E, F, D)})
+            if cfg.num_shared_experts:
+                Fs = cfg.num_shared_experts * F
+                block.update({"moe/shared/w_gate": (D, Fs),
+                              "moe/shared/w_up": (D, Fs),
+                              "moe/shared/w_down": (Fs, D)})
+        elif cfg.d_ff:
             names = (("w_gate", "w_up", "w_down") if cfg.ffn_type == "swiglu"
                      else ("w_up", "w_down"))
             for n in names:
@@ -131,7 +147,11 @@ class LM:
                     attn[name] = torch.zeros((width,), dtype=dt, device=dev)
             block = {"norm1": rmsnorm_init(cfg.d_model, dt, dev), "attn": attn,
                      "norm2": rmsnorm_init(cfg.d_model, dt, dev)}
-            if cfg.d_ff:
+            if cfg.num_experts:
+                block["moe"] = moe_init(gen, cfg.d_model, cfg.num_experts,
+                                        cfg.num_shared_experts,
+                                        cfg.expert_d_ff, dt, dev)
+            elif cfg.d_ff:
                 block["mlp"] = ffn_init(gen, cfg.d_model, cfg.d_ff,
                                         cfg.ffn_type, dt, dev)
             blocks.append(block)
@@ -169,10 +189,21 @@ class LM:
         v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
         return apply_rope_tables(q, sin, cos), apply_rope_tables(k, sin, cos), v
 
-    def _mlp(self, bp, x: torch.Tensor) -> torch.Tensor:
+    def _mlp(self, bp, x: torch.Tensor, aux: Optional[list] = None
+             ) -> torch.Tensor:
+        """The channel mixer and its residual: MoE, the FFN or nothing.
+        ``aux``, a list, gets a MoE layer's load-balancing loss."""
         cfg = self.config
         h = rmsnorm(bp["norm2"], x, cfg.norm_eps)
-        y = ffn_apply(bp["mlp"], h, cfg.ffn_type) if cfg.d_ff else 0
+        if cfg.num_experts:
+            y, layer_aux = moe_apply(bp["moe"], h, top_k=cfg.moe_top_k,
+                                     capacity_factor=cfg.capacity_factor)
+            if aux is not None:
+                aux.append(layer_aux)
+        elif cfg.d_ff:
+            y = ffn_apply(bp["mlp"], h, cfg.ffn_type)
+        else:
+            y = 0
         return x + y
 
     def rope(self, S: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -182,12 +213,13 @@ class LM:
                            self.config.rope_theta)
 
     def block(self, bp, x: torch.Tensor, rope, *, use_flash: bool = False,
-              kv: Optional[list] = None) -> torch.Tensor:
+              kv: Optional[list] = None,
+              aux: Optional[list] = None) -> torch.Tensor:
         """One block over the full sequence (the reference's
         ``_mixer_and_mlp``): attention and its residual, then the MLP and
         its residual. ``use_flash`` asks for the flash kernel (serving
         only: it has no backward); ``kv``, a list, gets this layer's
-        (k, v) appended."""
+        (k, v) appended; ``aux``, a list, its MoE load-balancing loss."""
         cfg = self.config
         B, S, _ = x.shape
         h = rmsnorm(bp["norm1"], x, cfg.norm_eps)
@@ -198,14 +230,17 @@ class LM:
                                 window=cfg.sliding_window,
                                 use_flash=use_flash)
         x = x + dense_apply(out.reshape(B, S, cfg.attn_dim), bp["attn"]["wo"])
-        return self._mlp(bp, x)
+        return self._mlp(bp, x, aux)
 
     def hidden_states(self, params, tokens: torch.Tensor, *,
-                      collect_kv: bool = False, use_flash: bool = False):
+                      collect_kv: bool = False, use_flash: bool = False,
+                      aux: Optional[list] = None):
         """Full-sequence forward -> (final-normed hidden (B, S, D), kv).
 
         ``kv`` is a per-layer list of (k, v), each (B, S, KV, hd), when
         ``collect_kv``; else None. ``use_flash`` is for serving paths.
+        ``aux``, a list, gets each MoE layer's load-balancing loss (the
+        reference returns their sum beside the hidden states).
         """
         cfg = self.config
         x = self.embed_inputs(params, tokens)
@@ -213,7 +248,7 @@ class LM:
         kv: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = (
             [] if collect_kv else None)
         for bp in params["blocks"]:
-            x = self.block(bp, x, rope, use_flash=use_flash, kv=kv)
+            x = self.block(bp, x, rope, use_flash=use_flash, kv=kv, aux=aux)
         return rmsnorm(params["final_norm"], x, cfg.norm_eps), kv
 
     def lm_head_weight(self, params):
@@ -227,8 +262,11 @@ class LM:
         """Mean next-token cross-entropy of ``{"inputs", "labels"}``, the
         logits taken ``LOSS_CHUNK`` positions at a time and recomputed in
         the backward pass (the reference's checkpointed chunks), so the
-        (B, S, vocab) logits never exist at once."""
-        h, _ = self.hidden_states(params, batch["inputs"])
+        (B, S, vocab) logits never exist at once. A MoE model adds
+        ``MOE_AUX_COEF`` times its layers' mean load-balancing loss."""
+        cfg = self.config
+        aux: List[torch.Tensor] = []
+        h, _ = self.hidden_states(params, batch["inputs"], aux=aux)
         labels = batch["labels"]
         B, S, _ = h.shape
         w = self.lm_head_weight(params)
@@ -244,7 +282,13 @@ class LM:
             total = total + checkpoint(chunk_nll, h[:, i * c:(i + 1) * c],
                                        labels[:, i * c:(i + 1) * c],
                                        use_reentrant=False)
-        return total / (B * S)
+        loss = total / (B * S)
+        if cfg.num_experts:
+            aux_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+            for a in aux:                  # in layer order, as the scan adds
+                aux_sum = aux_sum + a
+            loss = loss + MOE_AUX_COEF * aux_sum / cfg.num_layers
+        return loss
 
     # --------------------------------------------------------------- serving
 
@@ -407,7 +451,8 @@ class LM:
 
     def _require_kv_family(self, what: str) -> None:
         """Rewinding needs per-position KV rows; a recurrent family would
-        need per-step state (the port has only the dense family so far)."""
+        need per-step state. MoE keeps KV rows and passes, as in the
+        reference."""
         if self.config.family in ("ssm", "hybrid"):
             raise NotImplementedError(
                 f"{what} needs per-position KV rows to rewind; family="

@@ -58,6 +58,12 @@ def reference_path(path: str) -> str:
     return _LAYER.sub("blocks/", path)
 
 
+def is_layer_path(path: str) -> bool:
+    """A leaf of one layer of an LM's ``blocks`` list: the reference
+    stacks it on a leading layer axis."""
+    return _LAYER.match(path) is not None
+
+
 def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
     """``fn(leaf, *rest_leaves)`` at every leaf (``None`` leaves included:
     ``fn`` sees them)."""

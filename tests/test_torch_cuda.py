@@ -1229,3 +1229,89 @@ def test_pixtral_two_layers_decode_packed_against_dense_pruned(cuda):
     assert pg.LAUNCHES == 7 * cfg.num_layers + 1
     assert torch.equal(got.argmax(-1), want.argmax(-1))
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+# ------------------------------------------------------------ the MoE family
+
+from repro_torch.core import DEFAULT_EXCLUDE  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+
+MOE_EXPERTS = (r".*experts.*",)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S", [(4, 1), (2, 64)])
+def test_moe_apply_graph_matches_eager(cuda, dtype, B, S):
+    """``moe_apply`` (router, stable sort, one-hot slot positions, the
+    dispatch / expert / combine einsums, the shared SwiGLU) captured in a
+    CUDA graph: a capture fails on any host sync, and the replay is
+    bit-identical to the eager call, aux included."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    params = moe_mod.moe_init(g, 256, 8, 2, 128, dtype, cuda)
+    x = torch.randn(B, S, 256, generator=g, device=cuda).to(dtype)
+    want, want_aux = moe_mod.moe_apply(params, x, top_k=2)
+    static = x.clone()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        moe_mod.moe_apply(params, static, top_k=2)          # warm-up
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got, got_aux = moe_mod.moe_apply(params, static, top_k=2)
+    static.copy_(torch.randn_like(x))
+    graph.replay()
+    static.copy_(x)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got_aux, want_aux)
+
+
+@pytest.mark.parametrize("which", ["reduced", "full_width_2_layers"])
+def test_moe_lm_served_through_graphs_matches_eager(cuda, which):
+    """qwen2-moe-a2.7b reduced (head_dim 16: blockwise prefill) and at
+    full width with 2 layers (flash on wgmma), tile packed with the
+    experts left dense: the chunked engine's prefill logits and decode
+    tokens through its graphs bit-identical to eager ``LM.prefill`` /
+    ``decode_many`` on a left-padded chunk; the continuous engine's
+    graphs against its eager run and each request's solo run."""
+    if which == "reduced":
+        cfg, block = reduced_config("qwen2-moe-a2.7b",
+                                    param_dtype="bfloat16"), 32
+    else:
+        cfg, block = dataclasses.replace(get_config("qwen2-moe-a2.7b"),
+                                         num_layers=2), 128
+    model = LM(cfg, device=cuda)
+    art = greedy_prune(model.init(torch.Generator(device=cuda).manual_seed(
+        0)), PruneConfig(scheme="tile_pattern",
+                         exclude=DEFAULT_EXCLUDE + MOE_EXPERTS,
+                         overrides={".*": {"tile_block_p": block}})).pack()
+    reqs = _mixed_requests(cfg.vocab_size)
+    eng = ServeEngine(model, art, packed=True, batch_size=4, max_seq_len=96)
+    chunk = reqs[:4]                      # prompts 40, 17, 64, 9: S = 64
+    prompts, mask = eng.pad_prompts(chunk)
+    eng.set_rows(chunk, mask)
+    logits = eng.prefill(prompts)[1].clone()
+    cache, want = model.prefill(eng.params, prompts, 96)
+    assert torch.equal(logits, want)
+    keys = fold_key_grid(eng.rows["keys"], torch.zeros_like(
+        eng.rows["keys"]), 12)
+    tok0 = eng.sample(logits, keys[0])
+    got = eng.decode(tok0, 11).clone()
+    _, rest = model.decode_many(eng.params, cache, tok0, 11,
+                                sampler=eng.sample, keys=keys[1:])
+    assert torch.equal(got, torch.cat([tok0, rest], dim=1))
+
+    def engine(graphs):
+        e = ContinuousEngine(model, art, packed=True, batch_size=4,
+                             max_seq_len=96, chunk_steps=4)
+        e.graphs = graphs
+        return e
+
+    graph, eager = engine(True), engine(False)
+    graph.generate(reqs)                                   # captures
+    out = graph.generate(reqs)
+    assert _outcome(out) == _outcome(eager.generate(reqs))
+    assert _outcome(out) == [_outcome(graph.generate([r]))[0] for r in reqs]
+    assert [len(r.tokens) for r in out] == [r.max_new_tokens for r in reqs]

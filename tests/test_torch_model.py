@@ -147,7 +147,7 @@ def test_param_shapes_match_reference_init():
 def test_unported_families_raise():
     cfg = t_reduced_config("qwen2-1.5b")
     with pytest.raises(NotImplementedError):
-        LM(dataclasses.replace(cfg, family="moe"), device="cpu")
+        LM(dataclasses.replace(cfg, family="hybrid"), device="cpu")
     with pytest.raises(NotImplementedError):
         LM(dataclasses.replace(cfg, family="ssm"), device="cpu")
 
