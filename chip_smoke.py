@@ -122,6 +122,24 @@ result line is printed:
               of a round, a drafter step and a verify chunk (graph
               replays) and a profile of one round. At 4 layers in fp32
               every arm's greedy tokens equal plain decoding's.
+9b. tune    — the plan tuner, the plan-cached registry and the profiler
+              on the [serve] artifact (qwen2-1.5b, tile 4 of 8, bf16):
+              (b) every candidate plan ``torch.equal`` to the untuned call
+              for the tile and column GEMMs at qwen2-1.5b's shapes (M = 4,
+              17, 24, 32, 512, 2 048) and VGG-16's convs at batch 32; (a)
+              the artifact tuned for M = 4, 512 and 2 048 (each geometry's
+              candidates' ms, winner, heuristic's ms and search seconds;
+              one search per geometry and bucket); (c) the tuned artifact
+              through the launcher's engine (graphs), counts zeroed around
+              its main path, tokens equal to [serve]'s untuned ones,
+              prefill ms a chunk and decode ms a step tuned and untuned;
+              (d) saved and loaded: plans kept, re-served under
+              ``REPRO_AUTOTUNE=1`` with no search and the same tokens; (e)
+              ``profiler_scope(sample_rate=1.0)`` over an eager decode
+              (its rows beside the [kernels] rows' mix, tokens unchanged)
+              and the graph path's tokens/s off and at full sampling
+              (overhead printed, not gated). Every search runs before the
+              counted window.
 10. window  — sliding-window serving on a ring cache: h2o-danube-1.8b at
               full width (24 layers, d_model 2560, 32 / 8 heads of 80,
               window 4096, bf16), seeded random weights, greedy
@@ -328,10 +346,12 @@ from repro_torch.privacy import report as privacy_report  # noqa: E402
 from repro_torch.runtime import StageError  # noqa: E402
 from repro_torch.models import LM, attention, resnet18, vgg16  # noqa: E402
 from repro_torch.runtime import trace_analysis  # noqa: E402
+from repro_torch.runtime import profiler_scope  # noqa: E402
 from repro_torch.runtime.telemetry import (  # noqa: E402
     MetricsRegistry,
     Telemetry,
     read_trace,
+    registry_scope,
 )
 from repro_torch.serve import (  # noqa: E402
     CancelToken,
@@ -346,7 +366,13 @@ from repro_torch.serve.speculative import (  # noqa: E402
     shallow_drafter,
 )
 from repro_torch.sparse import PrunedArtifact, is_packed  # noqa: E402
-from repro_torch.sparse.registry import handler_for  # noqa: E402
+from repro_torch.sparse import tune as tune_mod  # noqa: E402
+from repro_torch.sparse.registry import (  # noqa: E402
+    SCHEMES,
+    conv_gemm_runner,
+    handler_for,
+)
+from repro_torch.utils.tree import reference_path  # noqa: E402
 from repro_torch.testing import (  # noqa: E402
     ScriptedClock,
     chunk_action_hook,
@@ -1143,7 +1169,8 @@ def drive_serve(tag: str, smi: str, pcfg, gemm: str):
                                           for t in r.tokens):
             fail(f"request {r.uid}: bad tokens {r.tokens[:8]}...")
     in_memory = [r.tokens for r in engine(art).generate(reqs)]
-    same = in_memory == [r.tokens for r in results]
+    SERVED_TOKENS[tag] = [r.tokens for r in results]
+    same = in_memory == SERVED_TOKENS[tag]
     print(f"[{tag}] tokens of the loaded artifact identical to the "
           f"in-memory artifact's: {same}", flush=True)
     if not same:
@@ -1154,6 +1181,9 @@ def drive_serve(tag: str, smi: str, pcfg, gemm: str):
     for S, chunk in ((128, reqs[4:]), (512, reqs[:4])):
         eager_against_graph(tag, eng, chunk, S, gemm)
     return launches, loaded
+
+
+SERVED_TOKENS: dict = {}    # each drive_serve tag's main-path tokens
 
 
 def phase_serve(smi: str):
@@ -2131,6 +2161,304 @@ def phase_speculative(smi: str, art) -> dict:
     spec_fp32(tag, cfg)
     return {k: a["launches"][k] + b["launches"][k]
             for k in ("pattern_gemm", "flash_attention")}
+
+
+# --------------------------------------------------------- the plan tuner
+
+# (a) the served Ms: decode at batch 4, a 4 x 128 and a 4 x 512 chunk; (b)
+# the Ms every candidate is held bitwise to the untuned call at (both
+# routes of bucket m32: skinny to 16, wgmma above); (e) an eager decode
+TUNE = dict(ms=(4, 512, 2048), iters=3, check_ms=(4, 17, 24, 32, 512, 2048),
+            eager_prompt=128, eager_new=8, reps=3)
+
+
+def tune_bitwise(tag: str) -> int:
+    """(b) Every candidate plan against the untuned call, ``torch.equal``:
+    the tile and column GEMMs at qwen2-1.5b's shapes (their bias and
+    activation) at each M of ``TUNE["check_ms"]``, and VGG-16's convs at
+    batch 32 (ReLU). Returns the calls compared."""
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    cuda = torch.device(DEV).type == "cuda"
+    n = 0
+    for name, Q, P, has_bias, act in QWEN2_GEMMS:
+        w = torch.randn((Q, P), generator=gen, device=DEV) / math.sqrt(Q)
+        b = (torch.randn(P, generator=gen, device=DEV) * 0.1).bfloat16() \
+            if has_bias else None
+        wt = project_tile_pattern(w.T, block_p=128).T.contiguous()
+        wc = project_column(w.T, alpha=0.5).T.contiguous()
+        leaves = (SCHEMES["tile_pattern"].pack(wt.bfloat16(), LayerSpec(
+            scheme="tile_pattern", tile_block_p=128, tile_group_q=8,
+            tile_keep=4)), SCHEMES["column"].pack(
+            wc.bfloat16(), LayerSpec(scheme="column", alpha=0.5)))
+        del w, wt, wc
+        for pt in leaves:
+            handler = SCHEMES[pt.scheme]
+            for M in TUNE["check_ms"]:
+                x = torch.randn((M, Q), generator=gen,
+                                device=DEV).bfloat16()
+                want = handler.plan(pt, M, act, None)(x, pt, b)
+                for c in tune_mod.candidate_plans(pt, "matmul", M,
+                                                  cuda=cuda):
+                    got = handler.plan(pt, M, act, c)(x, pt, b)
+                    n += 1
+                    if not torch.equal(got, want):
+                        fail(f"[{tag}] (b) {pt.scheme} {name} M={M}: plan "
+                             f"{c.to_str()} differs from the untuned call")
+                del x, want, got
+        del leaves
+    for B, H, C, A in VGG16_CONVS:
+        w4 = torch.randn((A, C, 3, 3), generator=gen, device=DEV)
+        w4 = project((w4 * math.sqrt(2.0 / (9 * C))).bfloat16(),
+                     "pattern_shared", alpha=0.25)
+        pt = handler_for("pattern_shared").pack(w4, PATTERN_SPEC)
+        wp, taps = pt.buf("w_packed"), pt.buf("taps")
+        b = (torch.randn(A, generator=gen, device=DEV) * 0.1).bfloat16()
+        x = torch.randn((B, H, H, C), generator=gen, device=DEV).bfloat16()
+        want = conv_gemm_runner(pt, None, activation="relu")(x, wp, taps, b)
+        for c in tune_mod.candidate_plans(pt, "conv", B * H * H, cuda=cuda):
+            got = conv_gemm_runner(pt, c, activation="relu")(x, wp, taps, b)
+            n += 1
+            if not torch.equal(got, want):
+                fail(f"[{tag}] (b) conv B={B} {H}x{H} {C}->{A}: plan "
+                     f"{c.to_str()} differs from the untuned call")
+        del x, want, got, w4, pt, wp, taps
+    torch.cuda.empty_cache()
+    return n
+
+
+def tune_artifact(tag: str, smi: str, art):
+    """(a) Tune the artifact for ``TUNE["ms"]``: per geometry every
+    candidate's ms, the winner, the heuristic's ms and the search's
+    seconds. Returns (the tuned artifact, seconds in all)."""
+    searches = []
+    search = tune_mod.tune_plan
+
+    def timed_search(pt, kind, M, **kw):
+        t0 = time.perf_counter()
+        out = search(pt, kind, M, **kw)
+        torch.cuda.synchronize()
+        searches.append((pt, M, time.perf_counter() - t0, out))
+        return out
+
+    tune_mod.tune_plan = timed_search
+    try:
+        with registry_scope() as reg:
+            t0 = time.perf_counter()
+            tuned = art.tune(TUNE["ms"], iters=TUNE["iters"])
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+            n_cands = reg.sum_counter("tune.candidates_total")
+    finally:
+        tune_mod.tune_plan = search
+    names: dict = {}
+    for path, pt in tree_items(tuned.packed):
+        if is_packed(pt):
+            names.setdefault(tuple(pt.shape), set()).add(
+                reference_path(path).split("/")[-1])
+    dev = torch.device(DEV)
+    cuda = dev.type == "cuda"
+    sms = tune_mod.sm_count(dev) if cuda else 0
+    for pt, M, secs, (plan, times) in searches:
+        heur = tune_mod.heuristic_plan(pt, "matmul", M, cuda=cuda, sms=sms)
+        print(f"[{tag}] (a) {'/'.join(sorted(names[tuple(pt.shape)]))} "
+              f"{pt.shape[0]}x{pt.shape[1]} M={M}: candidates ms "
+              f"{json.dumps(times)}; winner {plan.to_str()} "
+              f"{times[plan.to_str()]} ms; heuristic {heur.to_str()} "
+              f"{times[heur.to_str()]} ms; search {secs:.3f} s ({smi})",
+              flush=True)
+    # one search per geometry (shape, buffer shapes and dtypes) and bucket
+    geometries = {(tuple(pt.shape), tuple((tuple(b.shape), b.dtype)
+                                          for b in pt.buffers))
+                  for _, pt in tree_items(art.packed) if is_packed(pt)}
+    want = len(geometries) * len({tune_mod.m_bucket(M) for M in TUNE["ms"]})
+    print(f"[{tag}] (a) tuned in {total:.2f} s: {len(searches)} searches "
+          f"for {len(geometries)} geometries x {len(TUNE['ms'])} buckets, "
+          f"{n_cands:.0f} candidates timed ({smi})", flush=True)
+    if len(searches) != want or not searches:
+        fail(f"[{tag}] (a) {len(searches)} searches for {want} geometries")
+    return tuned, total
+
+
+def tuned_serve(tag: str, smi: str, model, art, tuned) -> dict:
+    """(c) The tuned artifact through the launcher's engine (graphs): its
+    main path with counts zeroed around it, tokens equal to [serve]'s
+    untuned ones; prefill ms a chunk and decode ms a step, tuned and
+    untuned (graph replays). Returns the main path's launch counts."""
+    reqs = make_requests(model.config.vocab_size)
+    engines = {}
+    for which, a in (("untuned", art), ("tuned", tuned)):
+        eng = launch_serve.make_engine(model, a, batch=4, max_seq=544,
+                                       packed=True, device=DEV)
+        for r in (reqs[0], reqs[4]):      # captures: decode, S = 512 and 128
+            eng.generate([r])
+        engines[which] = eng
+    torch.cuda.synchronize()
+    names = ("pattern_gemm", "flash_attention")
+    reset_launches()                                    # the main path
+    t0 = time.perf_counter()
+    results = engines["tuned"].generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(names)
+    L = model.config.num_layers
+    print(f"[{tag}] (c) tuned generate(8 requests) {wall * 1e3:.1f} ms; "
+          f"launches (graph replays counted) {json.dumps(launches)}; "
+          f"pattern_gemm by route {json.dumps(pg_mod.ROUTE_LAUNCHES)} "
+          f"({smi})", flush=True)
+    if launches != {"pattern_gemm": 2 * 32 * (7 * L + 1),
+                    "flash_attention": 2 * L}:
+        fail(f"[{tag}] (c) launches {launches}")
+    tokens = [r.tokens for r in results]
+    untuned = [r.tokens for r in engines["untuned"].generate(reqs)]
+    same = tokens == SERVED_TOKENS["serve"] == untuned
+    print(f"[{tag}] (c) tuned tokens identical to [serve]'s untuned ones "
+          f"and to an untuned engine's: {same} ({smi})", flush=True)
+    if not same:
+        fail(f"[{tag}] (c) the tuned artifact serves other tokens")
+    readings = {}
+    for which, eng in engines.items():
+        for S, chunk in ((128, reqs[4:]), (512, reqs[:4])):
+            prompts, mask = eng.pad_prompts(chunk)
+            eng.set_rows(chunk, mask)
+            readings[f"{which}_prefill_ms_S{S}"] = median_s(
+                lambda: eng.prefill(prompts), 5) * 1e3
+        tok0 = eng.prefill(prompts)[1].argmax(-1)
+        readings[f"{which}_decode_ms_per_step"] = median_s(
+            lambda: eng.decode(tok0, 31), 5) * 1e3 / 31
+    print(f"[{tag}] (c) " + json.dumps(readings) + f" ({smi})", flush=True)
+    return launches, engines["tuned"], reqs, tokens
+
+
+def tuned_reload(tag: str, smi: str, model, tuned, reqs, tokens) -> None:
+    """(d) Save and load: the plans survive, and re-serving the loaded
+    artifact with first-dispatch search on runs no search."""
+    loaded = save_and_load(tag, tuned, model.config)
+    plans = tune_mod.describe_plans(loaded.packed)
+    same = plans == tune_mod.describe_plans(tuned.packed)
+    print(f"[{tag}] (d) plans of {len(plans)} leaves identical after save "
+          f"and load: {same} ({smi})", flush=True)
+    if not same or not plans:
+        fail(f"[{tag}] (d) plans lost in save and load")
+    tune_mod.clear_tuned_cache()
+    os.environ["REPRO_AUTOTUNE"] = "1"
+    try:
+        with registry_scope() as reg:
+            eng = launch_serve.make_engine(model, loaded, batch=4,
+                                           max_seq=544, packed=True,
+                                           device=DEV)
+            got = [r.tokens for r in eng.generate(reqs)]
+            n = reg.sum_counter("tune.candidates_total")
+    finally:
+        del os.environ["REPRO_AUTOTUNE"]
+    print(f"[{tag}] (d) the loaded artifact re-served (REPRO_AUTOTUNE=1): "
+          f"{n:.0f} candidates timed, tokens identical: {got == tokens} "
+          f"({smi})", flush=True)
+    if n or got != tokens:
+        fail(f"[{tag}] (d) re-serving searched ({n}) or changed tokens")
+    del eng, loaded
+
+
+def tune_profile(tag: str, smi: str, model, tuned, graph_eng, reqs,
+                 kernel_rows: list) -> None:
+    """(e) The profiler at full sampling: an eager decode of a few steps
+    (its rows beside the [kernels] rows at the same shapes; tokens on ==
+    off), then the graph path's tokens/s off and on."""
+    eager = ServeEngine(model, tuned, packed=True, batch_size=4,
+                        max_seq_len=544, device=DEV)
+    eager.graphs = False
+    g = torch.Generator().manual_seed(5)
+    ereqs = [Request(uid=i, prompt=torch.randint(
+        0, model.config.vocab_size, (TUNE["eager_prompt"],), generator=g),
+        max_new_tokens=TUNE["eager_new"]) for i in range(4)]
+    off = [r.tokens for r in eager.generate(ereqs)]
+    with profiler_scope(sample_rate=1.0) as prof:
+        # the first wall of each key is the profiler's warm-up, discarded
+        on = [[r.tokens for r in eager.generate(ereqs)] for _ in range(2)]
+        rows = prof.report()
+    print(f"[{tag}] (e) eager decode, {TUNE['eager_new']} steps, profiler "
+          f"at full sampling: tokens identical on and off: "
+          f"{on == [off, off]} ({smi})", flush=True)
+    if on != [off, off]:
+        fail(f"[{tag}] (e) the profiler changed tokens")
+    for r in rows:
+        print(f"[{tag}] (e) report " + json.dumps(r) + f" ({smi})",
+              flush=True)
+    # the [kernels] rows' device ms (cold L2) at the same shapes, mixed as
+    # the path launches them: per layer LAYER_GEMMS, the head once a step
+    mine = {r["shape"]: r["ms"] for r in kernel_rows
+            if r["kernel"] == "pattern_gemm" and r["dtype"] == "bfloat16"}
+    L = model.config.num_layers
+    for M, bucket in ((4, 32), (512, 512)):
+        layer = sum(n * mine[f"{g} M={M}"] for g, n in LAYER_GEMMS.items())
+        head = mine["lm_head M=4"] if M == 4 else 0.0
+        calls = 7 * L + (M == 4)
+        got = [r for r in rows if r["kind"] == "matmul"
+               and r["bucket"] == bucket]
+        print(f"[{tag}] (e) matmul bucket m{bucket}: profiler median "
+              f"{[round(r['measured_ns'] * 1e-6, 4) for r in got]} ms a "
+              f"call (plans {[r['plan'] for r in got]}) beside [kernels] "
+              f"{(L * layer + head) / calls:.4f} ms a call at M={M} "
+              f"(the path's mix, cold L2) ({smi})", flush=True)
+    kinds = {(r["kind"], r["scheme"]) for r in rows}
+    if not {("matmul", "tile_pattern"), ("prefill", "engine:chunked"),
+            ("decode_many", "engine:chunked")} <= kinds:
+        fail(f"[{tag}] (e) report rows {sorted(kinds)}")
+    del eager
+    n_tok = sum(r.max_new_tokens for r in reqs)
+    rates = {}
+    tokens = {}
+    for which in ("off", "full sampling", "off again"):
+        times = []
+        for _ in range(TUNE["reps"]):
+            if which == "full sampling":
+                with profiler_scope(sample_rate=1.0) as prof:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = graph_eng.generate(reqs)
+                    prof.report()
+                    times.append(time.perf_counter() - t0)
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = graph_eng.generate(reqs)
+                times.append(time.perf_counter() - t0)
+        rates[which] = n_tok / statistics.median(times)
+        tokens[which] = [r.tokens for r in out]
+    overhead = 1.0 - rates["full sampling"] / rates["off"]
+    print(f"[{tag}] (e) graph path tokens/s (median of {TUNE['reps']}) "
+          f"{json.dumps({k: round(v, 1) for k, v in rates.items()})}; "
+          f"overhead at full sampling {overhead * 100:.2f}% (the "
+          f"reference's target 2%; not gated); tokens identical: "
+          f"{tokens['off'] == tokens['full sampling']} ({smi})", flush=True)
+    if tokens["off"] != tokens["full sampling"]:
+        fail(f"[{tag}] (e) the profiler changed the graph path's tokens")
+
+
+def phase_tune(smi: str, art, kernel_rows: list) -> dict:
+    """The plan tuner, the plan-cached registry and the profiler on the
+    [serve] artifact (qwen2-1.5b, tile 4 of 8, bf16): (b) candidates
+    bitwise, (a) tuning, (c) tuned serving through the graphs, (d) save,
+    load and a re-serve with no search, (e) the profiler. Every search
+    runs before the main path's counted window."""
+    tag = "tune"
+    t0 = time.perf_counter()
+    cfg = get_config("qwen2-1.5b")
+    model = LM(cfg, device=DEV)
+    n = tune_bitwise(tag)
+    print(f"[{tag}] (b) every candidate bit-equal to the untuned call: "
+          f"{n} calls (tile and column GEMMs at M = "
+          f"{list(TUNE['check_ms'])}, VGG-16's convs at batch 32) in "
+          f"{time.perf_counter() - t0:.2f} s ({smi})", flush=True)
+    tuned, _ = tune_artifact(tag, smi, art)
+    launches, graph_eng, reqs, tokens = tuned_serve(tag, smi, model, art,
+                                                    tuned)
+    tuned_reload(tag, smi, model, tuned, reqs, tokens)
+    tune_profile(tag, smi, model, tuned, graph_eng, reqs, kernel_rows)
+    del graph_eng, tuned
+    torch.cuda.empty_cache()
+    print(f"[{tag}] phase {time.perf_counter() - t0:.1f} s ({smi})",
+          flush=True)
+    return launches
 
 
 # ------------------------------------------- sliding-window (ring) serving
@@ -4164,6 +4492,7 @@ def main() -> int:
         column = timed("column", phase_column, smi)
         cont = timed("continuous", phase_continuous, smi, served)
         spec = timed("speculative", phase_speculative, smi, served)
+        tuned = timed("tune", phase_tune, smi, served, rows)
         del served
         win = timed("window", phase_window, smi)
         fam = timed("families", phase_families, smi)
@@ -4178,7 +4507,9 @@ def main() -> int:
                         "through ContinuousEngine serving 12 "
                         f"({cont['pattern_gemm']}) + the same artifact "
                         "drafting for its pruned weights, speculative, "
-                        f"serving 4 ({spec['pattern_gemm']}) + "
+                        f"serving 4 ({spec['pattern_gemm']}) + the same "
+                        "artifact tuned, serving 8 "
+                        f"({tuned['pattern_gemm']}) + "
                         "h2o-danube-1.8b on a ring cache, chunked, "
                         "continuous and speculative serving 8 + 8 + 4 "
                         f"({win['pattern_gemm']}) + [families]: pixtral-12b "
@@ -4201,7 +4532,9 @@ def main() -> int:
                            "artifact through ContinuousEngine serving 12 "
                            f"({cont['flash_attention']}) + speculative "
                            "serving of 4 requests, two arms "
-                           f"({spec['flash_attention']}) + "
+                           f"({spec['flash_attention']}) + the tuned "
+                           "artifact serving 8 "
+                           f"({tuned['flash_attention']}) + "
                            "h2o-danube-1.8b (hd 80, window 4096) on a ring "
                            "cache, chunked, continuous and speculative "
                            f"serving 8 + 8 + 4 ({win['flash_attention']}) "
@@ -4226,8 +4559,8 @@ def main() -> int:
                         f"({pipe['pattern_conv']})",
         "column_gemm": "column-pruned qwen2-1.5b serving 8 requests",
     }
-    launches = {k: launches[k] + cont[k] + spec[k] + win[k] + fam[k]
-                + moe[k] + admm[k] + pipe[k] for k in launches}
+    launches = {k: launches[k] + cont[k] + spec[k] + tuned[k] + win[k]
+                + fam[k] + moe[k] + admm[k] + pipe[k] for k in launches}
     launches.update(pattern_conv=sum(conv) + admm_conv
                     + pipe["pattern_conv"],
                     column_gemm=column["column_gemm"])

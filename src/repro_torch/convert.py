@@ -16,6 +16,14 @@ writes as the reference's ``.npy`` files.
 This module imports neither jax nor ``repro``: a reference
 ``PackedTensor`` is read by its attributes (``scheme``, ``shape``,
 ``names``, ``buffers``, ``meta``).
+
+Plans: the port's tuned plans (``plan_torch*`` meta entries,
+``sparse/tune.py``) ride a stacked leaf's meta one value per key: the
+layers' common value, or each layer's value joined by ``|`` (empty for a
+layer without it) where they differ, e.g. a column leaf whose layers kept
+different row counts. Loading picks each layer's own. The reference's
+``plan:*`` and ``plan_mode`` entries are dropped on load: they were
+chosen for a CPU or a TPU.
 """
 
 from __future__ import annotations
@@ -28,6 +36,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.sparse.packed import PackedTensor
+
+PLAN_META = "plan_torch"      # sparse/tune.py's PLAN_PREFIX and MODE_KEY
+LAYER_SEP = "|"
 
 
 def tensor_from_numpy(a: Any, device: torch.device) -> torch.Tensor:
@@ -85,7 +96,8 @@ def packed_from_jax(np_tree: Any, cfg: Optional[ModelConfig],
     """Reference packed params (any leaf may be packed) -> the port's tree.
 
     Tuned ``plan:*`` and ``plan_mode`` meta entries are dropped: they were
-    chosen for a CPU or a TPU.
+    chosen for a CPU or a TPU. The port's ``plan_torch*`` entries stay,
+    each layer of a stacked leaf taking its own value.
     """
     dev = resolve_device(device)
 
@@ -101,11 +113,37 @@ def packed_from_jax(np_tree: Any, cfg: Optional[ModelConfig],
             for b in x.buffers)
         if x.scheme == "column" and layer is not None:
             bufs = _trim_column_pad(tuple(x.names), bufs)
-        meta = tuple((k, v) for k, v in x.meta
-                     if not (k.startswith("plan:") or k == "plan_mode"))
+        meta = tuple(_layer_meta(x.meta, layer))
         return PackedTensor(x.scheme, shape, tuple(x.names), bufs, meta)
 
     return _per_layer(np_tree, cfg, leaf)
+
+
+def _layer_meta(meta, layer: Optional[int]):
+    """One layer's meta entries of a (stacked) reference-layout leaf."""
+    for k, v in meta:
+        if k.startswith("plan:") or k == "plan_mode":
+            continue
+        if k.startswith(PLAN_META) and isinstance(v, str) and (
+                layer is not None and LAYER_SEP in v):
+            v = v.split(LAYER_SEP)[layer]
+            if not v:
+                continue
+        yield k, v
+
+
+def _stack_meta(layers: List[PackedTensor]):
+    """Layer 0's meta, its plan entries replaced by every layer's."""
+    metas = [dict(pt.meta) for pt in layers]
+    keys = [k for k, _ in layers[0].meta if not k.startswith(PLAN_META)]
+    plan_keys = list(dict.fromkeys(
+        k for m in metas for k in m if k.startswith(PLAN_META)))
+    out = [(k, metas[0][k]) for k in keys]
+    for k in plan_keys:
+        vals = [m.get(k, "") for m in metas]
+        out.append((k, vals[0] if len(set(vals)) == 1
+                    else LAYER_SEP.join(vals)))
+    return tuple(out)
 
 
 def _trim_column_pad(names, bufs):
@@ -141,7 +179,7 @@ def _stack_packed(layers: List[PackedTensor]) -> PackedTensor:
                      for p in parts]
         bufs.append(torch.stack(parts))
     return PackedTensor(first.scheme, (len(layers),) + tuple(first.shape),
-                        first.names, tuple(bufs), first.meta)
+                        first.names, tuple(bufs), _stack_meta(layers))
 
 
 def _stack(leaves: List[Any]) -> Any:

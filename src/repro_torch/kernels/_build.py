@@ -34,18 +34,18 @@ _F = ctypes.c_float
 # C entry point of each source: (symbol, argtypes)
 SIGNATURES: Dict[str, Tuple[str, List]] = {
     # x, w_packed, lane_idx, bias, out, ws, M, Q, nb, Kp, bp, ksplit,
-    # variant, block_m, is_bf16, act, stream
-    "pattern_gemm": ("pattern_gemm_launch", [_P] * 6 + [_I] * 10 + [_P]),
+    # variant, block_m, grid_order, is_bf16, act, stream
+    "pattern_gemm": ("pattern_gemm_launch", [_P] * 6 + [_I] * 11 + [_P]),
     # q, k, v, out, B, S, H, KV, hd, scale, causal, window, is_bf16,
     # variant, block_q, stream
     "flash_attention": ("flash_attention_launch",
                         [_P] * 4 + [_I] * 5 + [_F] + [_I] * 5 + [_P]),
     # x, w_packed, kept_idx, bias, out, ws, xg, M, Q, K, P, ksplit, variant,
-    # block_m, is_bf16, act, stream
-    "column_gemm": ("column_gemm_launch", [_P] * 7 + [_I] * 9 + [_P]),
+    # block_m, grid_order, is_bf16, act, stream
+    "column_gemm": ("column_gemm_launch", [_P] * 7 + [_I] * 10 + [_P]),
     # x, w_packed, taps, bias, out, B, H, W, C, A, is_bf16, act, variant,
-    # TH, TW, NIMG, BN, stream
-    "pattern_conv": ("pattern_conv_launch", [_P] * 5 + [_I] * 12 + [_P]),
+    # TH, TW, NIMG, BN, grid_order, stream
+    "pattern_conv": ("pattern_conv_launch", [_P] * 5 + [_I] * 13 + [_P]),
 }
 
 _FNS: Dict[str, ctypes._CFuncPtr] = {}

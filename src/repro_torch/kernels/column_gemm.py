@@ -13,6 +13,9 @@ variant ``tiled_variant`` names) and runs ``column_gemm_ref`` for CPU
 tensors; it never falls back from one to the other. Its bf16 ``wgmma``
 variant first gathers ``x[:, kept_idx]`` once into a scratch buffer, as
 the reference gathers outside its kernel, then runs a dense product.
+``block_m`` and ``grid_order`` re-tile that variant's grid
+(``kernels/sm90.py``), as a tuned plan asks; the other variants and the
+plain version ignore them.
 """
 
 from __future__ import annotations
@@ -23,7 +26,14 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.epilogue import ACT_CODES, apply_epilogue, check_activation
-from repro_torch.kernels.sm90 import BLOCK_K, SKINNY_M, VARIANTS, wgmma_plan
+from repro_torch.kernels.sm90 import (
+    BLOCK_K,
+    GRID_ORDERS,
+    SKINNY_M,
+    VARIANTS,
+    check_grid,
+    wgmma_plan,
+)
 
 # launches of the CUDA kernel since the last reset (plain int; the smoke
 # run zeroes it around each driven path)
@@ -82,14 +92,18 @@ def column_gemm_ref(x: torch.Tensor, w_packed: torch.Tensor,
 
 def column_gemm(x: torch.Tensor, w_packed: torch.Tensor,
                 kept_idx: torch.Tensor, bias: Optional[torch.Tensor] = None,
-                *, activation: Optional[str] = None) -> torch.Tensor:
+                *, activation: Optional[str] = None, block_m: int = 0,
+                grid_order: Optional[str] = None) -> torch.Tensor:
     """y = act(x @ W + bias) for x (M, Q) and a column-packed W.
 
     CPU tensors run ``column_gemm_ref``; CUDA tensors launch the kernel
     ``tiled_variant`` names, which takes any M, K and P, bf16 or fp32 (x,
     w_packed and bias one dtype, kept_idx int32), and contiguous operands.
+    ``block_m`` / ``grid_order``: the wgmma variant's row tile and grid
+    order (default: ``wgmma_plan``'s, row tiles fastest).
     """
     check_activation(activation)
+    check_grid(block_m, grid_order)
     if x.ndim != 2 or w_packed.ndim != 2:
         raise ValueError(f"want x (M, Q) and w_packed (K, P); got "
                          f"{tuple(x.shape)}, {tuple(w_packed.shape)}")
@@ -119,15 +133,19 @@ def column_gemm(x: torch.Tensor, w_packed: torch.Tensor,
     if w_packed.data_ptr() % 16:
         raise ValueError("column_gemm: w_packed must be 16-byte aligned")
     return _launch(x, w_packed, kept_idx, bias, activation,
-                   tiled_variant(M, K, P, x.dtype))
+                   tiled_variant(M, K, P, x.dtype), block_m=block_m,
+                   grid_order=grid_order)
 
 
 def _launch(x: torch.Tensor, w_packed: torch.Tensor, kept_idx: torch.Tensor,
             bias: Optional[torch.Tensor], activation: Optional[str],
-            variant: str) -> torch.Tensor:
+            variant: str, *, block_m: int = 0,
+            grid_order: Optional[str] = None) -> torch.Tensor:
     """Launch the device kernel ``variant`` on checked CUDA operands; the C
     entry point refuses a variant that does not take the call. Callers
-    other than ``column_gemm`` only hold one variant against another."""
+    other than ``column_gemm`` only hold one variant against another.
+    ``block_m`` / ``grid_order`` re-tile the wgmma variant only; its K
+    split is ``wgmma_plan``'s whatever the row tile."""
     if variant not in VARIANTS:
         raise ValueError(f"column_gemm: unknown variant {variant!r}")
     M, Q = x.shape
@@ -136,12 +154,12 @@ def _launch(x: torch.Tensor, w_packed: torch.Tensor, kept_idx: torch.Tensor,
     if M == 0 or P == 0:
         return out
     sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
-    block_m, ksplit, xg = 0, 1, None
+    bm, ksplit, xg = 0, 1, None
     if variant == "skinny":
         ksplit = skinny_ksplit(M, K, P, sm_count)
     elif variant == "wgmma":
-        block_m, ksplit = wgmma_plan(M, -(-P // 128), -(-K // BLOCK_K),
-                                     sm_count)
+        bm, ksplit = wgmma_plan(M, -(-P // 128), -(-K // BLOCK_K), sm_count)
+        bm = block_m or bm
         xg = torch.empty((M, -(-K // 8) * 8), dtype=x.dtype, device=x.device)
     ws = (torch.empty((ksplit, M, P), dtype=torch.float32, device=x.device)
           if ksplit > 1 else None)
@@ -150,8 +168,9 @@ def _launch(x: torch.Tensor, w_packed: torch.Tensor, kept_idx: torch.Tensor,
         bias.data_ptr() if bias is not None else None, out.data_ptr(),
         ws.data_ptr() if ws is not None else None,
         xg.data_ptr() if xg is not None else None, M, Q, K, P, ksplit,
-        VARIANTS[variant], block_m, int(x.dtype == torch.bfloat16),
-        ACT_CODES[activation], torch.cuda.current_stream(x.device).cuda_stream)
+        VARIANTS[variant], bm, GRID_ORDERS[grid_order or "pm"],
+        int(x.dtype == torch.bfloat16), ACT_CODES[activation],
+        torch.cuda.current_stream(x.device).cuda_stream)
     global LAUNCHES
     LAUNCHES += 1
     return out

@@ -395,7 +395,7 @@ cg_gather(const bf16* __restrict__ x, const int* __restrict__ kept,
 cudaError_t launch_wgmma(const void* x, const void* w, const int* kept,
                          const void* b, void* o, float* ws, void* xg, int M,
                          int Q, int K, int P, int block_m, int ksplit,
-                         int act, cudaStream_t s) {
+                         int mfast, int act, cudaStream_t s) {
   const int Kpad = (K + 7) / 8 * 8;
   const size_t n_chunks = (size_t)M * (Kpad / 8);
   cg_gather<<<(unsigned)((n_chunks + 255) / 256), 256, 0, s>>>(
@@ -418,7 +418,7 @@ cudaError_t launch_wgmma(const void* x, const void* w, const int* kept,
   a.M = M; a.Q = Q; a.K = K; a.P = P;
   a.ksteps = (K + sm90::BK - 1) / sm90::BK;
   a.kper = (a.ksteps + ksplit - 1) / ksplit;
-  a.panel = 0; a.act = act;
+  a.panel = 0; a.act = act; a.mfast = mfast;
   const int n_tiles = (P + 127) / 128;
   const cudaError_t e =
       block_m == 128
@@ -435,7 +435,9 @@ cudaError_t launch_wgmma(const void* x, const void* w, const int* kept,
 
 // bias may be null. `variant` is the route the caller chose (V_*;
 // column_gemm.py:tiled_variant): skinny for M <= 16, wgmma (bf16; K > 0,
-// P % 8 == 0, 16-byte aligned operands) with a `block_m` of 64 or 128 rows
+// P % 8 == 0, 16-byte aligned operands) with a `block_m` of 64 or 128 rows,
+// a `grid_order` (1: row tiles fastest, 0: column tiles fastest;
+// kernels/sm90.py:GRID_ORDERS; the other variants ignore it)
 // and a scratch `xg` of M * roundup(K, 8) bf16, wmma (bf16) or simt (fp32).
 // skinny and wgmma split K `ksplit` ways, and ksplit > 1 needs an fp32
 // workspace `ws` of ksplit * M * P floats. Returns cudaGetLastError(), or
@@ -444,9 +446,10 @@ extern "C" int column_gemm_launch(const void* x, const void* w_packed,
                                   const void* kept_idx, const void* bias,
                                   void* out, void* ws, void* xg, int M, int Q,
                                   int K, int P, int ksplit, int variant,
-                                  int block_m, int is_bf16, int act,
-                                  void* stream) {
-  if (M <= 0 || P <= 0 || K < 0 || Q <= 0)
+                                  int block_m, int grid_order, int is_bf16,
+                                  int act, void* stream) {
+  if (M <= 0 || P <= 0 || K < 0 || Q <= 0 ||
+      (grid_order != 0 && grid_order != 1))
     return (int)cudaErrorInvalidValue;
   if (ksplit < 1 || ksplit > 65535 || (ksplit > 1 && !ws))
     return (int)cudaErrorInvalidValue;
@@ -479,7 +482,7 @@ extern "C" int column_gemm_launch(const void* x, const void* w_packed,
   } else if (variant == V_WGMMA) {
     const cudaError_t e = launch_wgmma(x, w_packed, kept, bias, out,
                                        (float*)ws, xg, M, Q, K, P, block_m,
-                                       ksplit, act, s);
+                                       ksplit, grid_order, act, s);
     if (e != cudaSuccess) return (int)e;
   } else if (variant == V_WMMA) {
     const dim3 grid((P + 127) / 128, (M + TMB - 1) / TMB);

@@ -431,7 +431,10 @@ long long patch_count(int B, int H, int W, int TH, int TW, int NIMG) {
 // Blocks are persistent (as many as fit the card, each walking tiles
 // blockIdx.x, + gridDim.x, ...) and the ring runs on across tiles, so the
 // producer loads the next tile while the consumers store this one: at
-// C = 64 a tile is only four stages deep.
+// C = 64 a tile is only four stages deep. Tile ids run the channel tiles
+// fastest by default (tiles in flight share a halo), or with `mfast` the
+// patches (tiles in flight share a weight slice); each output's K sum is
+// the same either way.
 namespace pc90 {
 
 using namespace sm90;
@@ -450,7 +453,8 @@ struct Args {
   int C, A, act;
   int TH, TW, NIMG;                // the output patch of a tile
   int tiles_w, tiles_h, n_tiles;   // patch grid; BN-wide channel tiles
-  int tiles;                       // tiles in all
+  int pix_tiles, tiles;            // patches, and tiles in all
+  int mfast;                       // 1: patches fastest; 0: channel tiles
   int stages, box_bytes, half, stage_bytes;  // half: 2nd box's offset
 };
 
@@ -480,13 +484,17 @@ pc_wgmma(const __grid_constant__ CUtensorMap tm_x,
   uint64_t* full = reinterpret_cast<uint64_t*>(sh + 4 * a.C);
   uint64_t* empty = full + a.stages;
 
-  // tile `id` -> its channel tile (fastest: tiles in flight share a halo)
-  // and its patch origin
+  // tile `id` -> its channel tile and its patch origin
   struct Tile { int n0, w0, h0, b0; };
   auto tile_of = [&](int id) {
     Tile t;
-    t.n0 = (id % a.n_tiles) * BN;
-    id /= a.n_tiles;
+    if (a.mfast) {
+      t.n0 = (id / a.pix_tiles) * BN;
+      id %= a.pix_tiles;
+    } else {
+      t.n0 = (id % a.n_tiles) * BN;
+      id /= a.n_tiles;
+    }
     t.w0 = (id % a.tiles_w) * a.TW;
     id /= a.tiles_w;
     t.h0 = (id % a.tiles_h) * a.TH;
@@ -638,16 +646,19 @@ pc_wgmma(const __grid_constant__ CUtensorMap tm_x,
 template <int BN>
 int launch(const void* x, const void* w, const int* taps, const void* bias,
            void* o, int B, int H, int W, int C, int A, int TH, int TW,
-           int NIMG, int act, cudaStream_t s) {
+           int NIMG, int mfast, int act, cudaStream_t s) {
   Args a;
   a.bias = (const bf16*)bias; a.taps = taps;
   a.C = C; a.A = A; a.act = act;
   a.TH = TH; a.TW = TW; a.NIMG = NIMG;
   a.tiles_w = (W + TW - 1) / TW; a.tiles_h = (H + TH - 1) / TH;
   a.n_tiles = (A + BN - 1) / BN;
-  const long long tiles = (long long)a.tiles_w * a.tiles_h *
-                          ((B + NIMG - 1) / NIMG) * a.n_tiles;
+  const long long pix_tiles =
+      (long long)a.tiles_w * a.tiles_h * ((B + NIMG - 1) / NIMG);
+  const long long tiles = pix_tiles * a.n_tiles;
+  a.pix_tiles = (int)pix_tiles;
   a.tiles = (int)tiles;
+  a.mfast = mfast;
   a.box_bytes = NIMG * (TH + 2) * (TW + 2) * HC * 2;
   a.half = (a.box_bytes + 127) & ~127;
   a.stage_bytes = (BN * KR * 2 + 2 * a.half + 1023) & ~1023;
@@ -705,8 +716,10 @@ int launch(const void* x, const void* w, const int* taps, const void* bias,
 // pattern_conv.py:conv_variant): wgmma (bf16, C % 16 == 0, A % 8 == 0,
 // 16-byte aligned operands) over tiles of TH x TW x NIMG pixels (at most
 // pc90::BM, and pc90::MAX_SLOTS halo pixels) and BN channels (64, 128 or
-// 256; pattern_conv.py:conv_plan), wmma (any bf16 call) or simt
-// (fp32); wmma and simt plan their own patches and ignore TH..BN. Returns
+// 256; pattern_conv.py:conv_plan) in a `grid_order` (0: channel tiles
+// fastest, 1: patches fastest; kernels/sm90.py:GRID_ORDERS), wmma (any bf16
+// call) or simt (fp32); wmma and simt plan their own patches and ignore
+// TH..grid_order. Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for arguments the variant
 // does not take.
 extern "C" int pattern_conv_launch(const void* x, const void* w_packed,
@@ -714,8 +727,9 @@ extern "C" int pattern_conv_launch(const void* x, const void* w_packed,
                                    void* out, int B, int H, int W, int C,
                                    int A, int is_bf16, int act, int variant,
                                    int TH, int TW, int NIMG, int BN,
-                                   void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || A <= 0)
+                                   int grid_order, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || A <= 0 ||
+      (grid_order != 0 && grid_order != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int* t = (const int*)taps;
@@ -726,9 +740,9 @@ extern "C" int pattern_conv_launch(const void* x, const void* w_packed,
         TW + 2 > 256 || TH + 2 > 256)
       return (int)cudaErrorInvalidValue;
     switch (BN) {
-      case 64: return pc90::launch<64>(x, w_packed, t, bias, out, B, H, W, C, A, TH, TW, NIMG, act, s);
-      case 128: return pc90::launch<128>(x, w_packed, t, bias, out, B, H, W, C, A, TH, TW, NIMG, act, s);
-      case 256: return pc90::launch<256>(x, w_packed, t, bias, out, B, H, W, C, A, TH, TW, NIMG, act, s);
+      case 64: return pc90::launch<64>(x, w_packed, t, bias, out, B, H, W, C, A, TH, TW, NIMG, grid_order, act, s);
+      case 128: return pc90::launch<128>(x, w_packed, t, bias, out, B, H, W, C, A, TH, TW, NIMG, grid_order, act, s);
+      case 256: return pc90::launch<256>(x, w_packed, t, bias, out, B, H, W, C, A, TH, TW, NIMG, grid_order, act, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }

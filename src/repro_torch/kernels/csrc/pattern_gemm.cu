@@ -375,7 +375,7 @@ template <int BN>
 cudaError_t launch_wgmma(const void* x, const void* w, const int* li,
                          const void* b, void* o, float* ws, int M, int Q,
                          int nb, int Kp, int block_m, int ksplit,
-                         int act, cudaStream_t s) {
+                         int mfast, int act, cudaStream_t s) {
   constexpr int BI = BN < 64 ? BN : 64;
   CUtensorMap tx, tw, tl;
   const cuuint64_t xd[2] = {(cuuint64_t)Q, (cuuint64_t)M};
@@ -401,7 +401,7 @@ cudaError_t launch_wgmma(const void* x, const void* w, const int* li,
   a.M = M; a.Q = Q; a.K = Kp; a.P = nb * BN;
   a.ksteps = (Kp + sm90::BK - 1) / sm90::BK;
   a.kper = (a.ksteps + ksplit - 1) / ksplit;
-  a.panel = 1; a.act = act;
+  a.panel = 1; a.act = act; a.mfast = mfast;
   const cudaError_t e =
       block_m == 128
           ? sm90::launch_gemm<128, BN, true>(tx, tw, tl, a, nb, ksplit, s)
@@ -419,7 +419,9 @@ cudaError_t launch_wgmma(const void* x, const void* w, const int* li,
 // bias may be null; bp must be 32, 64 or 128. `variant` is the route the
 // caller chose (V_*; pattern_gemm.py:tiled_variant): skinny for M <= 16,
 // wgmma (bf16; Q % 8 == 0, Kp % 4 == 0, 16-byte aligned operands) with a
-// `block_m` of 64 or 128 rows, wmma (bf16) or simt (fp32). skinny and wgmma split
+// `block_m` of 64 or 128 rows and a `grid_order` (1: row tiles fastest, 0:
+// panels fastest; kernels/sm90.py:GRID_ORDERS), wmma (bf16) or simt (fp32),
+// which ignore the grid order. skinny and wgmma split
 // the packed rows `ksplit` ways, and ksplit > 1 needs an fp32 workspace `ws`
 // of ksplit * M * nb * bp floats. Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for arguments the variant does not take.
@@ -427,9 +429,10 @@ extern "C" int pattern_gemm_launch(const void* x, const void* w_packed,
                                    const void* lane_idx, const void* bias,
                                    void* out, void* ws, int M, int Q, int nb,
                                    int Kp, int bp, int ksplit, int variant,
-                                   int block_m, int is_bf16, int act,
-                                   void* stream) {
-  if ((bp != 32 && bp != 64 && bp != 128) || M <= 0 || nb <= 0 || Kp <= 0)
+                                   int block_m, int grid_order, int is_bf16,
+                                   int act, void* stream) {
+  if ((bp != 32 && bp != 64 && bp != 128) || M <= 0 || nb <= 0 || Kp <= 0 ||
+      (grid_order != 0 && grid_order != 1))
     return (int)cudaErrorInvalidValue;
   if (ksplit < 1 || ksplit > 65535 || (ksplit > 1 && !ws))
     return (int)cudaErrorInvalidValue;
@@ -453,12 +456,14 @@ extern "C" int pattern_gemm_launch(const void* x, const void* w_packed,
                            Kp, bp, ksplit, act, s);
   } else if (variant == V_WGMMA) {
     cudaError_t e =
-        bp == 32 ? launch_wgmma<32>(x, w_packed, li, bias, out, (float*)ws, M,
-                                    Q, nb, Kp, block_m, ksplit, act, s)
-        : bp == 64 ? launch_wgmma<64>(x, w_packed, li, bias, out, (float*)ws,
-                                      M, Q, nb, Kp, block_m, ksplit, act, s)
-                   : launch_wgmma<128>(x, w_packed, li, bias, out, (float*)ws,
-                                       M, Q, nb, Kp, block_m, ksplit, act, s);
+        bp == 32
+            ? launch_wgmma<32>(x, w_packed, li, bias, out, (float*)ws, M, Q,
+                               nb, Kp, block_m, ksplit, grid_order, act, s)
+        : bp == 64
+            ? launch_wgmma<64>(x, w_packed, li, bias, out, (float*)ws, M, Q,
+                               nb, Kp, block_m, ksplit, grid_order, act, s)
+            : launch_wgmma<128>(x, w_packed, li, bias, out, (float*)ws, M, Q,
+                                nb, Kp, block_m, ksplit, grid_order, act, s);
     if (e != cudaSuccess) return (int)e;
   } else if (bp == 32) {
     launch_tiled<32>(x, w_packed, li, bias, out, M, Q, nb, Kp, is_bf16, act, s);

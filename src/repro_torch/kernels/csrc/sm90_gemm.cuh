@@ -34,7 +34,10 @@
 //    is right.
 //
 // TMA zero-fills reads past the tensor (ragged M, K, P); stores mask M and
-// P. With gridDim.z > 1 the K steps are split over blocks and each writes
+// P. The grid order only names which tile index a block's x index is:
+// `mfast` (the default) runs the row tiles fastest, otherwise the column
+// tiles; every output element's K sum is the same either way. With
+// gridDim.z > 1 the K steps are split over blocks and each writes
 // fp32 partials to `ws` (z, M, P), summed in a fixed order by the caller's
 // reduce kernel: results never depend on scheduling.
 #pragma once
@@ -60,6 +63,7 @@ struct Args {
   int ksteps, kper;  // BK-deep K steps in all, and per K split
   int panel;         // B is (P / BN, K, BN) panels: column tile n reads panel n
   int act;
+  int mfast;         // 1: blockIdx.x is the row tile; 0: the column tile
 };
 
 template <int BM, int BN, bool GATHER> struct Cfg {
@@ -105,8 +109,9 @@ gemm_bf16(const __grid_constant__ CUtensorMap tm_a,
   uint64_t* empty = full + C::STAGES;
 
   const int tid = threadIdx.x;
-  const int n_tile = blockIdx.y, z = blockIdx.z;
-  const int m0 = blockIdx.x * BM, n0 = n_tile * BN;
+  const int m_tile = args.mfast ? blockIdx.x : blockIdx.y;
+  const int n_tile = args.mfast ? blockIdx.y : blockIdx.x, z = blockIdx.z;
+  const int m0 = m_tile * BM, n0 = n_tile * BN;
   const int s_lo = z * args.kper;
   const int nsteps = max(0, min(args.ksteps, s_lo + args.kper) - s_lo);
 
@@ -295,10 +300,11 @@ gemm_bf16(const __grid_constant__ CUtensorMap tm_a,
   }
 }
 
-// Launch gemm_bf16 over (M / BM row tiles, n_tiles, ksplit), the row tile
-// fastest so that blocks in flight share B and a weight larger than L2
-// streams from device memory once. tm_l is read only by GATHER; the output
-// map is made here.
+// Launch gemm_bf16 over (M / BM row tiles, n_tiles, ksplit), by default
+// (args.mfast) the row tile fastest so that blocks in flight share B and a
+// weight larger than L2 streams from device memory once; else the column
+// tile fastest, so that blocks in flight share A. tm_l is read only by
+// GATHER; the output map is made here.
 template <int BM, int BN, bool GATHER>
 cudaError_t launch_gemm(const CUtensorMap& tm_a, const CUtensorMap& tm_b,
                         const CUtensorMap& tm_l, const Args& args,
@@ -313,12 +319,15 @@ cudaError_t launch_gemm(const CUtensorMap& tm_a, const CUtensorMap& tm_b,
                 ob, CU_TENSOR_MAP_SWIZZLE_128B))
     return cudaErrorInvalidValue;
   auto kernel = gemm_bf16<BM, BN, GATHER>;
-  if (n_tiles > 65535 || ksplit > 65535) return cudaErrorInvalidValue;
+  const int m_tiles = (args.M + BM - 1) / BM;
+  if ((args.mfast ? n_tiles : m_tiles) > 65535 || ksplit > 65535)
+    return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3((args.M + BM - 1) / BM, n_tiles, ksplit), C::THREADS,
-           C::SMEM, s>>>(tm_a, tm_b, tm_l, tm_o, args);
+  const dim3 grid = args.mfast ? dim3(m_tiles, n_tiles, ksplit)
+                               : dim3(n_tiles, m_tiles, ksplit);
+  kernel<<<grid, C::THREADS, C::SMEM, s>>>(tm_a, tm_b, tm_l, tm_o, args);
   return cudaGetLastError();
 }
 

@@ -14,7 +14,10 @@ and the stride-1 SAME conv is ``act(xg @ w_packed + bias)`` with xg the
 route ``conv_variant`` names, the wgmma route's tiles from ``conv_plan``),
 which never builds xg (the tap gather happens as the A operand is loaded),
 and runs ``pattern_conv_ref`` for CPU tensors; it never falls back from
-one to the other. Activations are NHWC, as in the reference.
+one to the other. ``block_n`` (a channel tile of ``CHANNEL_TILES``) and
+``grid_order`` re-tile the wgmma route as a tuned plan asks (the patch
+stays ``conv_plan``'s); the other routes and the plain version ignore
+them. Activations are NHWC, as in the reference.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import torch.nn.functional as F
 from repro_torch.core.projections import pattern_library
 from repro_torch.kernels import _build
 from repro_torch.kernels.epilogue import ACT_CODES, apply_epilogue, check_activation
-from repro_torch.kernels.sm90 import VARIANTS
+from repro_torch.kernels.sm90 import GRID_ORDERS, VARIANTS
 
 # launches of the CUDA kernel since the last reset (plain int; the smoke
 # run zeroes it around each driven path)
@@ -87,6 +90,14 @@ def conv_plan(B: int, H: int, W: int, A: int,
     while bn > CHANNEL_TILES[0] and tiles * -(-A // bn) < sm_count:
         bn //= 2
     return th, tw, nimg, bn
+
+
+def channel_tiles(A: int) -> Tuple[int, ...]:
+    """The channel tiles the wgmma route may take for A output channels:
+    those of ``CHANNEL_TILES`` up to the first that covers A in one tile
+    (or the widest)."""
+    cover = next(n for n in CHANNEL_TILES if n >= min(A, CHANNEL_TILES[-1]))
+    return tuple(n for n in CHANNEL_TILES if n <= cover)
 
 
 def assign_channel_patterns(w4: torch.Tensor,
@@ -158,15 +169,23 @@ def pattern_conv_ref(x: torch.Tensor, w_packed: torch.Tensor,
 
 def pattern_conv(x: torch.Tensor, w_packed: torch.Tensor, taps: torch.Tensor,
                  bias: Optional[torch.Tensor] = None, *,
-                 activation: Optional[str] = None) -> torch.Tensor:
+                 activation: Optional[str] = None, block_n: int = 0,
+                 grid_order: Optional[str] = None) -> torch.Tensor:
     """act(conv3x3(x, W) + bias), stride 1, SAME, for x (B, H, W, C) and a
     packed W -> (B, H, W, A).
 
     CPU tensors run ``pattern_conv_ref``; CUDA tensors launch the kernel,
     which takes bf16 or fp32 (x, w_packed and bias one dtype, taps int32)
-    and contiguous operands.
+    and contiguous operands. ``block_n`` / ``grid_order``: the wgmma
+    route's channel tile and grid order (default: ``conv_plan``'s BN,
+    channel tiles fastest).
     """
     check_activation(activation)
+    if block_n and block_n not in CHANNEL_TILES:
+        raise ValueError(f"block_n {block_n} not in {CHANNEL_TILES}")
+    if grid_order is not None and grid_order not in GRID_ORDERS:
+        raise ValueError(f"grid_order {grid_order!r} not in "
+                         f"{tuple(GRID_ORDERS)}")
     if x.ndim != 4 or w_packed.ndim != 2:
         raise ValueError(f"want x (B, H, W, C) and w_packed (4C, A); got "
                          f"{tuple(x.shape)}, {tuple(w_packed.shape)}")
@@ -198,16 +217,19 @@ def pattern_conv(x: torch.Tensor, w_packed: torch.Tensor, taps: torch.Tensor,
         raise ValueError("pattern_conv: x and w_packed must be 16-byte "
                          "aligned")
     return _launch(x, w_packed, taps, bias, activation,
-                   conv_variant(C, A, x.dtype))
+                   conv_variant(C, A, x.dtype), block_n=block_n,
+                   grid_order=grid_order)
 
 
 def _launch(x: torch.Tensor, w_packed: torch.Tensor, taps: torch.Tensor,
             bias: Optional[torch.Tensor], activation: Optional[str],
-            variant: str) -> torch.Tensor:
+            variant: str, *, block_n: int = 0,
+            grid_order: Optional[str] = None) -> torch.Tensor:
     """Launch the device kernel ``variant`` on checked CUDA operands (one
     launch per call); the C entry point refuses a variant that does not
     take the call. Callers other than ``pattern_conv`` only hold one route
-    against another."""
+    against another. ``block_n`` / ``grid_order`` re-tile the wgmma route
+    only."""
     if variant not in CONV_ROUTES:
         raise ValueError(f"pattern_conv: unknown variant {variant!r}")
     B, H, W, C = x.shape
@@ -219,11 +241,13 @@ def _launch(x: torch.Tensor, w_packed: torch.Tensor, taps: torch.Tensor,
     if variant == "wgmma":
         plan = conv_plan(B, H, W, A, torch.cuda.get_device_properties(
             x.device).multi_processor_count)
+        if block_n:
+            plan = plan[:3] + (block_n,)
     _build.launch(
         "pattern_conv", x.data_ptr(), w_packed.data_ptr(), taps.data_ptr(),
         bias.data_ptr() if bias is not None else None, out.data_ptr(), B, H,
         W, C, A, int(x.dtype == torch.bfloat16), ACT_CODES[activation],
-        VARIANTS[variant], *plan,
+        VARIANTS[variant], *plan, GRID_ORDERS[grid_order or "mp"],
         torch.cuda.current_stream(x.device).cuda_stream)
     global LAUNCHES
     LAUNCHES += 1

@@ -10,7 +10,10 @@ and ``lane_idx`` (nb, Kp) int32, the source row of x for each packed row:
 
 ``pattern_gemm`` launches ``csrc/pattern_gemm.cu`` for CUDA tensors (the
 variant ``tiled_variant`` names) and runs ``pattern_gemm_ref`` for CPU
-tensors; it never falls back from one to the other.
+tensors; it never falls back from one to the other. ``block_m`` and
+``grid_order`` re-tile the wgmma variant's grid (``kernels/sm90.py``),
+as a tuned plan asks; every other variant, and the plain version, has no
+such knob and ignores them.
 """
 
 from __future__ import annotations
@@ -21,7 +24,14 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.epilogue import ACT_CODES, apply_epilogue, check_activation
-from repro_torch.kernels.sm90 import BLOCK_K, SKINNY_M, VARIANTS, wgmma_plan
+from repro_torch.kernels.sm90 import (
+    BLOCK_K,
+    GRID_ORDERS,
+    SKINNY_M,
+    VARIANTS,
+    check_grid,
+    wgmma_plan,
+)
 
 # launches of the CUDA kernel since the last reset (plain int; the smoke
 # run zeroes it around the served path), and per route
@@ -120,15 +130,18 @@ def pattern_gemm_ref(x: torch.Tensor, w_packed: torch.Tensor,
 def pattern_gemm(x: torch.Tensor, w_packed: torch.Tensor,
                  lane_idx: torch.Tensor,
                  bias: Optional[torch.Tensor] = None, *,
-                 activation: Optional[str] = None) -> torch.Tensor:
+                 activation: Optional[str] = None, block_m: int = 0,
+                 grid_order: Optional[str] = None) -> torch.Tensor:
     """y = act(x @ W + bias) for x (M, Q) and a blocked packed W.
 
     CPU tensors run ``pattern_gemm_ref``; CUDA tensors launch the kernel
     ``tiled_variant`` names, which takes any M, bf16 or fp32 (all operands
     one dtype, lane_idx int32), block_p in {32, 64, 128}, and contiguous
-    operands.
+    operands. ``block_m`` / ``grid_order``: the wgmma variant's row tile
+    and grid order (default: ``wgmma_plan``'s, row tiles fastest).
     """
     check_activation(activation)
+    check_grid(block_m, grid_order)
     if x.ndim != 2 or w_packed.ndim != 3:
         raise ValueError(f"want x (M, Q) and w_packed (nb, Kp, bp); got "
                          f"{tuple(x.shape)}, {tuple(w_packed.shape)}")
@@ -161,15 +174,19 @@ def pattern_gemm(x: torch.Tensor, w_packed: torch.Tensor,
         raise ValueError("pattern_gemm: w_packed must be 16-byte aligned")
     return _launch(x, w_packed, lane_idx, bias, activation, tiled_variant(
         M, Q, Kp, x.dtype, aligned=all(t.data_ptr() % 16 == 0
-                                       for t in (x, lane_idx))))
+                                       for t in (x, lane_idx))),
+        block_m=block_m, grid_order=grid_order)
 
 
 def _launch(x: torch.Tensor, w_packed: torch.Tensor, lane_idx: torch.Tensor,
             bias: Optional[torch.Tensor], activation: Optional[str],
-            variant: str) -> torch.Tensor:
+            variant: str, *, block_m: int = 0,
+            grid_order: Optional[str] = None) -> torch.Tensor:
     """Launch the device kernel ``variant`` on checked CUDA operands; the C
     entry point refuses a variant that does not take the call. Callers
-    other than ``pattern_gemm`` only hold one variant against another."""
+    other than ``pattern_gemm`` only hold one variant against another.
+    ``block_m`` / ``grid_order`` re-tile the wgmma variant only; its K
+    split is ``wgmma_plan``'s whatever the row tile."""
     if variant not in VARIANTS:
         raise ValueError(f"pattern_gemm: unknown variant {variant!r}")
     M, Q = x.shape
@@ -178,19 +195,21 @@ def _launch(x: torch.Tensor, w_packed: torch.Tensor, lane_idx: torch.Tensor,
     if M == 0:
         return out
     sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
-    block_m, ksplit = 0, 1
+    bm, ksplit = 0, 1
     if variant == "skinny":
         ksplit = skinny_ksplit(M, nb, Kp, bp, sm_count)
     elif variant == "wgmma":
-        block_m, ksplit = wgmma_plan(M, nb, -(-Kp // BLOCK_K), sm_count)
+        bm, ksplit = wgmma_plan(M, nb, -(-Kp // BLOCK_K), sm_count)
+        bm = block_m or bm
     ws = (torch.empty((ksplit, M, nb * bp), dtype=torch.float32,
                       device=x.device) if ksplit > 1 else None)
     _build.launch(
         "pattern_gemm", x.data_ptr(), w_packed.data_ptr(),
         lane_idx.data_ptr(), bias.data_ptr() if bias is not None else None,
         out.data_ptr(), ws.data_ptr() if ws is not None else None, M, Q, nb,
-        Kp, bp, ksplit, VARIANTS[variant], block_m,
-        int(x.dtype == torch.bfloat16), ACT_CODES[activation],
+        Kp, bp, ksplit, VARIANTS[variant], bm,
+        GRID_ORDERS[grid_order or "pm"], int(x.dtype == torch.bfloat16),
+        ACT_CODES[activation],
         torch.cuda.current_stream(x.device).cuda_stream)
     global LAUNCHES
     LAUNCHES += 1

@@ -5,18 +5,27 @@ call launches with a plain function of shapes (their ``tiled_variant``),
 so the CPU tests reach every route; the C entry point takes that name as
 ``VARIANTS[name]`` and refuses arguments the named variant does not take.
 ``wgmma_plan`` sizes the grid of the ``wgmma`` variant, whose core is
-``csrc/sm90_gemm.cuh``.
+``csrc/sm90_gemm.cuh``. A caller (the plan tuner, ``sparse/tune.py``) may
+re-tile that grid: ``block_m`` in ``BLOCK_MS`` and a grid order in
+``GRID_ORDERS``, names the reference's plans use (``mp``: the output's
+column tiles run fastest, the rows resident; ``pm``: the row tiles run
+fastest, the panels resident). Neither changes any output element's sum;
+the K split stays what ``wgmma_plan`` gives.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 # variant name -> the integer the C entry points switch on
 VARIANTS = {"skinny": 0, "wgmma": 1, "wmma": 2, "simt": 3}
 SKINNY_M = 16              # the decode variant serves M <= this
 BLOCK_K = 64               # K rows per stage of the wgmma pipeline
 BLOCKS_PER_SM = 2          # the ring (~100 KB) lets two blocks share an SM
+BLOCK_MS = (64, 128)       # the wgmma variant's row tiles
+# grid order name -> the integer the C entry points take; the GEMMs run
+# ``pm`` unless told otherwise, the conv ``mp``
+GRID_ORDERS = {"mp": 0, "pm": 1}
 
 
 def wgmma_plan(M: int, n_tiles: int, k_steps: int,
@@ -42,3 +51,14 @@ def wgmma_plan(M: int, n_tiles: int, k_steps: int,
         ksplit = max(1, min(slots // blocks, k_steps // 2))
         ksplit = -(-k_steps // -(-k_steps // ksplit))   # no empty split
     return block_m, ksplit
+
+
+def check_grid(block_m: int, grid_order: Optional[str]) -> None:
+    """A wgmma re-tiling the GEMM wrappers take: block_m 0 (``wgmma_plan``'s)
+    or one of ``BLOCK_MS``; grid order None (the default) or a
+    ``GRID_ORDERS`` name."""
+    if block_m not in (0,) + BLOCK_MS:
+        raise ValueError(f"block_m {block_m} not in {(0,) + BLOCK_MS}")
+    if grid_order is not None and grid_order not in GRID_ORDERS:
+        raise ValueError(f"grid_order {grid_order!r} not in "
+                         f"{tuple(GRID_ORDERS)}")

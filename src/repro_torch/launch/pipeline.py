@@ -24,9 +24,9 @@ Per arch, in process:
   3. ``retrain``: client-side masked retraining on the confidential data;
   4. ``pack``: ``PruneResult.to_artifact().with_params(retrained)``
      packed, its manifest's ``privacy`` block carrying the data lineage
-     (synthetic prune, then real retrain). The port has no plan tuner
-     yet, so the artifact is packed untuned and ``--no-tune`` changes
-     nothing;
+     (synthetic prune, then real retrain), and its execution plans tuned
+     on the run's device for M = 8 under ``--quick``, else for M = 8 and
+     256 (``sparse/tune.py``; ``--no-tune`` packs untuned);
   5. ``mia``: the three-way report (dense / ADMM-real / ADMM-synthetic,
      this run's pruned model as the synthetic arm) merged into
      ``--bench-path`` and summarized into the manifest (``--no-mia``
@@ -116,6 +116,7 @@ def run_arch(
     device: DeviceLike = None,
     teacher_ckpt: Optional[str] = None,
     run_mia: bool = True,
+    tune: bool = True,
     bench_path: Optional[str] = None,
     stage_retries: int = 1,
     resume: bool = False,
@@ -238,7 +239,10 @@ def run_arch(
             .with_params(ctx["retrained"])
             .with_privacy(retrained_on="client_confidential",
                           pipeline="repro_torch.launch.pipeline")
-            .pack(device=dev))
+            .pack(device=dev,
+                  tune_for=((8,) if cfg.quick else (8, 256)) if tune
+                  else None,
+                  tune_iters=1 if cfg.quick else 3))
         # the retrained weights supersede the pruned ones (kept on disk
         # under stage_prune); later stages read only the masks and the
         # lineage, so a full-depth LM's MIA stage need not hold them
@@ -348,9 +352,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--no-mia", action="store_true",
                     help="skip the membership-inference report")
     ap.add_argument("--no-tune", action="store_true",
-                    help="accepted for the reference's command line; the "
-                         "port has no plan tuner yet, so the artifact is "
-                         "packed untuned either way")
+                    help="pack without the plan search (the kernels' "
+                         "heuristic geometry serves)")
     ap.add_argument("--bench-path", default=None,
                     help="where the MIA rows are merged (default "
                          "experiments/bench/BENCH_torch_privacy_mia.json)")
@@ -397,7 +400,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 summaries.append(run_arch(
                     arch, cfg=cfg, out_dir=args.out, reduced=args.reduced,
                     device=args.device, teacher_ckpt=args.teacher_ckpt,
-                    run_mia=not args.no_mia, bench_path=args.bench_path,
+                    run_mia=not args.no_mia, tune=not args.no_tune,
+                    bench_path=args.bench_path,
                     stage_retries=args.stage_retries, resume=args.resume,
                     restart_stage=args.restart_stage,
                     save_every=args.save_every))

@@ -23,7 +23,10 @@ request at that temperature, row keys drawn from ``--seed``. Without
 
 ``--metrics-out PATH`` writes a metrics snapshot of the process-wide
 registry after the run (Prometheus text for ``.prom`` / ``.txt``, JSON
-otherwise); ``--trace-out PATH`` appends the engine's trace events (JSONL:
+otherwise): the serve series beside the packed-kernel dispatch counts
+(``sparse.dispatch_total``, ``sparse.plan_build_total``) and the plan
+searches' timings (``tune.search_seconds``, ``tune.candidates_total``:
+first-dispatch searches under ``REPRO_AUTOTUNE=1``); ``--trace-out PATH`` appends the engine's trace events (JSONL:
 one ``decode_chunk`` span per chunk, one ``retire`` event per request),
 which ``runtime.trace_analysis`` reads.
 
@@ -88,7 +91,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="write a metrics snapshot after the run: "
                          "Prometheus text if PATH ends in .prom/.txt, JSON "
-                         "otherwise (the process-wide registry)")
+                         "otherwise. Includes kernel dispatch counts and "
+                         "autotune timings (the process-wide registry), "
+                         "not just serve latency")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="append the engine's trace events (JSONL spans "
                          "and per-request retire events) to PATH")

@@ -3,8 +3,9 @@
 What the port has: the fault-tolerant step loop and the staged pipeline
 runner (``fault_tolerance``), straggler detection (``straggler``), the
 metrics registry and span tracer (``telemetry``) with its JSON and
-Prometheus exporters (``telemetry_export``), and the offline reader of a
-serving trace (``trace_analysis``). The registry is host Python, written
+Prometheus exporters (``telemetry_export``), the offline reader of a
+serving trace (``trace_analysis``) and the sampling kernel profiler
+(``profiler``: inert unless a ``profiler_scope`` is open). The registry is host Python, written
 by the pruning loop, ``StagedRun``, the straggler monitor and the serving
 engines at their host syncs; never from inside a captured CUDA graph.
 """
@@ -17,6 +18,12 @@ from repro_torch.runtime.fault_tolerance import (
     StageRecord,
     StepResult,
 )
+from repro_torch.runtime.profiler import (
+    KernelProfiler,
+    get_profiler,
+    profiler_scope,
+    set_profiler,
+)
 from repro_torch.runtime.straggler import StragglerMonitor
 from repro_torch.runtime.telemetry import (
     MetricsRegistry,
@@ -27,7 +34,9 @@ from repro_torch.runtime.telemetry import (
 )
 
 __all__ = [
-    "FaultTolerantLoop", "MetricsRegistry", "StageError", "StageRecord",
-    "StagedRun", "StepResult", "StragglerMonitor", "Telemetry", "Tracer",
-    "get_registry", "registry_scope", "telemetry_export", "trace_analysis",
+    "FaultTolerantLoop", "KernelProfiler", "MetricsRegistry", "StageError",
+    "StageRecord", "StagedRun", "StepResult", "StragglerMonitor",
+    "Telemetry", "Tracer", "get_profiler", "get_registry",
+    "profiler_scope", "registry_scope", "set_profiler", "telemetry_export",
+    "trace_analysis",
 ]

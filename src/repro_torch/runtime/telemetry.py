@@ -17,9 +17,10 @@ In the port the registry is written by the pruning loop
 .StagedRun`` (``pipeline.*``), ``runtime.straggler`` (``straggler.*``)
 and the serving engines (``serve/engine.py``: ``serve.*``;
 ``serve/speculative.py``: ``spec.*``; at their host syncs: nothing may
-write from inside a captured CUDA graph, the registry is host Python).
-The ``sparse.*`` and ``tune.*`` series are the reference's taxonomy,
-with no writer in the port yet.
+write from inside a captured CUDA graph, the registry is host Python),
+the packed dispatch (``sparse/registry.py``: ``sparse.*``, per eager
+dispatch), the plan tuner (``sparse/tune.py``: ``tune.*``) and the kernel
+profiler (``runtime/profiler.py``: ``profiler.*``).
 
 Metric-name taxonomy (dots group the subsystem, labels split series):
 
@@ -35,9 +36,11 @@ Metric-name taxonomy (dots group the subsystem, labels split series):
   serve.bind_fallbacks_total{engine}      counter
   spec.rounds_total / spec.drafted_total / spec.accepted_total /
       spec.demotions_total{engine}        counters  speculative loop
-  sparse.dispatch_total{kind,scheme,bucket}      counter  trace-time
-  sparse.plan_build_total{kind,scheme,plan}      counter  dispatches
+  sparse.dispatch_total{kind,scheme,bucket}      counter  eager dispatches
+  sparse.plan_build_total{kind,scheme,plan}      counter  plans resolved
   tune.search_seconds{kind,scheme}        histogram  autotune search wall
+  tune.candidates_total{kind,scheme}      counter  candidates timed
+  profiler.*                              see runtime/profiler.py
   straggler.events_total                  counter
   straggler.step_seconds                  histogram
   pipeline.stage_seconds{stage,status}    histogram  StagedRun stages

@@ -62,10 +62,15 @@ METRIC_HELP: Dict[str, str] = {
     "spec.dispatches_total":
         "Device dispatches issued by the speculative engine.",
     "sparse.dispatch_total":
-        "Packed-kernel dispatches by kind, scheme and M-bucket "
-        "(trace-time: per compiled graph, not per step).",
+        "Packed-kernel dispatches by kind, scheme and M-bucket (one per "
+        "eager dispatch or capture warm-up; a graph replay adds none).",
     "sparse.plan_build_total":
-        "Kernel execution plans built (jit closures), by resolved plan.",
+        "Kernel execution plans resolved (one per leaf, M and epilogue), "
+        "by resolved plan.",
+    "tune.search_seconds":
+        "Plan-search walls (timing every candidate) by kind and scheme.",
+    "tune.candidates_total":
+        "Candidate plans timed by the plan search.",
     "prune.iterations_total":
         "ADMM pruning iterations completed.",
     "prune.divergence_recoveries_total":
@@ -75,8 +80,8 @@ METRIC_HELP: Dict[str, str] = {
     "straggler.events_total":
         "Steps flagged as stragglers (deviation above threshold).",
     "profiler.dispatch_seconds":
-        "Sampled block_until_ready walls by kind, scheme, M-bucket "
-        "and plan (warmup-discarded).",
+        "Sampled walls (CUDA event pairs, host clock on the CPU) by "
+        "kind, scheme, M-bucket and plan (warmup-discarded).",
     "profiler.events_total":
         "Profiler-eligible calls seen (sampled or not).",
     "profiler.samples_total":

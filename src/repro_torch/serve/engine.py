@@ -51,8 +51,13 @@ are this engine's own.
 
 Telemetry (``runtime/telemetry.py``) is recorded on the host at the
 engines' existing syncs, never inside a graph, so tokens are the same
-with it on or off. The reference's kernel profiler (``get_profiler``) is
-not ported.
+with it on or off. So is the kernel profiler (``runtime/profiler.py``,
+inert unless a ``profiler_scope`` is open): ``ServeEngine`` walls each
+chunk's prefill and decode (the graph replays on the card, the eager
+calls on the CPU) as ``prefill`` / ``decode_many`` under scheme
+``engine:chunked``, with CUDA event pairs read lazily;
+``ContinuousEngine`` records each decode chunk's time, measured at the
+transfer it already syncs on, under ``engine:continuous``.
 """
 
 from __future__ import annotations
@@ -68,6 +73,7 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device, same_device
 from repro_torch.models.attention import cache_capacity
 from repro_torch.models.transformer import LM, finite_rows
+from repro_torch.runtime.profiler import get_profiler
 from repro_torch.runtime.telemetry import MetricsRegistry, Telemetry
 from repro_torch.serve.graphs import DecodeGraph, GraphPool, PrefillGraph
 from repro_torch.serve.sampler import (
@@ -80,6 +86,8 @@ from repro_torch.serve.sampler import (
 from repro_torch.serve.scheduler import Scheduler
 from repro_torch.serve.slots import trim_at_eos
 from repro_torch.sparse.artifact import PrunedArtifact
+from repro_torch.sparse.packed import tree_packed_bytes
+from repro_torch.sparse.tune import m_bucket
 
 __all__ = ["CancelToken", "ContinuousEngine", "MAX_PREFILL_GRAPHS",
            "Request", "Result", "ServeEngine", "trim_at_eos"]
@@ -325,6 +333,7 @@ class ServeEngine(_Engine):
         self.telemetry = telemetry
         self.straggler = straggler
         self._batches = 0
+        self._nbytes: Dict[str, int] = {}   # profiler bytes: params, cache
         self.speculative = None
         if speculative is not None:
             from repro_torch.serve.speculative import SpeculativeEngine
@@ -429,9 +438,29 @@ class ServeEngine(_Engine):
         max_new = max(r.max_new_tokens for r in requests)
         prompts, slot_mask = self.pad_prompts(requests)
         self.set_rows(requests, slot_mask)
-        _, logits = self.prefill(prompts)
+        prof = get_profiler()
+        if prof.active:
+            # engine-level walls around the graph replays (eager calls on
+            # the CPU), keyed by their GEMM row counts; values untouched
+            B, S = prompts.shape
+            if not self._nbytes:            # shape-fixed per engine
+                self._nbytes = {"params": tree_packed_bytes(self.params),
+                                "cache": tree_packed_bytes(self.cache)}
+            _, logits = prof.wall("prefill", self.prefill, (prompts,),
+                                  scheme="engine:chunked",
+                                  bucket=m_bucket(B * S),
+                                  nbytes=self._nbytes["params"])
+        else:
+            _, logits = self.prefill(prompts)
         tok0 = self.sample(logits, fold_in(self.rows["keys"], 0))
-        toks = self.decode(tok0, max_new - 1)
+        if prof.active and max_new > 1:
+            # KV bytes touched per chunk: every step reads the cache
+            toks = prof.wall("decode_many", self.decode, (tok0, max_new - 1),
+                             scheme="engine:chunked",
+                             bucket=m_bucket(self.batch_size),
+                             nbytes=self._nbytes["cache"] * (max_new - 1))
+        else:
+            toks = self.decode(tok0, max_new - 1)
         rows = toks.cpu().tolist()          # one device -> host transfer
         results = [Result(uid=r.uid,
                           tokens=trim_at_eos(rows[j][: r.max_new_tokens],
@@ -797,6 +826,16 @@ class ContinuousEngine(_Engine):
             c_busy.inc(busy_d)
             c_total.inc(self.batch_size * K)
             h_chunk.observe(dt_chunk)
+            prof = get_profiler()
+            if prof.active:
+                # the transfer already synced this chunk: record its wall
+                # passively (no extra sync, no launch)
+                if not hasattr(self, "_cache_nbytes"):   # shape-fixed
+                    self._cache_nbytes = tree_packed_bytes(self.cache)
+                prof.observe("decode_many", dt_chunk,
+                             scheme="engine:continuous",
+                             bucket=m_bucket(self.batch_size),
+                             nbytes=self._cache_nbytes * K)
             if tracer is not None:
                 tracer.span_record(
                     "decode_chunk", ts=t_chunk, dur=dt_chunk, engine=ENG,

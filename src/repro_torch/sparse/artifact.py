@@ -16,7 +16,11 @@ On disk an artifact is the reference's: ``params/``, ``masks/`` and
 ``meta["privacy"]`` is the privacy provenance block: the prune's data
 lineage as ``PruneResult`` stamps it, extended by ``with_privacy``
 downstream (``retrained_on``, the pipeline, the measured ``mia``
-numbers). The tuner is not ported: ``pack`` runs untuned.
+numbers). ``pack(tune_for=...)`` / ``tune`` run the plan tuner
+(``sparse/tune.py``): each packed leaf's winning plans land in its meta,
+stamped with the device they were timed on, and ride the packed manifest
+through ``save`` and ``load``; the search report is ``meta
+["tuned_plans"]``. Re-serving a loaded artifact repeats no search.
 """
 
 from __future__ import annotations
@@ -73,12 +77,18 @@ class PrunedArtifact:
         return dataclasses.replace(self, meta=meta)
 
     @torch.no_grad()
-    def pack(self, *, verify: bool = False,
-             device: DeviceLike = None) -> "PrunedArtifact":
+    def pack(self, *, verify: bool = False, device: DeviceLike = None,
+             tune_for: Optional[Any] = None,
+             tune_iters: int = 3) -> "PrunedArtifact":
         """Compress every packable leaf through the scheme registry, on
         ``device``. Leaves without a packed form stay dense. ``verify``
         unpacks every packed leaf and raises unless it is exactly the
-        dense leaf."""
+        dense leaf.
+
+        ``tune_for``: optional GEMM row counts the artifact will serve
+        (decode: batch; prefill: batch x prompt length): then ``tune``
+        runs the plan search for each of their M-buckets and bakes the
+        winners into the packed leaves' meta."""
         dev = resolve_device(device)
 
         def pack_leaf(path, w, spec):
@@ -97,7 +107,33 @@ class PrunedArtifact:
             return pt
 
         packed = tree_map_with_path(pack_leaf, self.params, self.specs)
-        return dataclasses.replace(self, packed=packed)
+        art = dataclasses.replace(self, packed=packed)
+        if tune_for is not None:
+            art = art.tune(tune_for, iters=tune_iters)
+        return art
+
+    @torch.no_grad()
+    def tune(self, ms: Any, *, iters: int = 3) -> "PrunedArtifact":
+        """Tune execution plans for the M values ``ms`` on the packed
+        leaves' device (packing first on the params' device if needed).
+        The winners land in each ``PackedTensor.meta`` (persisted by
+        ``save`` through the packed manifest), the search report's
+        winners in ``meta["tuned_plans"]`` (persisted in
+        ``artifact.json``). Every candidate computes the same bits, so
+        tuning changes which kernel geometry serves, never a token."""
+        from repro_torch.sparse import tune as tune_mod
+
+        if self.packed is None:
+            first = next((w for _, w in tree_items(self.params)
+                          if isinstance(w, torch.Tensor)), None)
+            packed = self.pack(device=None if first is None
+                               else first.device).packed
+        else:
+            packed = self.packed
+        packed, report = tune_mod.tune_packed_tree(packed, ms, iters=iters)
+        meta = dict(self.meta)
+        meta["tuned_plans"] = {k: v["plan"] for k, v in report.items()}
+        return dataclasses.replace(self, packed=packed, meta=meta)
 
     def bind(self, model: Any, *, packed: bool = True) -> Any:
         """The params tree ``model`` runs with, checked against its shapes.

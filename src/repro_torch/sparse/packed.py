@@ -34,6 +34,10 @@ class PackedTensor:
     names: Tuple[str, ...]
     buffers: Tuple[torch.Tensor, ...]
     meta: Tuple[Tuple[str, Any], ...] = ()
+    # the registry's memoized dispatches of this leaf object (per M,
+    # dtype and epilogue: ``sparse/registry.py``); a new leaf starts empty
+    _dispatch: Dict[Tuple, Any] = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
 
     def buf(self, name: str) -> torch.Tensor:
         return self.buffers[self.names.index(name)]

@@ -49,10 +49,10 @@ def test_target_changes_with_a_new_header_or_the_source(csrc):
 
 
 def test_signatures_match_the_wrappers_arguments():
-    assert len(_build.SIGNATURES["pattern_gemm"][1]) == 17
-    assert len(_build.SIGNATURES["column_gemm"][1]) == 17
+    assert len(_build.SIGNATURES["pattern_gemm"][1]) == 18
+    assert len(_build.SIGNATURES["column_gemm"][1]) == 18
     assert len(_build.SIGNATURES["flash_attention"][1]) == 16
-    assert len(_build.SIGNATURES["pattern_conv"][1]) == 18
+    assert len(_build.SIGNATURES["pattern_conv"][1]) == 19
     assert sorted(VARIANTS.values()) == [0, 1, 2, 3]
 
 

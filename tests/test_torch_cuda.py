@@ -1315,3 +1315,138 @@ def test_moe_lm_served_through_graphs_matches_eager(cuda, which):
     assert _outcome(out) == _outcome(eager.generate(reqs))
     assert _outcome(out) == [_outcome(graph.generate([r]))[0] for r in reqs]
     assert [len(r.tokens) for r in out] == [r.max_new_tokens for r in reqs]
+
+
+# --------------------------------------------- the plan tuner on the card
+
+from repro_torch.core import LayerSpec  # noqa: E402
+from repro_torch.runtime import profiler_scope  # noqa: E402
+from repro_torch.serve.graphs import CountedGraph, GraphPool  # noqa: E402
+from repro_torch.sparse import is_packed, tune  # noqa: E402
+from repro_torch.sparse.packed import PackedTensor  # noqa: E402
+from repro_torch.sparse.registry import (  # noqa: E402
+    SCHEMES,
+    conv_gemm_runner,
+    dispatch_matmul,
+    dispatch_stats,
+    dispatch_stats_scope,
+)
+
+EDGE_MS = (4, 16, 17, 24, 32, 33, 512, 2048)
+
+
+def _tuned_leaves(cuda):
+    """bf16 tile and column leaves at qwen2-1.5b's shapes (wq, wk/wv,
+    w_down)."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    out = []
+    for Q, P in ((1536, 1536), (1536, 256), (8960, 1536)):
+        w = (torch.randn(Q, P, generator=g, device=cuda) / Q ** 0.5)
+        spec = LayerSpec(scheme="tile_pattern", tile_block_p=128,
+                         tile_group_q=8, tile_keep=4)
+        out.append(SCHEMES["tile_pattern"].pack(
+            spec.project(w).bfloat16(), spec))
+        wc = project_column(w.T, alpha=0.5).T.contiguous().bfloat16()
+        out.append(SCHEMES["column"].pack(wc, LayerSpec(scheme="column",
+                                                        alpha=0.5)))
+    return out
+
+
+def test_every_gemm_candidate_is_bit_equal_to_the_untuned_call(cuda):
+    """Each candidate plan at the bucket-edge Ms (both routes of bucket
+    m32, the prefill chunks) gives the untuned call's bits, with the
+    epilogue too."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    for pt in _tuned_leaves(cuda):
+        handler = SCHEMES[pt.scheme]
+        bias = torch.randn(pt.shape[1], generator=g, device=cuda).bfloat16()
+        for M in EDGE_MS:
+            x = torch.randn(M, pt.shape[0], generator=g,
+                            device=cuda).bfloat16()
+            for act in (None, "silu"):
+                want = handler.plan(pt, M, act, None)(x, pt, bias)
+                cands = tune.candidate_plans(pt, "matmul", M, cuda=True)
+                assert len(cands) == (1 if M <= 16 else 4)
+                for c in cands:
+                    got = handler.plan(pt, M, act, c)(x, pt, bias)
+                    assert torch.equal(got, want), (pt.scheme, M, c)
+
+
+def test_grid_order_leaves_every_wgmma_kernel_unchanged(cuda):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for pt in _tuned_leaves(cuda)[:2]:
+        x = torch.randn(300, pt.shape[0], generator=g, device=cuda).bfloat16()
+        fn = pg.pattern_gemm if pt.scheme == "tile_pattern" else cg.column_gemm
+        want = fn(x, *pt.buffers)
+        for go in ("mp", "pm"):
+            for bm in (0, 64, 128):
+                assert torch.equal(fn(x, *pt.buffers, block_m=bm,
+                                      grid_order=go), want)
+    for B, H, C, A in ((2, 56, 64, 128), (4, 28, 256, 512), (3, 14, 128, 40)):
+        x, wp, taps = _conv_operands(g, B, H, C, A, cuda)
+        want = pc.pattern_conv(x, wp, taps)
+        for bn in pc.channel_tiles(A):
+            for go in ("mp", "pm"):
+                got = pc.pattern_conv(x, wp, taps, block_n=bn, grid_order=go)
+                assert torch.equal(got, want), (B, H, C, A, bn, go)
+
+
+def _conv_operands(g, B, H, C, A, cuda):
+    w4 = torch.randn(A, C, 3, 3, generator=g, device=cuda) / (9 * C) ** 0.5
+    pats = pc.assign_channel_patterns(w4)
+    wp, taps = pc.pack_pattern_conv(w4.bfloat16(), pats)
+    x = torch.randn(B, H, H, C, generator=g, device=cuda).bfloat16()
+    return x, wp, taps
+
+
+def test_every_conv_candidate_is_bit_equal_to_the_untuned_call(cuda):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    for B, H, C, A in ((2, 56, 64, 64), (2, 28, 128, 256), (4, 14, 512, 512),
+                       (2, 32, 3, 64)):
+        x, wp, taps = _conv_operands(g, B, H, C, A, cuda)
+        leaf = PackedTensor("pattern", (A, C, 3, 3), ("w_packed", "taps"),
+                            (wp, taps), (("keep", 4),))
+        want = pc.pattern_conv(x, wp, taps, activation="relu")
+        for c in tune.candidate_plans(leaf, "conv", B * H * H, cuda=True):
+            got = conv_gemm_runner(leaf, c, activation="relu")(x, wp, taps)
+            assert torch.equal(got, want), (B, H, C, A, c)
+
+
+def test_tuned_artifact_serves_identical_tokens_through_the_graphs(lm_art):
+    model, art = lm_art
+    tuned = art.tune((4, 4 * 24), iters=1)
+    plans = tune.describe_plans(tuned.packed)
+    assert plans and all(v["plan_torch:matmul:m32"] == "skinny"
+                         and v["plan_torch:matmul:m128"].startswith("wgmma")
+                         for v in plans.values())
+    assert all(pt.meta_dict[tune.MODE_KEY].startswith("cuda:sm_")
+               for _, pt in tree_items(tuned.packed) if is_packed(pt))
+    reqs = _requests(4, 24)
+    want = [r.tokens for r in ServeEngine(
+        model, art, packed=True, batch_size=4, max_seq_len=64).generate(reqs)]
+    eng = ServeEngine(model, tuned, packed=True, batch_size=4, max_seq_len=64)
+    assert eng.graphs
+    assert [r.tokens for r in eng.generate(reqs)] == want
+    assert [r.tokens for r in eng.generate(reqs)] == want      # replays
+
+
+def test_hooks_never_wall_or_count_inside_a_capture(lm_art):
+    model, art = lm_art
+    pt = art.packed["blocks"][0]["attn"]["wq"]
+    x = torch.randn(8, pt.shape[0], device="cuda").bfloat16()
+    out = torch.empty((8, pt.shape[1]), device="cuda", dtype=torch.bfloat16)
+    with dispatch_stats_scope():
+        with profiler_scope(sample_rate=1.0, warmup=0) as prof:
+            graph = CountedGraph(lambda: out.copy_(dispatch_matmul(x, pt)),
+                                 GraphPool(torch.device("cuda")))
+            warm = dict(dispatch_stats())
+            rows = prof.report()
+            graph.replay()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert prof.report() == rows           # replays wall nothing
+        assert dict(dispatch_stats()) == warm      # nor count
+    # the warm-up ran eagerly: one dispatch, walled; the capture: none
+    assert warm["matmul:tile_pattern:m32"] == 1
+    assert [(r["kind"], r["events"]) for r in rows] == [("matmul", 1)]
+    assert torch.equal(out, dispatch_matmul(x, pt))

@@ -84,10 +84,15 @@ def test_stages_telemetry_and_privacy_block(vgg_run):
         (n, "ok", 1) for n in pipeline.STAGES]
     tele = json.load(open(out / "vgg16" / "telemetry.json"))
     assert tele["arch"] == "vgg16"
-    hists = {(h["name"], h["labels"]["stage"]) for h in
+    hists = {(h["name"], tuple(sorted(h["labels"].items()))) for h in
              tele["metrics"]["histograms"]}
-    assert hists == {("pipeline.stage_seconds", n) for n in pipeline.STAGES}
+    # the stages, and the pack stage's plan search over the packed convs
+    assert hists == {("pipeline.stage_seconds", (("stage", n),
+                                                 ("status", "ok")))
+                     for n in pipeline.STAGES} | {
+        ("tune.search_seconds", (("kind", "conv"), ("scheme", "pattern")))}
     counters = {c["name"]: c["value"] for c in tele["metrics"]["counters"]}
+    assert counters["tune.candidates_total"] > 0
     # two ADMM iterations on each of the two pruned arms
     assert counters["prune.iterations_total"] == 4
     doc = json.load(open(out / "vgg16" / "artifact" / "artifact.json"))
