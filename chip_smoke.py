@@ -35,7 +35,11 @@ result line is printed:
               qwen2-moe-a2.7b (M = 4, 64, 200, 512, 2 048; head 1, 4) and
               deepseek-moe-16b (M = 4, 512, 2 048), and the MHA 16 / 16
               hd-128 flash calls at B = 4, S = 128 and 512 and B = 1,
-              S = 64, 200 and 512, the same way.
+              S = 64, 200 and 512, the same way; and [ssm]'s: hymba-1.5b's
+              packed GEMMs at block_p 64 (M = 1, 4, 64, 200, 512, 2 048),
+              xlstm-1.3b's head (M = 4, 512, 2 048) and hymba's 25 / 5
+              hd-64 flash calls with window 2 048 (B = 4, S = 512 and 128;
+              B = 1, S = 2 048, 512, 200 and 64), the same way.
 4. serve    — qwen2-1.5b at full width (28 layers, d_model 1536, vocab
               151 936, bf16), seeded random weights, greedy tile-pattern
               prune (4 of 8 lanes, block_p 128), packed, saved to a
@@ -220,7 +224,40 @@ result line is printed:
               (f) one layer-wise ADMM iteration at 2 of 24 layers on
               uniform synthetic tokens (batch 16 x 64): seconds, busy
               share, launches; packed, one prefill gated.
-13. admm    — the paper's algorithm: qwen2-1.5b at full width (bf16,
+13. ssm     — the recurrent families, each part with its ``[time]``:
+              (a) hymba-1.5b at full width and depth (32 layers, d_model
+              1600, 25 / 5 heads of 64, d_ff 5504, mamba 25 x 64 with
+              N 16, window 2048, bf16): tile with the mamba leaves in
+              raises (the reference's ``ValueError``); pruned a layer at
+              a time (tile 4 of 8, block_p 64, mamba and the 32 001-wide
+              head excluded), packed, saved, loaded (every leaf
+              bit-equal) and bound; served as ``[moe]`` serves (8
+              requests, 32 new: 2 x 32 x 7 L ``pattern_gemm``, 2 L flash
+              on wgmma), each prefill graph's capture seconds, graph ≡
+              eager, readings (prefill ms a chunk, decode ms a step,
+              state and KV bytes), a profile of a decode replay, the
+              device split of an eager prefill and decode step (mamba
+              against the rest; the prefill's launches are its graph's
+              nodes); a 2 048-token prompt + 64 new tokens on a 2 048
+              ring through the graphs (its capture seconds);
+              ``ContinuousEngine`` on 8 requests of S 512 /
+              200 / 64 (flash on wgmma per admission, each ≡ its solo
+              run); ``SpeculativeEngine`` refuses. (b) xlstm-1.3b (48
+              blocks in 6 groups of 7 mLSTM + 1 sLSTM, d_model 2048, 4
+              heads of 512): tile with the cells in raises; greedy tile
+              with the cells excluded packs the head alone; served as
+              (a) (2 x 32 head launches, no flash), graph ≡ eager; the
+              continuous and speculative engines refuse; the device
+              split of an eager prefill (mLSTM chunks against the sLSTM
+              time loop) and decode step. (c) ADMM at full width on
+              uniform synthetic tokens (batch 16 x 64): hymba layer-wise
+              at 2 of 32 layers (packed, one prefill gated), xlstm
+              whole-model at one group of 8 blocks: seconds, busy share,
+              launches, peak. (d) fp32 at full width: hymba at 4 layers
+              (packed ≡ dense-pruned tokens, continuous ≡
+              ``ServeEngine(batch_size=1)``), xlstm at one group (packed
+              ≡ dense-pruned).
+14. admm    — the paper's algorithm: qwen2-1.5b at full width (bf16,
               seeded random teacher) pruned by layer-wise ADMM on
               synthetic tokens (``PrivacyPreservingPruner`` with
               ``launch.prune.prune_config_for(scheme="tile_pattern",
@@ -247,7 +284,7 @@ result line is printed:
               then ``launch.serve --reduced --artifact --packed`` as
               subprocesses: both exit 0, serve prefilling through the
               blockwise fallback (head_dim 16).
-14. admm_cnn — VGG-16 at full width (ImageNet head, 224 x 224, fp32)
+15. admm_cnn — VGG-16 at full width (ImageNet head, 224 x 224, fp32)
               pruned by layer-wise ADMM ``pattern_shared`` alpha 0.25
               (batch 32, 4 iterations; some pruned leaf off the greedy
               projection), retrained by 10 masked AdamW steps on
@@ -257,7 +294,7 @@ result line is printed:
               ``pattern_conv`` launch per stride-1 3x3 conv (counts zeroed
               around it); the fp32 top-1 gate of ``[cnn]``. Seconds per
               iteration and per step, peak memory.
-15. pipeline — the privacy-preserving pruning service
+16. pipeline — the privacy-preserving pruning service
               (``launch.pipeline.main`` in process, full scale, quick
               budgets, no stage retries: every stage must succeed on
               its one attempt): VGG-16 at width 1.0 on 32 x 32 x 3
@@ -279,7 +316,7 @@ result line is printed:
               tokens, 16 new; counts zeroed around it: ``pattern_gemm``
               launched, every flash call on wgmma, no fallback) and fp32
               dense-pruned vs packed greedy tokens identical.
-16. report  — one ``{"kernels": [...]}`` JSON line covering all four
+17. report  — one ``{"kernels": [...]}`` JSON line covering all four
               kernels (each a sum over the bf16 shapes its served path
               launches; the GEMMs' ``lm_head`` at M = 512 and 2048, which
               prefill never launches, and every GEMM at a verify chunk's
@@ -367,6 +404,7 @@ from repro_torch.serve.speculative import (  # noqa: E402
 )
 from repro_torch.sparse import PrunedArtifact, is_packed  # noqa: E402
 from repro_torch.sparse import tune as tune_mod  # noqa: E402
+from repro_torch.sparse.packed import tree_packed_bytes  # noqa: E402
 from repro_torch.sparse.registry import (  # noqa: E402
     SCHEMES,
     conv_gemm_runner,
@@ -490,6 +528,25 @@ DEEPSEEK_MOE_GEMMS = (
     ("w_down", 2816, 2048, False, None),
     ("lm_head", 2048, 102400, False, None),
 )
+# [ssm]'s packed GEMMs. hymba-1.5b (a) at block_p 64 (1 600 / 128 is not
+# whole; Kp = 800 is no multiple of the 64-wide K tile): its attention and
+# SwiGLU at M = 4 (decode), 64 / 200 / 512 (continuous admissions), 1
+# (the wrap request's decode), 512 / 2 048 (4 x 128 and 4 x 512 chunks, the
+# 2 048-token wrap prompt); its 32 001-wide head stays dense. xlstm-1.3b
+# (b): only its head packs (the cells stay dense), run on the last token
+# at M = 4 in prefill and decode; M = 512 and 2 048 are checked and timed
+# beside it.
+HYMBA_BLOCK_P = 64
+HYMBA_GEMMS = (
+    ("wq/wo", 1600, 1600, False, None),
+    ("wk/wv", 1600, 320, False, None),
+    ("w_gate", 1600, 5504, False, "silu"),
+    ("w_up", 1600, 5504, False, None),
+    ("w_down", 5504, 1600, False, None),
+)
+HYMBA_MS = (1, 4, 64, 200, 512, 2048)
+XLSTM_HEAD = (("lm_head", 2048, 50304, False, None),)
+XLSTM_HEAD_MS = (4, 512, 2048)
 FLASH_SHAPES = dict(H=12, KV=2, hd=128)
 # (B, S, causal, window): the served prefill chunks (B = 4, S = 128, 512),
 # the ragged edge (S = 200), a sliding window, a non-causal call, and
@@ -521,6 +578,10 @@ FAMILY_FLASH = (
     (dict(H=16, KV=16, hd=128), ((4, 128, True, None), (4, 512, True, None),
                                  (1, 64, True, None), (1, 200, True, None),
                                  (1, 512, True, None))),
+    # [ssm]'s hymba-1.5b (25 / 5 of 64, a GQA group of 5, window 2 048):
+    # its chunks, the 2 048-token wrap prompt, its continuous admissions
+    (dict(H=25, KV=5, hd=64), tuple((B, S, True, 2048) for B, S in (
+        (4, 512), (4, 128), (1, 2048), (1, 512), (1, 200), (1, 64)))),
 )
 # (batch, H = W, C, A): every distinct stride-1 3x3 conv of VGG-16 at
 # 224 x 224, batch 32, and of ResNet-18 (CIFAR stem) at 32 x 32, batch 256
@@ -670,24 +731,33 @@ def check_pattern_gemm(gen) -> list:
                                                 else ms),
                 lambda name, M: True, earlier_route=False,
                 timed=dtype == torch.bfloat16)
+        rows += check_pattern_gemm_cases(
+            gen, dtype, "hymba ", HYMBA_GEMMS, lambda name: HYMBA_MS,
+            lambda name, M: True, earlier_route=False,
+            timed=dtype == torch.bfloat16, block_p=HYMBA_BLOCK_P)
+        rows += check_pattern_gemm_cases(
+            gen, dtype, "xlstm ", XLSTM_HEAD, lambda name: XLSTM_HEAD_MS,
+            lambda name, M: M == 4, earlier_route=False,
+            timed=dtype == torch.bfloat16)
     return rows
 
 
 def check_pattern_gemm_cases(gen, dtype, prefix: str, gemms, ms_of,
                              on_path, earlier_route: bool = True,
-                             timed: bool = True) -> list:
+                             timed: bool = True, block_p: int = 128) -> list:
     """``pattern_gemm`` for each (name, Q, P, bias, activation) of
     ``gemms`` at each M of ``ms_of(name)`` in ``dtype``, the shape named
-    ``prefix + name``; ``earlier_route``: time the WMMA tile beside a
-    wgmma call; ``timed``: time the calls (else only check them)."""
+    ``prefix + name``, panels of ``block_p`` columns; ``earlier_route``:
+    time the WMMA tile beside a wgmma call; ``timed``: time the calls
+    (else only check them)."""
     rows = []
     tol = TOL[dtype]
     for name, Q, P, has_bias, act in gemms:
         w = torch.empty((Q, P), device="cuda")
         torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
         w = (w / math.sqrt(Q)).to(dtype)
-        w = project_tile_pattern(w.T, block_p=128).T.contiguous()
-        wpb, li = pg_mod.pack_tile_pattern_blocked(w, block_p=128)
+        w = project_tile_pattern(w.T, block_p=block_p).T.contiguous()
+        wpb, li = pg_mod.pack_tile_pattern_blocked(w, block_p=block_p)
         b = (torch.randn(P, generator=gen, device="cuda") * 0.1).to(dtype) \
             if has_bias else None
         for M in ms_of(name):
@@ -4408,6 +4478,602 @@ def phase_moe(smi: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------- [ssm]
+
+SSM = dict(batch=4, max_seq=544, new=32, wrap_prompt=2048, wrap_new=64,
+           cont_requests=8, fp32_layers=4, admm_layers=2)
+SSM_NAMES = ("hymba-1.5b", "xlstm-1.3b")
+HYMBA_EXCLUDE = (r".*mamba.*", r"lm_head")     # lm_head: 32 001 columns
+XLSTM_EXCLUDE = (r".*mlstm.*", r".*slstm.*")
+
+
+def ssm_pcfg(exclude: tuple, block_p: int) -> PruneConfig:
+    """Greedy tile_pattern 4 of 8 at ``block_p`` with ``exclude`` added to
+    the default exclusions: the cells take dense leaves only (both
+    packages' forwards), and tile refuses the mamba leaves (w_bcdt has
+    2N + 1 columns), a grouped mLSTM leaf ((per - 1, D * F)) and hymba's
+    32 001-wide head."""
+    return PruneConfig(scheme="tile_pattern",
+                       exclude=tuple(PruneConfig().exclude) + exclude,
+                       overrides={".*": {"tile_block_p": block_p,
+                                         "tile_group_q": 8, "tile_keep": 4}})
+
+
+HYMBA_PCFG = ssm_pcfg(HYMBA_EXCLUDE, HYMBA_BLOCK_P)
+XLSTM_PCFG = ssm_pcfg(XLSTM_EXCLUDE, 128)
+
+
+def tile_refused(tag: str, what: str, tree: dict, pcfg) -> None:
+    """``greedy_prune`` of ``tree`` under ``pcfg`` raises the reference's
+    ``ValueError``."""
+    try:
+        greedy_prune(tree, pcfg, device=DEV)
+    except ValueError as e:
+        print(f"[{tag}] {what}: tile_pattern raises, as the reference's: "
+              f"{e}", flush=True)
+        return
+    fail(f"[{tag}] {what}: tile_pattern pruned a leaf the reference refuses")
+
+
+def graph_ms(fn, reps: int = 3) -> float:
+    """Device ms of one ``fn()`` captured alone in a CUDA graph, the mean
+    of ``reps`` back-to-back replays between one CUDA event pair (warm
+    L2, as in the call sequence it came from): its kernels without the
+    host's launch gaps an eager call leaves on the device."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):                # warm-up off the capture
+        fn()
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
+def device_split(tag: str, smi: str, what: str, fn, fns: dict) -> dict:
+    """Where ``fn``'s device time goes. One call under torch.profiler
+    (device activity only): wall, busy share and kernel launches (an
+    eager prefill's launches are the nodes its graph holds). The parts:
+    each ``models.ssm`` function of ``fns`` (label -> name), counted over
+    a first (warm-up) call, its first call replayed alone as a graph
+    (``graph_ms``) times its calls; ``pattern_gemm`` and flash by their
+    kernels' names in the trace; the rest beside them."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+    from repro_torch.models import ssm as ssm_mod
+
+    calls = {label: [] for label in fns}
+    saved = {label: getattr(ssm_mod, name) for label, name in fns.items()}
+
+    def recorded(label):
+        def run(*a, **kw):
+            calls[label].append((a, kw))
+            return saved[label](*a, **kw)
+        return run
+
+    for label, name in fns.items():
+        setattr(ssm_mod, name, recorded(label))
+    try:
+        fn()                                   # first use, counting calls
+    finally:
+        for label, name in fns.items():
+            setattr(ssm_mod, name, saved[label])
+    torch.cuda.synchronize()
+    with trace(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    split = {}
+    for label, seen in calls.items():
+        a, kw = seen[0]
+        split[label] = graph_ms(lambda: saved[label](*a, **kw)) * len(seen)
+    for name in ("pattern_gemm", "flash_attention"):
+        split[name] = sum(e.self_device_time_total for e in kernels
+                          if re.search(TRACED_KERNEL[name], e.key)) / 1e3
+    split["rest"] = busy - sum(split.values())
+    calls = {k: len(v) for k, v in calls.items()}
+    out = {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+           "busy_share": busy / (wall * 1e3),
+           "kernel_launches": sum(e.count for e in kernels),
+           "calls": calls,
+           "device_ms_by_part": {k: round(v, 3) for k, v in split.items()}}
+    print(f"[{tag}] {what}, profiled: " + json.dumps(out) + f" ({smi})",
+          flush=True)
+    return out
+
+
+def cache_bytes(cache: dict, keys=None) -> int:
+    return sum(nbytes(t) for p, t in tree_items(cache)
+               if keys is None or p.split("/")[0] in keys)
+
+
+def graph_against_eager(tag: str, eng, chunk: list) -> None:
+    """The engine's prefill graph logits and 8 decode-graph tokens against
+    eager ``LM.prefill`` / ``decode_many`` on the same chunk, bit for
+    bit."""
+    model = eng.model
+    prompts, mask = eng.pad_prompts(chunk)
+    eng.set_rows(chunk, mask)
+    keys = fold_key_grid(eng.rows["keys"], torch.zeros_like(
+        eng.rows["keys"]), 9)
+    logits = eng.prefill(prompts)[1].clone()
+    cache, want = model.prefill(eng.params, prompts, eng.max_seq_len)
+    tok0 = eng.sample(logits, keys[0])
+    toks = eng.decode(tok0, 8).clone()
+    _, rest = model.decode_many(eng.params, cache, tok0, 8,
+                                sampler=eng.sample, keys=keys[1:])
+    same = (torch.equal(logits, want),
+            torch.equal(toks, torch.cat([tok0, rest], dim=1)))
+    print(f"[{tag}] {model.config.name} S={prompts.shape[1]} chunk, graph "
+          f"against eager: prefill logits bit-identical {same[0]}, 8 decode "
+          f"tokens bit-identical {same[1]}", flush=True)
+    if not all(same):
+        fail(f"[{tag}] {model.config.name}: the graphs disagree with the "
+             "eager path")
+
+
+def ssm_serve(tag: str, smi: str, model, art, pf_per_layer: int) -> dict:
+    """The main path of (a) / (b): ``art`` packed through the launcher's
+    engine (CUDA graphs, batch 4, ``max_seq_len`` 544), 4 x 512 + 4 x 128
+    prompts, 32 new tokens; the captures timed and their nodes counted,
+    the launch gate, graph against eager, readings and a profile of a
+    decode replay. ``pf_per_layer``: packed GEMMs a layer runs per
+    forward."""
+    cfg = model.config
+    L = cfg.num_layers if cfg.family == "hybrid" else 0
+    reqs = make_requests(cfg.vocab_size)
+    eng = launch_serve.make_engine(model, art, batch=SSM["batch"],
+                                   max_seq=SSM["max_seq"], packed=True,
+                                   device=DEV)
+    captures = {}
+    for r in (reqs[0], reqs[4]):            # captures: S = 512, 128, decode
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.generate([r])
+        torch.cuda.synchronize()
+        S = len(r.prompt)
+        captures[f"S{S}"] = {
+            "s": time.perf_counter() - t0,
+            "pool_bytes": eng.prefill_graphs[S].graph.pool_bytes}
+    print(f"[{tag}] {cfg.name} graph captures (the first generate of each "
+          f"prompt length, its seconds; the decode graph's in the first): "
+          + json.dumps(captures), flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()                                 # the main path
+    t0 = time.perf_counter()
+    results = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(GEMM_NAMES)
+    heads = 1 if is_packed(eng.params.get("lm_head")) else 0
+    launch_gate(tag, f"{cfg.name} generate(8 requests) in "
+                f"{wall * 1e3:.1f} ms", launches,
+                {"pattern_gemm": 2 * SSM["new"] * (pf_per_layer * L + heads),
+                 "flash_attention": 2 * L})
+    for r in results:
+        if len(r.tokens) != SSM["new"] or not all(
+                0 <= t < cfg.vocab_size for t in r.tokens):
+            fail(f"[{tag}] {cfg.name} request {r.uid}: bad tokens "
+                 f"{r.tokens[:8]}")
+    graph_against_eager(tag, eng, reqs[:4])
+    n_tok = sum(len(r.tokens) for r in results)
+    readings = {"generate_ms": wall * 1e3, "tok_s": n_tok / wall,
+                "peak_bytes_serving": torch.cuda.max_memory_allocated(),
+                "weight_bytes_packed": tree_packed_bytes(eng.params),
+                "recurrent_state_bytes": cache_bytes(
+                    eng.cache, ("mamba", "mlstm", "slstm")),
+                "kv_bytes": cache_bytes(eng.cache, ("k", "v"))}
+    for S, ch in ((128, reqs[4:]), (512, reqs[:4])):
+        prompts, mask = eng.pad_prompts(ch)
+        eng.set_rows(ch, mask)
+        readings[f"prefill_graph_ms_S{S}"] = median_s(
+            lambda: eng.prefill(prompts)) * 1e3
+    tok0 = torch.zeros((SSM["batch"], 1), dtype=torch.int64, device=DEV)
+    readings["decode_graph_ms_per_step"] = median_s(
+        lambda: eng.decode(tok0, 31)) * 1e3 / 31
+    readings["decode_graph_device_ms"] = timed_ms(
+        eng.decode_graph.graph.replay, 10)
+    print(f"[{tag}] {cfg.name}: " + json.dumps(readings) + f" ({smi})",
+          flush=True)
+    profile(tag, f"{cfg.name} decode step (graph replay)",
+            lambda: eng.decode(tok0, 4), per=4, names=("pattern_gemm",))
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def hymba_prepare(tag: str, smi: str):
+    """(a) hymba-1.5b at full width and depth, bf16: init, the tile
+    refusal with the mamba leaves in, prune a layer at a time (4 of 8,
+    block_p 64, mamba and the head left out), pack, save and load (every
+    leaf bit-equal) -> (model, the loaded artifact)."""
+    cfg = get_config("hymba-1.5b")
+    model = LM(cfg, device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    dense_bytes = sum(nbytes(w) for _, w in tree_items(params))
+    mamba_bytes = sum(nbytes(w) for p, w in tree_items(params)
+                      if "/mamba/" in p)
+    tile_refused(tag, "hymba-1.5b layer 0 with the mamba leaves in",
+                 {"blocks": [params["blocks"][0]]},
+                 ssm_pcfg((r"lm_head",), HYMBA_BLOCK_P))
+    art = prune_by_layer(params, HYMBA_PCFG).pack(device=DEV)
+    check_exact(tag, art)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    packed = {reference_path(p) for p, x in tree_items(art.packed)
+              if is_packed(x)}
+    print(f"[{tag}] (a) hymba-1.5b L={cfg.num_layers} d_model={cfg.d_model} "
+          f"heads {cfg.num_heads}/{cfg.num_kv_heads} of {cfg.head_dim} "
+          f"d_ff={cfg.d_ff} mamba {cfg.mamba_heads} x {cfg.mamba_head_dim} "
+          f"(N {cfg.ssm_state}) window {cfg.sliding_window} vocab "
+          f"{cfg.vocab_size} {cfg.param_dtype}: init + prune by layer + pack "
+          f"{t_setup:.2f} s; weight bytes dense {dense_bytes} (mamba "
+          f"{mamba_bytes}) packed {art.packed_bytes()}; packed leaves "
+          f"{sorted(packed)}; peak device memory while pruning and packing "
+          f"{torch.cuda.max_memory_allocated()} bytes ({smi})", flush=True)
+    want = {f"blocks/attn/w{n}" for n in "qkvo"} | {
+        f"blocks/mlp/{n}" for n in ("w_gate", "w_up", "w_down")}
+    if packed != want:
+        fail(f"[{tag}] (a) packed leaves {sorted(packed)}, designed "
+             f"{sorted(want)}")
+    loaded = save_and_load(tag, art, cfg)
+    del art
+    loaded.bind(model, packed=True)
+    if loaded.bind_report["fallbacks"]:
+        fail(f"[{tag}] (a) bind fell back: {loaded.bind_report}")
+    torch.cuda.empty_cache()
+    return model, loaded
+
+
+def hymba_wrap(tag: str, smi: str, model, art) -> dict:
+    """(a) one request whose 2 048-token prompt and 64 new tokens wrap the
+    2 048-slot ring (batch 1, ``max_seq_len`` 2 112), through the graphs
+    (the ring wraps at the first decode step); the prefill graph's capture
+    seconds."""
+    cfg = model.config
+    L = cfg.num_layers
+    g = torch.Generator().manual_seed(5)
+    S, new = SSM["wrap_prompt"], SSM["wrap_new"]
+    req = Request(uid=0, prompt=torch.randint(0, cfg.vocab_size, (S,),
+                                              generator=g),
+                  max_new_tokens=new)
+    eng = launch_serve.make_engine(model, art, batch=1, max_seq=S + new,
+                                   packed=True, device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.generate([req])                            # captures S = 2048, decode
+    torch.cuda.synchronize()
+    cap = {"s": time.perf_counter() - t0,
+           "pool_bytes": eng.prefill_graphs[S].graph.pool_bytes}
+    ring = eng.cache["slot_pos"].shape[1]
+    reset_launches()                                 # the main path
+    t0 = time.perf_counter()
+    got = eng.generate([req])[0].tokens
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(GEMM_NAMES)
+    launch_gate(tag, f"(a) the {S}-token prompt + {new} new tokens on a "
+                f"ring of {ring} in {wall * 1e3:.1f} ms", launches,
+                {"pattern_gemm": new * 7 * L, "flash_attention": L})
+    print(f"[{tag}] (a) wrap: ring {ring}, prefill graph capture "
+          + json.dumps(cap) + f"; {len(got)} tokens through the graphs in "
+          f"{wall * 1e3:.1f} ms ({smi})", flush=True)
+    if ring != S or len(got) != new or not all(
+            0 <= t < cfg.vocab_size for t in got):
+        fail(f"[{tag}] (a) the wrap request: ring {ring}, {len(got)} "
+             f"tokens {got[:8]}")
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def hymba_continuous(tag: str, smi: str, model, art) -> dict:
+    """(a) ``ContinuousEngine`` (batch 4, ``max_seq_len`` 544, chunks of
+    8) on 8 requests of S 512 / 200 / 64 submitted at once, counts zeroed
+    around them; each bit-identical to its solo run; the speculative
+    engine refuses."""
+    cfg = model.config
+    L = cfg.num_layers
+    g = torch.Generator().manual_seed(2)
+    lens, new = CONT["lens"], CONT["new"]
+    reqs = [Request(uid=i, prompt=torch.randint(0, cfg.vocab_size,
+                                                (lens[i % 3],), generator=g),
+                    max_new_tokens=new[i % 3])
+            for i in range(SSM["cont_requests"])]
+    eng = continuous_engine(model, art)
+    eng.generate(reqs[:len(lens)])               # captures each S, decode
+    torch.cuda.synchronize()
+    reset_launches()                                 # the main path
+    t0 = time.perf_counter()
+    results = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(GEMM_NAMES)
+    routes = {"flash_attention": dict(fa_mod.ROUTE_LAUNCHES),
+              "blockwise_fallbacks": attention.PREFILL_FALLBACKS}
+    st = eng.stats
+    n_tok = sum(len(r.tokens) for r in results)
+    print(f"[{tag}] (a) hymba-1.5b ContinuousEngine, {len(reqs)} requests "
+          f"(prompt lengths {lens}, budgets {new}) at once: wall "
+          f"{wall * 1e3:.1f} ms, {n_tok} tokens, {n_tok / wall:.1f} tok/s, "
+          f"occupancy {st['occupancy']:.4f}, {st['chunks']} chunks; "
+          f"launches {json.dumps(launches)} by route {json.dumps(routes)} "
+          f"({smi})", flush=True)
+    for r, q in zip(results, reqs):
+        if r.status != "ok" or len(r.tokens) != q.max_new_tokens:
+            fail(f"[{tag}] (a) request {r.uid}: {r.status}, "
+                 f"{len(r.tokens)} tokens")
+    if (launches["flash_attention"] != L * len(reqs)
+            or routes["flash_attention"]["wgmma"] != L * len(reqs)
+            or routes["blockwise_fallbacks"]):
+        fail(f"[{tag}] (a) every admission must run flash on wgmma "
+             f"({L} x {len(reqs)}): {routes}")
+    solo = [eng.generate([r])[0].tokens for r in reqs]
+    same = [r.tokens == s for r, s in zip(results, solo)]
+    print(f"[{tag}] (a) each request bit-identical to its solo run through "
+          f"the same engine: {sum(same)}/{len(same)}", flush=True)
+    if not all(same):
+        fail(f"[{tag}] (a) continuous tokens depend on chunk-mates")
+    try:
+        SpeculativeEngine(model, art, art, batch_size=4, max_seq_len=544,
+                          device=DEV)
+    except NotImplementedError as e:
+        print(f"[{tag}] (a) SpeculativeEngine refuses hymba-1.5b: {e}",
+              flush=True)
+    else:
+        fail(f"[{tag}] (a) SpeculativeEngine took a recurrent model")
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def hymba_split(tag: str, smi: str, model, art) -> None:
+    """(a) where an eager prefill of a 4 x 512 chunk and an eager decode
+    step spend their device time: the mamba heads (``mamba_apply`` /
+    ``mamba_step``) against ``pattern_gemm``, flash and the rest; the
+    prefill's kernel launches are the nodes its graph holds."""
+    packed = art.bind(model, packed=True)
+    tokens = torch.randint(0, model.config.vocab_size, (4, 512),
+                           generator=torch.Generator().manual_seed(3)).to(DEV)
+    cache = model.init_cache(4, SSM["max_seq"])
+    device_split(tag, smi, "(a) hymba-1.5b eager prefill 4 x 512",
+                 lambda: model.prefill(packed, tokens, SSM["max_seq"],
+                                       cache=cache),
+                 {"mamba": "mamba_apply"})
+    tok = tokens[:, :1]
+    device_split(tag, smi, "(a) hymba-1.5b eager decode step",
+                 lambda: model.decode_step(packed, cache, tok),
+                 {"mamba": "mamba_step"})
+    del cache
+    torch.cuda.empty_cache()
+
+
+def xlstm_prepare(tag: str, smi: str):
+    """(b) xlstm-1.3b at full width and depth (6 groups of 7 mLSTM + 1
+    sLSTM blocks), bf16: init, the tile refusal on a grouped mLSTM leaf,
+    greedy tile 4 of 8 (block_p 128) with the cells left out, so only the
+    head packs -> (model, artifact)."""
+    cfg = get_config("xlstm-1.3b")
+    model = LM(cfg, device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    dense_bytes = sum(nbytes(w) for _, w in tree_items(params))
+    tile_refused(tag, "xlstm-1.3b group 0 with the cells in",
+                 {"blocks": [params["blocks"][0]]}, TILE_PCFG)
+    art = greedy_prune(params, XLSTM_PCFG, device=DEV).pack(device=DEV)
+    del params
+    check_exact(tag, art)
+    torch.cuda.synchronize()
+    packed = [p for p, x in tree_items(art.packed) if is_packed(x)]
+    print(f"[{tag}] (b) xlstm-1.3b {cfg.num_layers} blocks (groups of "
+          f"{cfg.slstm_every}) d_model={cfg.d_model} heads {cfg.num_heads} "
+          f"of {cfg.head_dim} vocab {cfg.vocab_size} {cfg.param_dtype}: init "
+          f"+ prune + pack {time.perf_counter() - t0:.2f} s; weight bytes "
+          f"dense {dense_bytes} packed {art.packed_bytes()}; packed leaves "
+          f"{packed}; peak device memory {torch.cuda.max_memory_allocated()} "
+          f"bytes ({smi})", flush=True)
+    if packed != ["lm_head"]:
+        fail(f"[{tag}] (b) packed leaves {packed}, designed ['lm_head']")
+    art.bind(model, packed=True)
+    return model, art
+
+
+def xlstm_checks(tag: str, smi: str, model, art) -> None:
+    """(b) the refusals (the continuous and speculative engines) and the
+    prefill's device split between the mLSTM chunks and the sLSTM time
+    loop on a 4 x 512 chunk."""
+    for what, make in (
+            ("ContinuousEngine", lambda: continuous_engine(model, art)),
+            ("SpeculativeEngine", lambda: SpeculativeEngine(
+                model, art, art, batch_size=4, max_seq_len=544,
+                device=DEV))):
+        try:
+            make()
+        except NotImplementedError as e:
+            print(f"[{tag}] (b) {what} refuses xlstm-1.3b: {e}", flush=True)
+        else:
+            fail(f"[{tag}] (b) {what} took xlstm-1.3b")
+    packed = art.bind(model, packed=True)
+    tokens = torch.randint(0, model.config.vocab_size, (4, 512),
+                           generator=torch.Generator().manual_seed(3)).to(DEV)
+    cache = model.init_cache(4, SSM["max_seq"])
+    device_split(tag, smi, "(b) xlstm-1.3b eager prefill 4 x 512",
+                 lambda: model.prefill(packed, tokens, SSM["max_seq"],
+                                       cache=cache),
+                 {"mlstm": "mlstm_apply", "slstm": "slstm_apply"})
+    tok = tokens[:, :1]
+    device_split(tag, smi, "(b) xlstm-1.3b eager decode step",
+                 lambda: model.decode_step(packed, cache, tok),
+                 {"mlstm": "mlstm_step", "slstm": "slstm_step"})
+    del cache
+    torch.cuda.empty_cache()
+
+
+def busy_run(tag: str, smi: str, what: str, fn) -> dict:
+    """``fn`` once under torch.profiler (device activity only): wall, busy
+    share and launches; then the peak device memory of a second run."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+
+    torch.cuda.synchronize()
+    with trace(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    out = {"seconds": time.perf_counter() - t0, "profiled_wall_s": wall,
+           "device_busy_s": busy, "busy_share": busy / wall,
+           "kernel_launches": sum(e.count for e in kernels),
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    print(f"[{tag}] {what}: " + json.dumps(out) + f" ({smi})", flush=True)
+    return out
+
+
+def ssm_admm(tag: str, smi: str) -> dict:
+    """(c) ADMM at full width, bf16, on uniform synthetic tokens at
+    ``[admm]``'s batch: hymba-1.5b layer-wise at 2 of 32 layers (the mamba
+    branch in every stage; tile 4 of 8 at block_p 64, mamba and the head
+    left out), xlstm-1.3b whole-model at one group of 8 blocks (the head
+    alone prunable: tile 4 of 8); one iteration each after a first use,
+    seconds, busy share, launches, peak; the hymba result packed and
+    prefilled, launches gated."""
+    out = {}
+    for name, layers, excl, block, layerwise in (
+            ("hymba-1.5b", SSM["admm_layers"], HYMBA_EXCLUDE,
+             HYMBA_BLOCK_P, True),
+            ("xlstm-1.3b", get_config("xlstm-1.3b").slstm_every,
+             XLSTM_EXCLUDE, 128, False)):
+        cfg = dataclasses.replace(get_config(name), num_layers=layers)
+        model = LM(cfg, device=DEV)
+        params = model.init(torch.Generator(device=DEV).manual_seed(0))
+        adapter = LMAdapter(model, seq_len=ADMM_SEQ)
+        pcfg = prune_config_for(scheme="tile_pattern", rate=2, iters=1,
+                                batch=ADMM_BATCH, tile_block=block,
+                                layerwise=layerwise,
+                                exclude=tuple(PruneConfig().exclude) + excl)
+        pruner = PrivacyPreservingPruner(adapter, pcfg)
+        result = pruner.run(as_key(1), params)           # first use
+        finite_history(tag, result.history)
+        reading = busy_run(
+            tag, smi, f"(c) {name} {layers} of {get_config(name).num_layers} "
+            f"layers at full width, {'layer-wise' if layerwise else 'whole-model'}"
+            f" ADMM tile 4 of 8, batch {ADMM_BATCH} x {ADMM_SEQ}, one "
+            "iteration", lambda: pruner.run(as_key(1), params))
+        out[name] = reading
+        if name == "hymba-1.5b":
+            art = result.to_artifact(arch=name, scheme="tile_pattern",
+                                     rate=2.0).pack(device=DEV)
+            check_exact(tag, art)
+            packed = art.bind(model, packed=True)
+            tokens = torch.randint(0, cfg.vocab_size, (4, 128),
+                                   generator=torch.Generator().manual_seed(
+                                       3)).to(DEV)
+            model.prefill(packed, tokens, 160)
+            torch.cuda.synchronize()
+            reset_launches()                         # the main path
+            _, logits = model.prefill(packed, tokens, 160)
+            torch.cuda.synchronize()
+            out["launches"] = launch_counts(GEMM_NAMES)
+            launch_gate(tag, "(c) prefill of the ADMM-pruned hymba-1.5b",
+                        out["launches"], {"pattern_gemm": 7 * layers,
+                                          "flash_attention": layers})
+            if not bool(torch.isfinite(logits).all()):
+                fail(f"[{tag}] (c) prefill logits not finite")
+            del art, packed
+        del pruner, result, params, model
+        torch.cuda.empty_cache()
+    return out["launches"]
+
+
+def ssm_fp32(tag: str) -> dict:
+    """(d) fp32 at full width: hymba-1.5b at 4 of 32 layers, dense-pruned
+    against packed greedy tokens identical and continuous tokens equal to
+    ``ServeEngine(batch_size=1)``'s; xlstm-1.3b at one group of 8 blocks,
+    dense-pruned against packed (the head) identical."""
+    hymba = get_config("hymba-1.5b")
+    token_identity(tag, dataclasses.replace(
+        hymba, num_layers=SSM["fp32_layers"], param_dtype="float32"),
+        HYMBA_PCFG, note=f", hymba-1.5b at {SSM['fp32_layers']} of "
+        f"{hymba.num_layers} layers")
+    torch.cuda.empty_cache()
+    continuous_fp32(tag, hymba, continuous_requests(hymba.vocab_size),
+                    HYMBA_PCFG)
+    torch.cuda.empty_cache()
+    xlstm = get_config("xlstm-1.3b")
+    token_identity(tag, dataclasses.replace(
+        xlstm, num_layers=xlstm.slstm_every, param_dtype="float32"),
+        XLSTM_PCFG, note=f", xlstm-1.3b at one group of "
+        f"{xlstm.slstm_every} of {xlstm.num_layers} blocks")
+    torch.cuda.empty_cache()
+    return {}
+
+
+def phase_ssm(smi: str) -> dict:
+    """The recurrent families: (a) hymba-1.5b and (b) xlstm-1.3b at full
+    width and depth, pruned, packed and served through the graphs, (c)
+    ADMM of each, (d) the fp32 bars. Returns the main paths' launch
+    counts, summed."""
+    tag = "ssm"
+    total = dict.fromkeys(GEMM_NAMES, 0)
+    held = {}
+
+    def hymba_main():
+        held["model"], held["art"] = hymba_prepare(tag, smi)
+        launches = ssm_serve(tag, smi, held["model"], held["art"], 7)
+        hymba_split(tag, smi, held["model"], held["art"])
+        return launches
+
+    def hymba_rest():
+        out = hymba_wrap(tag, smi, held["model"], held["art"])
+        cont = hymba_continuous(tag, smi, held["model"], held["art"])
+        held.clear()
+        return {k: out[k] + cont[k] for k in out}
+
+    def xlstm_main():
+        model, art = xlstm_prepare(tag, smi)
+        launches = ssm_serve(tag, smi, model, art, 0)
+        xlstm_checks(tag, smi, model, art)
+        return launches
+
+    parts = (("(a) hymba-1.5b", hymba_main),
+             ("(a) hymba-1.5b wrap, continuous, speculative", hymba_rest),
+             ("(b) xlstm-1.3b", xlstm_main),
+             ("(c) ADMM", lambda: ssm_admm(tag, smi)),
+             ("(d) fp32 bars", lambda: ssm_fp32(tag)))
+    for what, fn in parts:
+        t0 = time.perf_counter()
+        for k, v in fn().items():
+            total[k] += v
+        torch.cuda.empty_cache()
+        print(f"[time] {tag} {what} {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    return total
+
+
 META = {
     "pattern_gemm": ("src/repro_torch/kernels/csrc/pattern_gemm.cu",
                      "src/repro/kernels/pattern_gemm.py:124"),
@@ -4497,6 +5163,7 @@ def main() -> int:
         win = timed("window", phase_window, smi)
         fam = timed("families", phase_families, smi)
         moe = timed("moe", phase_moe, smi)
+        ssm = timed("ssm", phase_ssm, smi)
         admm = timed("admm", phase_admm, smi)
         admm_conv = timed("admm_cnn", phase_admm_cnn, smi)
         pipe = timed("pipeline", phase_pipeline, smi)
@@ -4522,7 +5189,12 @@ def main() -> int:
                         "requests each, qwen2-moe-a2.7b through "
                         "ContinuousEngine serving 6 and speculative serving "
                         "4 with its packed drafter, the ADMM-pruned 2-layer "
-                        f"one prefilling ({moe['pattern_gemm']}) + the "
+                        f"one prefilling ({moe['pattern_gemm']}) + [ssm]: "
+                        "hymba-1.5b (block_p 64) and xlstm-1.3b (its head) "
+                        "serving 8 requests each, hymba-1.5b's 2 048-token "
+                        "prompt wrapping its ring and 8 requests through "
+                        "ContinuousEngine, the ADMM-pruned 2-layer hymba "
+                        f"prefilling ({ssm['pattern_gemm']}) + the "
                         "ADMM-pruned "
                         f"one serving 4 ({admm['pattern_gemm']}) + the "
                         "pipeline's saved 4-layer one serving 4 "
@@ -4546,7 +5218,11 @@ def main() -> int:
                            "qwen2-moe-a2.7b and deepseek-moe-16b (MHA 16 / "
                            "16 of 128) serving, continuous and speculative, "
                            "the ADMM-pruned 2-layer one "
-                           f"({moe['flash_attention']}) "
+                           f"({moe['flash_attention']}) + [ssm]: hymba-1.5b "
+                           "(25 / 5 of 64, window 2 048) serving, the "
+                           "2 048-token wrap prompt, continuous admissions, "
+                           "the ADMM-pruned 2-layer one "
+                           f"({ssm['flash_attention']}) "
                            "+ the ADMM-pruned one serving 4 "
                            f"({admm['flash_attention']}) + the pipeline's "
                            f"saved 4-layer one serving 4 "
@@ -4560,7 +5236,8 @@ def main() -> int:
         "column_gemm": "column-pruned qwen2-1.5b serving 8 requests",
     }
     launches = {k: launches[k] + cont[k] + spec[k] + tuned[k] + win[k]
-                + fam[k] + moe[k] + admm[k] + pipe[k] for k in launches}
+                + fam[k] + moe[k] + ssm[k] + admm[k] + pipe[k]
+                for k in launches}
     launches.update(pattern_conv=sum(conv) + admm_conv
                     + pipe["pattern_conv"],
                     column_gemm=column["column_gemm"])

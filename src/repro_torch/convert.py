@@ -2,8 +2,12 @@
 
 An LM's reference tree keeps a leading ``(L, ...)`` layer axis under
 ``blocks`` (and so do its ``PackedTensor`` buffers); the port keeps a list
-with one entry per layer. A CNN's tree (``cfg`` None) has no stacked axis,
-its ``layers`` are already a list, and it converts leaf by leaf.
+with one entry per layer. An xLSTM's reference tree stacks its G groups
+instead, ``blocks/mlstm`` leaves as (G, per - 1, ...) and ``blocks/slstm``
+ones as (G, ...) (the reference's ``_leaf_rank``): the port's list has
+one entry per group, whose mLSTM leaves keep their (per - 1) axis. A
+CNN's tree (``cfg`` None) has no stacked axis, its ``layers`` are already
+a list, and it converts leaf by leaf.
 
 ``params_from_jax`` / ``packed_from_jax`` take the reference's tree with
 numpy leaves (``jax.device_get`` of its params, or its packed tree with
@@ -35,6 +39,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.transformer import xlstm_groups
 from repro_torch.sparse.packed import PackedTensor
 
 PLAN_META = "plan_torch"      # sparse/tune.py's PLAN_PREFIX and MODE_KEY
@@ -70,6 +75,12 @@ def _convert(tree: Any, leaf_fn) -> Any:
     return leaf_fn(tree)
 
 
+def stacked_entries(cfg: ModelConfig) -> int:
+    """The length of the leading axis the reference stacks ``blocks`` on:
+    its layers, or an xLSTM's groups."""
+    return xlstm_groups(cfg)[0] if cfg.family == "ssm" else cfg.num_layers
+
+
 def _per_layer(tree: Any, cfg: Optional[ModelConfig], leaf_fn) -> Any:
     if cfg is None:
         return _convert(tree, lambda a: leaf_fn(a, None))
@@ -77,7 +88,7 @@ def _per_layer(tree: Any, cfg: Optional[ModelConfig], leaf_fn) -> Any:
     for key, sub in tree.items():
         if key == "blocks":
             out[key] = [_convert(sub, lambda a, l=layer: leaf_fn(a, l))
-                        for layer in range(cfg.num_layers)]
+                        for layer in range(stacked_entries(cfg))]
         else:
             out[key] = _convert(sub, lambda a: leaf_fn(a, None))
     return out

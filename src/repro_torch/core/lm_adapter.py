@@ -10,6 +10,12 @@ ids, or N(0, 1) embeddings for a model whose front end is a stub. Every
 forward here runs dense weights with autograd, attention on
 ``blockwise_attention``. ``per_example_loss`` is the hook the
 membership-inference report (``privacy/report.py``) reads.
+
+A hybrid (hymba) stage runs its mamba heads beside attention, as its
+block does. An xLSTM's grouped blocks have no per-layer stage: its layer
+methods raise the reference's ``ValueError`` (``supports_layerwise`` is
+False), and it is pruned whole (``PruneConfig(layerwise=False)``, which
+reads only ``synthetic_batch`` and ``apply``).
 """
 
 from __future__ import annotations
@@ -34,6 +40,17 @@ class LMAdapter:
 
     def __post_init__(self):
         self.num_layers = self.config.num_layers
+
+    @property
+    def supports_layerwise(self) -> bool:
+        """Whether the layer-wise formulation (problem 3) applies."""
+        return self.config.family != "ssm"
+
+    def _require_layerwise(self) -> None:
+        if not self.supports_layerwise:
+            raise ValueError(
+                "xLSTM group-stacked blocks: use whole-model pruning "
+                "(PruneConfig(layerwise=False)) with adapter.apply")
 
     @property
     def config(self) -> ModelConfig:
@@ -65,15 +82,18 @@ class LMAdapter:
         return self.model.embed_inputs(params, batch)
 
     def layer_params(self, params, n: int):
+        self._require_layerwise()
         return params["blocks"][n]
 
     def with_layer_params(self, params, n: int, lp):
+        self._require_layerwise()
         blocks = list(params["blocks"])
         blocks[n] = tree_map(lambda new, old: new.to(old.dtype), lp,
                              blocks[n])
         return {**params, "blocks": blocks}
 
     def apply_layer(self, n: int, lp, x):
+        self._require_layerwise()
         return self.model.block(lp, x, self.model.rope(x.shape[1], x.device))
 
     def apply(self, params, batch):

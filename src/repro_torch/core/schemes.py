@@ -11,7 +11,11 @@ projected onto one of two sets, each as the reference projects it:
 paper's view, as the reference's vmap over the stacked layer axis hands
 it to the projection; ``project_tree`` of one layer's tree (a layer-wise
 ADMM update) takes it expert by expert, as the reference's vmap over its
-first axis does.
+first axis does. An xLSTM group's mLSTM leaf ((per - 1, D, F) under
+``blocks/<g>/mlstm/``) is projected whole too, as (per - 1, D * F): the
+reference's vmap runs over its group axis only. So ``tile_pattern``
+refuses it (per - 1 is no multiple of block_p) wherever the reference's
+does.
 """
 
 from __future__ import annotations

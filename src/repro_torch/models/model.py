@@ -9,6 +9,6 @@ from repro_torch.models.transformer import LM
 
 
 def build_model(config: ModelConfig, *, device: DeviceLike = None) -> LM:
-    """The LM of ``config``: ``ValueError`` for a family the reference
-    does not know, ``NotImplementedError`` for one not ported yet."""
+    """The LM of ``config`` (every family of the reference is ported);
+    ``ValueError`` for a family the reference does not know."""
     return LM(config, device=device)

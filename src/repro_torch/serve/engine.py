@@ -526,7 +526,9 @@ class ContinuousEngine(_Engine):
 
     The cache is cleared at the start of every run (the reference builds
     a fresh one per run), so a lane quarantined in one run serves again
-    in the next.
+    in the next. A hybrid model's admission writes the slot's mamba
+    state beside its KV rows; an xLSTM (no KV rows) is refused with the
+    reference's ``NotImplementedError``.
     """
 
     _reads_flags = True
@@ -566,6 +568,11 @@ class ContinuousEngine(_Engine):
         ``engine="continuous"``) into its registry, all on the engine
         clock (the tracer's clock is rebound for the run). None: metrics
         land in a private per-run registry (they still back ``stats``)."""
+        if model.config.family == "ssm":
+            raise NotImplementedError(
+                "ContinuousEngine manages KV-cache slots; xLSTM "
+                "recurrent-state admission is not implemented — use "
+                "ServeEngine")
         if chunk_steps < 1:
             raise ValueError("chunk_steps must be >= 1")
         super().__init__(model, params, batch_size=batch_size,
@@ -610,10 +617,7 @@ class ContinuousEngine(_Engine):
 
     def _reset_cache(self) -> None:
         """A fresh cache in the same tensors (the graphs read them)."""
-        for t in self.cache["k"] + self.cache["v"]:
-            t.zero_()
-        self.cache["slot_pos"].fill_(-1)
-        self.cache["pos"].zero_()
+        self.model.reset_cache(self.cache)
         self.rows["token"].zero_()
 
     @torch.no_grad()

@@ -3,7 +3,7 @@ reference's ``jax.jit`` programs: the decode ``lax.scan`` and the
 weight-baked prefills of ``repro/serve/engine.py``).
 
 ``DecodeGraph`` captures ONE decode step of an engine over static
-buffers: the KV cache, each row's current token and token index, the
+buffers: the cache (KV rows and any recurrent state), each row's current token and token index, the
 engine's row keys, a (B, W) block of tokens and, for an engine that
 reads them, one of finite-logits flags. A replay runs the step, samples
 each row's next token with the engine's ``sample`` (keyed by
@@ -163,7 +163,7 @@ class DecodeGraph:
         live = (rows["token"], rows["index"], self.col, self.out, self.ok)
         # the warm-up step runs on a scratch cache and buffers: the live
         # cache may hold prefilled rows
-        scratch = model.init_cache(B, cache["slot_pos"].shape[1])
+        scratch = model.init_cache(B, model.cache_seq_len(cache))
         self.graph = CountedGraph(
             lambda: step(cache, *live), pool,
             warmup=lambda: step(scratch, *(None if t is None else t.clone()

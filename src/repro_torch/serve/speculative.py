@@ -83,8 +83,11 @@ def shallow_drafter(model: LM, params: Any, num_layers: int
                     ) -> Tuple[LM, Any]:
     """A drafter of the first ``num_layers`` blocks over the SAME weights:
     the block list sliced, embedding, final norm and head shared by
-    reference (no copies)."""
+    reference (no copies). An xLSTM's groups do not truncate per layer:
+    ``NotImplementedError``, as in the reference."""
     cfg = model.config
+    if cfg.family == "ssm":
+        raise NotImplementedError("xLSTM groups do not truncate per-layer")
     if not 1 <= num_layers <= cfg.num_layers:
         raise ValueError(f"num_layers must be in [1, {cfg.num_layers}]")
     draft_model = LM(dataclasses.replace(cfg, num_layers=num_layers),

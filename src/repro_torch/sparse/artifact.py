@@ -42,6 +42,7 @@ from repro_torch.sparse.registry import handler_for
 from repro_torch.utils.tree import reference_path, tree_items, tree_map_with_path
 
 ARTIFACT_JSON = "artifact.json"
+RECURRENT_CELLS = ("mlstm", "slstm", "mamba")   # models/ssm.py's cells
 # artifact.json layout version (the reference's; separate from the
 # checkpoint manifest's schema_version)
 ARTIFACT_SCHEMA_VERSION = 2
@@ -142,7 +143,10 @@ class PrunedArtifact:
         e.g. ResNet's strided convs) are unpacked here, once, instead of
         inside every forward. A packed leaf that fails ``validate_packed``
         is served from the dense params instead and recorded in
-        ``bind_report``.
+        ``bind_report``. A packed leaf inside a recurrent cell (``mlstm``,
+        ``slstm``, ``mamba``) raises ``TypeError``: the cells apply their
+        projections to dense leaves only, as the reference's do (its
+        forward fails on such a leaf).
         """
         if packed and self.packed is None:
             self.packed = self.pack(device=model.device).packed
@@ -156,6 +160,12 @@ class PrunedArtifact:
             def check_leaf(path, x):
                 if not is_packed(x):
                     return x
+                cell = set(path.split("/")) & set(RECURRENT_CELLS)
+                if cell:
+                    raise TypeError(
+                        f"packed leaf {path}: the {cell.pop()} cell takes "
+                        "dense weights only; exclude its leaves from the "
+                        f"prune (e.g. r'.*{path.split('/')[-2]}.*')")
                 if path in unpackable:
                     return handler_for(x.scheme).to_dense(x)
                 why = validate_packed(x)

@@ -1450,3 +1450,120 @@ def test_hooks_never_wall_or_count_inside_a_capture(lm_art):
     assert warm["matmul:tile_pattern:m32"] == 1
     assert [(r["kind"], r["events"]) for r in rows] == [("matmul", 1)]
     assert torch.equal(out, dispatch_matmul(x, pt))
+
+
+# ------------------------------------- the recurrent families on the card
+
+HYMBA_GEMMS = ((1600, 1600), (1600, 320), (1600, 5504), (5504, 1600))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M", [4, 512, 2048])
+@pytest.mark.parametrize("Q,P", HYMBA_GEMMS)
+def test_pattern_gemm_at_hymba_block_p_64(cuda, Q, P, M, dtype):
+    """hymba-1.5b's packed GEMMs at block_p 64: Kp = Q / 2 (800 for
+    d_model 1 600) is no multiple of the 64-wide K tile."""
+    g = torch.Generator(device=cuda).manual_seed(Q + P + M)
+    w = torch.randn(Q, P, generator=g, device=cuda) / Q ** 0.5
+    w = project_tile_pattern(w.to(dtype).T, block_p=64).T.contiguous()
+    wpb, li = pg.pack_tile_pattern_blocked(w, block_p=64)
+    x = torch.randn(M, Q, generator=g, device=cuda).to(dtype)
+    got = pg.pattern_gemm(x, wpb, li, activation="silu")
+    want = pg.pattern_gemm_ref(x, wpb, li, activation="silu")
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M", [4, 512, 2048])
+def test_pattern_gemm_at_the_xlstm_head(cuda, M, dtype):
+    """xlstm-1.3b's head, 2 048 -> 50 304, at block_p 128."""
+    g = torch.Generator(device=cuda).manual_seed(M)
+    w = torch.randn(2048, 50304, generator=g, device=cuda) / 2048 ** 0.5
+    w = project_tile_pattern(w.to(dtype).T, block_p=128).T.contiguous()
+    wpb, li = pg.pack_tile_pattern_blocked(w, block_p=128)
+    x = torch.randn(M, 2048, generator=g, device=cuda).to(dtype)
+    tol = TOL[dtype]
+    torch.testing.assert_close(pg.pattern_gemm(x, wpb, li).float(),
+                               pg.pattern_gemm_ref(x, wpb, li).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S", [(4, 512), (4, 128), (1, 2048), (1, 200)])
+def test_flash_at_hymba_heads(cuda, B, S, dtype):
+    """25 / 5 heads of 64 (a GQA group of 5), window 2 048: bf16 on the
+    wgmma route, fp32 on simt."""
+    g = torch.Generator(device=cuda).manual_seed(S)
+    q, k, v = _qkv(g, B, S, 25, 5, 64, cuda, dtype)
+    want_route = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert fa.flash_variant(S, 64, dtype, 2048, True) == want_route
+    got = fa.flash_attention(q, k, v, causal=True, window=2048)
+    want = fa.flash_attention_ref(q, k, v, causal=True, window=2048)
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+RECURRENT = {"hymba-1.5b": ((r".*mamba.*", r"lm_head"), 64),
+             "xlstm-1.3b": ((r".*mlstm.*", r".*slstm.*"), 128)}
+
+
+@pytest.mark.parametrize("name", sorted(RECURRENT))
+@pytest.mark.parametrize("which", ["reduced", "full_width"])
+def test_recurrent_lm_served_through_graphs_matches_eager(cuda, name,
+                                                          which):
+    """hymba-1.5b (2 layers) and xlstm-1.3b (one group of 8 blocks),
+    reduced (bf16) and at full width, tile packed with the cells left
+    dense: the chunked engine's prefill logits and decode tokens through
+    its graphs bit-identical to eager ``LM.prefill`` / ``decode_many`` on
+    a left-padded chunk, the recurrent state static buffers written in
+    place; hymba's continuous engine through its graphs against its eager
+    run and each request's solo run."""
+    excl, block = RECURRENT[name]
+    if which == "reduced":
+        cfg, block = reduced_config(name, param_dtype="bfloat16"), 32
+    else:
+        full = get_config(name)
+        cfg = dataclasses.replace(full, num_layers=full.slstm_every or 2)
+    model = LM(cfg, device=cuda)
+    art = greedy_prune(model.init(torch.Generator(device=cuda).manual_seed(
+        0)), PruneConfig(scheme="tile_pattern", exclude=DEFAULT_EXCLUDE + excl,
+                         overrides={".*": {"tile_block_p": block}})).pack()
+    reqs = _mixed_requests(cfg.vocab_size)
+    eng = ServeEngine(model, art, packed=True, batch_size=4, max_seq_len=96)
+    ptrs = {p: t.data_ptr() for p, t in tree_items(eng.cache)}
+    chunk = reqs[:4]                      # prompts 40, 17, 64, 9: S = 64
+    prompts, mask = eng.pad_prompts(chunk)
+    eng.set_rows(chunk, mask)
+    logits = eng.prefill(prompts)[1].clone()
+    cache, want = model.prefill(eng.params, prompts, 96)
+    assert torch.equal(logits, want)
+    keys = fold_key_grid(eng.rows["keys"], torch.zeros_like(
+        eng.rows["keys"]), 12)
+    tok0 = eng.sample(logits, keys[0])
+    got = eng.decode(tok0, 11).clone()
+    _, rest = model.decode_many(eng.params, cache, tok0, 11,
+                                sampler=eng.sample, keys=keys[1:])
+    assert torch.equal(got, torch.cat([tok0, rest], dim=1))
+    for p, t in tree_items(cache):
+        assert torch.equal(dict(tree_items(eng.cache))[p], t), p
+    assert {p: t.data_ptr() for p, t in tree_items(eng.cache)} == ptrs
+    if cfg.family == "ssm":
+        with pytest.raises(NotImplementedError, match="xLSTM"):
+            ContinuousEngine(model, art, packed=True, batch_size=4,
+                             max_seq_len=96)
+        return
+
+    def engine(graphs):
+        e = ContinuousEngine(model, art, packed=True, batch_size=4,
+                             max_seq_len=96, chunk_steps=4)
+        e.graphs = graphs
+        return e
+
+    graph, eager = engine(True), engine(False)
+    graph.generate(reqs)                                   # captures
+    out = graph.generate(reqs)
+    assert _outcome(out) == _outcome(eager.generate(reqs))
+    assert _outcome(out) == [_outcome(graph.generate([r]))[0] for r in reqs]

@@ -46,7 +46,8 @@ def test_engine_import_pulls_in_no_jax():
             "repro_torch.serve.scheduler, repro_torch.runtime.trace_analysis, "
             "repro_torch.serve.speculative, repro_torch.models.model, "
             "repro_torch.core.synthetic, repro_torch.testing, "
-            "repro_torch.models.moe; "
+            "repro_torch.models.moe, repro_torch.models.ssm, "
+            "repro_torch.configs.xlstm_1_3b, repro_torch.configs.hymba_1_5b; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

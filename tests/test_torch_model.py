@@ -145,11 +145,15 @@ def test_param_shapes_match_reference_init():
 
 
 def test_unported_families_raise():
-    cfg = t_reduced_config("qwen2-1.5b")
-    with pytest.raises(NotImplementedError):
-        LM(dataclasses.replace(cfg, family="hybrid"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        LM(dataclasses.replace(cfg, family="ssm"), device="cpu")
+    """Every family of the reference is ported: none raises
+    ``NotImplementedError`` any more (the ssm and hybrid configs build);
+    a family the reference does not know raises ``ValueError``."""
+    for name in ("xlstm-1.3b", "hymba-1.5b"):
+        cfg = t_reduced_config(name)
+        assert LM(cfg, device="cpu").config.family == cfg.family
+    with pytest.raises(ValueError, match="unknown family"):
+        LM(dataclasses.replace(t_reduced_config("qwen2-1.5b"),
+                               family="rnn"), device="cpu")
 
 
 def test_flash_prefill_gate_agrees_with_reference():

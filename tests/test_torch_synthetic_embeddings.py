@@ -242,7 +242,6 @@ def test_build_model_checks_the_family_as_the_reference_does():
         build_model(bad, device="cpu")
     with pytest.raises(ValueError, match="unknown family"):
         jbuild(bad)
-    with pytest.raises(NotImplementedError):
-        build_model(dataclasses.replace(cfg, family="hybrid"), device="cpu")
-    for family in ("dense", "vlm", "audio"):
+    for family in ("dense", "vlm", "audio", "hybrid", "ssm"):
         build_model(dataclasses.replace(cfg, family=family), device="cpu")
+        jbuild(dataclasses.replace(cfg, family=family))
