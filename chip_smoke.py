@@ -79,11 +79,28 @@ result line is printed:
               dense-pruned forward (``F.conv2d``, no TF32) against the
               packed one: max |logit difference| and top-1 identity on
               every image whose dense top-2 gap exceeds twice it.
-7. column   — qwen2-1.5b pruned by column at alpha 0.5, packed, saved,
-              loaded and served as in phase 4 (``column_gemm`` on every
-              packed GEMM, prefill and decode); then fp32 dense-pruned
+7. column   — qwen2-1.5b pruned by column at alpha 0.5, packed, its first
+              4 layers saved and loaded (every leaf bit-equal) and served
+              to the in-memory cut's tokens, the whole served as
+              in phase 4 (``column_gemm`` on every packed GEMM, prefill
+              and decode); then fp32 dense-pruned
               against packed greedy tokens at 4 layers of full width,
               which must be identical.
+7b. roofline — the port's roofline attribution (``roofline/``) at full
+              width in bf16 (activations modeled at 2 bytes): every
+              distinct packed leaf of [serve]'s tile artifact and
+              [column]'s artifact at M = 4, 512 and 2 048, and of VGG-16
+              ``pattern_shared`` (224 x 224) on one 64 x 64 and one
+              256 x 256 image, each leaf profiled alone through the
+              registry (``profile_packed_tree``, counts zeroed around
+              them; each dispatch queued behind an L2 flush and a device
+              sleep, so a wall is the kernel's cold device time, not the
+              host's enqueue) and attributed alone (``attribute``):
+              measured and modeled us, achieved fraction, bound, beside the
+              ``[kernels]`` row of the same shape (a cross-check, not a
+              gate); gate: every row modeled, every fraction in (0,
+              1.05]; the report written to
+              ``experiments/bench_torch/attribution.json``.
 8. continuous — the [serve] phase's loaded artifact through
               ``ContinuousEngine(batch_size=4, max_seq_len=544,
               chunk_steps=8)``: slot prefill graphs of S = 512, 200 and 64
@@ -104,7 +121,13 @@ result line is printed:
               (mates bit-identical to solo; ``stats`` equal to the
               registry); the chunked ``ServeEngine`` on the same requests
               as a reading; at 4 layers in fp32, continuous greedy tokens
-              equal to ``ServeEngine(batch_size=1)``'s.
+              equal to ``ServeEngine(batch_size=1)``'s. The main path's
+              trace is kept as
+              ``experiments/bench_torch/trace_telemetry.jsonl``.
+8b. analyze — ``python -m repro_torch.launch.analyze`` on that trace and
+              [roofline]'s report with ``--out``: exit 0, the analysis
+              counts the 12 requests, all ok, and holds the attribution
+              rows; a missing trace exits 2.
 9. speculative — qwen2-1.5b, bf16, batch 4, 4 x 128-token prompts, 64
               new tokens, ``draft_k`` 4, ``SpeculativeEngine`` over CUDA
               graphs (a round: both snapshots, K drafter steps, the
@@ -137,8 +160,9 @@ result line is printed:
               through the launcher's engine (graphs), counts zeroed around
               its main path, tokens equal to [serve]'s untuned ones,
               prefill ms a chunk and decode ms a step tuned and untuned;
-              (d) saved and loaded: plans kept, re-served under
-              ``REPRO_AUTOTUNE=1`` with no search and the same tokens; (e)
+              (d) its first 4 layers saved and loaded: plans kept,
+              served under ``REPRO_AUTOTUNE=1`` with no search and the
+              in-memory cut's tokens; (e)
               ``profiler_scope(sample_rate=1.0)`` over an eager decode
               (its rows beside the [kernels] rows' mix, tokens unchanged)
               and the graph path's tokens/s off and at full sampling
@@ -147,8 +171,10 @@ result line is printed:
 10. window  — sliding-window serving on a ring cache: h2o-danube-1.8b at
               full width (24 layers, d_model 2560, 32 / 8 heads of 80,
               window 4096, bf16), seeded random weights, greedy
-              tile-pattern 4 of 8 at block_p 128, packed, saved and
-              loaded (seconds, bytes). (a) ``ServeEngine`` through its
+              tile-pattern 4 of 8 at block_p 128, packed, its first 4
+              layers saved and loaded (seconds, bytes) and served to the
+              in-memory cut's tokens. (a)
+              ``ServeEngine`` through its
               graphs at batch 4, ``max_seq_len`` 4352 (a ring of 4096):
               4 x 4160-token prompts (the prefill wraps) and 4 x 4064
               (the decode wraps), 64 new; (b) ``ContinuousEngine``, 8
@@ -230,8 +256,10 @@ result line is printed:
               N 16, window 2048, bf16): tile with the mamba leaves in
               raises (the reference's ``ValueError``); pruned a layer at
               a time (tile 4 of 8, block_p 64, mamba and the 32 001-wide
-              head excluded), packed, saved, loaded (every leaf
-              bit-equal) and bound; served as ``[moe]`` serves (8
+              head excluded), packed (its first 4 layers saved and
+              loaded, every leaf bit-equal, served to the in-memory cut's
+              tokens) and bound; served as
+              ``[moe]`` serves (8
               requests, 32 new: 2 x 32 x 7 L ``pattern_gemm``, 2 L flash
               on wgmma), each prefill graph's capture seconds, graph ≡
               eager, readings (prefill ms a chunk, decode ms a step,
@@ -275,15 +303,15 @@ result line is printed:
               flash call on wgmma, no blockwise fallback, ``pattern_gemm``
               launched, every packed leaf exact. In bf16 the primal
               steps round back to the weights (the reference's dtype
-              rules), so at 4 layers the params are fp32: whole-model
+              rules), so at 2 layers the params are fp32: whole-model
               ADMM (2 iterations, finite); a run stopped by its callback
               after iteration 2 and resumed (checkpoints every 2), bit-
               equal to an uninterrupted one, with some pruned leaf off
               the greedy projection (the weights moved), and the greedy
               loss printed beside ADMM's; ``launch.prune --reduced``
               then ``launch.serve --reduced --artifact --packed`` as
-              subprocesses: both exit 0, serve prefilling through the
-              blockwise fallback (head_dim 16).
+              subprocesses: both exit 0, serve prefilling on flash's
+              SIMT route (head_dim 16), no blockwise fallback.
 15. admm_cnn — VGG-16 at full width (ImageNet head, 224 x 224, fp32)
               pruned by layer-wise ADMM ``pattern_shared`` alpha 0.25
               (batch 32, 4 iterations; some pruned leaf off the greedy
@@ -311,11 +339,34 @@ result line is printed:
               ``StageError`` naming ``retrain``; teacher and prune ok on
               the ledger) and its ``--resume`` (both restored with 0
               attempts, params bit-equal to the first run's). Then
-              qwen2-1.5b at full width, 4 of 28 layers: its saved
+              qwen2-1.5b at full width, 2 of 28 layers: its saved
               artifact served through the CUDA graphs (4 x 128 prompt
               tokens, 16 new; counts zeroed around it: ``pattern_gemm``
               launched, every flash call on wgmma, no fallback) and fp32
               dense-pruned vs packed greedy tokens identical.
+16b. train  — ``launch.train.run_training`` on qwen2-1.5b at full width,
+              4 of 28 layers, batch 8 x 512 tokens, bf16, with the masks of
+              a greedy tile prune (4 of 8) of the same seed's init: 4
+              steps (s per step, losses, the straggler monitor's snapshot,
+              peak memory); gates: every pruned weight still exactly 0; a
+              run stopped once its step-2 checkpoint committed, resumed
+              from it for the 2 steps left, ends bit-equal to the
+              uninterrupted run; 3 steps with int8 gradient compression give
+              finite losses and every residual within half its scale.
+              Beside it ``python -m repro_torch.launch.train --arch
+              qwen2-1.5b --reduced --steps 20 --batch 8 --seq 128`` as a
+              subprocess: exit 0 and the reference's line.
+16c. examples — ``examples/torch_quickstart.py``,
+              ``torch_prune_then_serve_lm.py`` and
+              ``torch_privacy_pruning_cnn.py`` with the reference's
+              defaults, three subprocesses started together just before
+              [pipeline], run beside it and waited for before [train]
+              (the ``[time]`` line: the longest one's own seconds, under
+              contention), each printing the kernel launches it made:
+              exit 0, packed tokens identical to dense (``pattern_gemm``
+              and flash launched, no blockwise fallback), the
+              quickstart's packed accuracy equal to its retrained
+              accuracy (``pattern_conv`` launched).
 17. report  — one ``{"kernels": [...]}`` JSON line covering all four
               kernels (each a sum over the bf16 shapes its served path
               launches; the GEMMs' ``lm_head`` at M = 512 and 2048, which
@@ -335,11 +386,13 @@ Imports nothing of ``jax`` or ``repro``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -352,8 +405,9 @@ import torch.nn.functional as F
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-from repro_torch.checkpoint import load_pytree  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager, load_pytree  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import TrainConfig  # noqa: E402
 from repro_torch.core import LayerSpec, PruneConfig, greedy_prune  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     LMAdapter,
@@ -375,11 +429,14 @@ from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import pattern_conv as pc_mod  # noqa: E402
 from repro_torch.kernels import pattern_gemm as pg_mod  # noqa: E402
 from repro_torch.data import ClassificationPipeline, DataConfig  # noqa: E402
+from repro_torch.launch import analyze as launch_analyze  # noqa: E402
 from repro_torch.launch import pipeline as launch_pipeline  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch.prune import prune_config_for  # noqa: E402
+from repro_torch.launch.train import run_training  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.privacy import report as privacy_report  # noqa: E402
+from repro_torch.roofline import attribution, hw  # noqa: E402
 from repro_torch.runtime import StageError  # noqa: E402
 from repro_torch.models import LM, attention, resnet18, vgg16  # noqa: E402
 from repro_torch.runtime import trace_analysis  # noqa: E402
@@ -423,10 +480,12 @@ from repro_torch.utils.tree import (  # noqa: E402
 )
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-# H100 SXM data-sheet peaks (dense): HBM bytes/s; bf16 tensor-core and
-# fp32 CUDA-core FLOP/s (both kernels' fp32 paths run on the CUDA cores)
-HBM_BPS = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# H100 SXM data-sheet peaks (dense, ``roofline/hw.py``): HBM bytes/s; bf16
+# tensor-core and fp32 CUDA-core FLOP/s (the kernels' fp32 paths run on
+# the CUDA cores)
+HBM_BPS = hw.HBM_BW
+PEAK_FLOPS = {torch.bfloat16: hw.PEAK_FLOPS_BF16,
+              torch.float32: hw.PEAK_FLOPS_FP32}
 L2_FLUSH_BYTES = 64 << 20          # > the 50 MB L2: every timed call starts cold
 SLEEP_HZ = 2.0e9                   # >= the H100's top SM clock: a device sleep
                                    # of n cycles lasts at least n / SLEEP_HZ s
@@ -582,6 +641,10 @@ FAMILY_FLASH = (
     # its chunks, the 2 048-token wrap prompt, its continuous admissions
     (dict(H=25, KV=5, hd=64), tuple((B, S, True, 2048) for B, S in (
         (4, 512), (4, 128), (1, 2048), (1, 512), (1, 200), (1, 64)))),
+    # the reduced qwen2 (4 / 2 of 16, the SIMT route): [examples]' LM
+    # example (8 prompts of 8..15 tokens) and [admm]'s ``launch.serve
+    # --reduced`` (8 x 16)
+    (dict(H=4, KV=2, hd=16), ((8, 15, True, None), (8, 16, True, None))),
 )
 # (batch, H = W, C, A): every distinct stride-1 3x3 conv of VGG-16 at
 # 224 x 224, batch 32, and of ResNet-18 (CIFAR stem) at 32 x 32, batch 256
@@ -599,6 +662,9 @@ CNN_PATHS = (
      14),
 )
 COLUMN_IDENTITY_LAYERS = 4
+# an artifact's save-and-load round trip beside a served path that has
+# already made one ([serve]'s) runs on its first layers, at full width
+ROUND_TRIP_LAYERS = 4
 
 
 def fail(msg: str) -> None:
@@ -646,8 +712,10 @@ def timed_ms(fn, iters: int = 10) -> float:
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple:
-    t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    """(ms, "bytes" or "operations"): the larger roofline term of the
+    work, at the peak rate of its type."""
+    t = hw.roofline_terms(flops, nbytes, 0.0, peak_flops=PEAK_FLOPS[dtype])
+    t_bytes, t_ops = t.memory_s * 1e3, t.compute_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1062,6 +1130,19 @@ def leaf_equal(a, b) -> bool:
     return a.dtype == b.dtype and torch.equal(a, b)
 
 
+def first_layers(art, cfg, n: int):
+    """(``art`` cut to its first ``n`` decoder layers, ``cfg`` with
+    ``num_layers=n``): every other leaf, and every width, as they are."""
+    def cut(tree):
+        return None if tree is None else {**tree,
+                                          "blocks": tree["blocks"][:n]}
+
+    return (dataclasses.replace(art, params=cut(art.params),
+                                masks=cut(art.masks), specs=cut(art.specs),
+                                packed=cut(art.packed)),
+            dataclasses.replace(cfg, num_layers=n))
+
+
 def save_and_load(tag: str, art, cfg):
     """Save ``art`` to a temporary directory, load it back on the card
     (every buffer's CRC32 checked) and hold every leaf to the original."""
@@ -1089,6 +1170,33 @@ def save_and_load(tag: str, art, cfg):
         fail(f"[{tag}] leaves differ after save and load: "
              f"{[p for p, _, _ in pairs if p not in same][:6]}")
     return loaded
+
+
+def round_trip(tag: str, art, cfg, reqs, layers: int = ROUND_TRIP_LAYERS,
+               serving=contextlib.nullcontext):
+    """``art`` cut to its first ``layers`` decoder layers (every width as
+    it is) serves ``reqs`` through the launcher's engine (CUDA graphs),
+    is saved and loaded back (every leaf bit-equal), and the loaded cut
+    serves them again, inside ``serving()``: the same tokens. -> (the
+    cut, the loaded cut)."""
+    cut, cut_cfg = first_layers(art, cfg, layers)
+    model = LM(cut_cfg, device=DEV)
+
+    def serve(a):
+        return [r.tokens for r in launch_serve.make_engine(
+            model, a, batch=4, max_seq=544, packed=True,
+            device=DEV).generate(reqs)]
+
+    tokens = serve(cut)
+    loaded = save_and_load(tag, cut, cut_cfg)
+    with serving():
+        same = serve(loaded) == tokens
+    print(f"[{tag}] tokens of the loaded artifact ({layers} of "
+          f"{cfg.num_layers} layers) identical to the in-memory artifact's: "
+          f"{same}", flush=True)
+    if not same:
+        fail(f"[{tag}] the loaded artifact serves other tokens")
+    return cut, loaded
 
 
 def eager_against_graph(tag: str, eng, chunk, S: int, gemm: str) -> dict:
@@ -1180,13 +1288,14 @@ def seeded_across_batches(tag: str, eng, reqs) -> None:
         fail(f"[{tag}] a seeded request's tokens depend on its batch-mates")
 
 
-def drive_serve(tag: str, smi: str, pcfg, gemm: str):
-    """Serve qwen2-1.5b packed under ``pcfg`` from an artifact saved to disk
-    and loaded back, through the launcher's engine (CUDA graphs): the main
-    path (8 requests, counts zeroed around it), token identity with the
-    in-memory artifact, a seeded temperature request, then each chunk
-    eager against graph. Returns the main path's launch counts and the
-    loaded artifact."""
+def drive_serve(tag: str, smi: str, pcfg, gemm: str,
+                layers: int = 28):
+    """Serve qwen2-1.5b packed under ``pcfg`` through the launcher's engine
+    (CUDA graphs): ``round_trip`` at ``layers`` of 28, then the main path
+    (8 requests, counts zeroed around it) on the loaded artifact when it
+    is whole, else on the in-memory one, a seeded temperature request,
+    then each chunk eager against graph. Returns the main path's launch
+    counts and the served artifact."""
     names = (gemm, "flash_attention")
     cfg = get_config("qwen2-1.5b")
     model = LM(cfg)
@@ -1201,10 +1310,11 @@ def drive_serve(tag: str, smi: str, pcfg, gemm: str):
           f"{t_setup:.2f} s; weight bytes dense {art.dense_bytes()} packed "
           f"{art.packed_bytes()} ({smi})", flush=True)
     check_exact(tag, art)
-    loaded = save_and_load(tag, art, cfg)
-    engine = lambda a: launch_serve.make_engine(model, a, batch=4,  # noqa: E731
-                                                max_seq=544, packed=True)
-    eng = engine(loaded)
+    loaded = round_trip(tag, art, cfg, reqs, layers)[1]
+    if layers < cfg.num_layers:
+        loaded = art
+    eng = launch_serve.make_engine(model, loaded, batch=4, max_seq=544,
+                                   packed=True)
     t0 = time.perf_counter()
     for r in (reqs[0], reqs[4]):          # captures: decode, S = 512 and 128
         eng.generate([r])
@@ -1238,13 +1348,7 @@ def drive_serve(tag: str, smi: str, pcfg, gemm: str):
         if len(r.tokens) != 32 or not all(0 <= t < cfg.vocab_size
                                           for t in r.tokens):
             fail(f"request {r.uid}: bad tokens {r.tokens[:8]}...")
-    in_memory = [r.tokens for r in engine(art).generate(reqs)]
     SERVED_TOKENS[tag] = [r.tokens for r in results]
-    same = in_memory == SERVED_TOKENS[tag]
-    print(f"[{tag}] tokens of the loaded artifact identical to the "
-          f"in-memory artifact's: {same}", flush=True)
-    if not same:
-        fail(f"[{tag}] the loaded artifact serves other tokens")
     del art
     torch.cuda.empty_cache()
     seeded_across_batches(tag, eng, reqs)
@@ -1532,15 +1636,18 @@ def phase_cnn(smi: str, tag: str, ctor, kwargs: dict, batch: int,
     return launches
 
 
-def phase_column(smi: str) -> dict:
-    launches, _ = drive_serve("column", smi, COLUMN_PCFG, "column_gemm")
+def phase_column(smi: str):
+    """-> (launch counts, the served artifact, which ``[roofline]``
+    attributes)."""
+    launches, served = drive_serve("column", smi, COLUMN_PCFG, "column_gemm",
+                                   layers=ROUND_TRIP_LAYERS)
     torch.cuda.empty_cache()
     cfg = dataclasses.replace(get_config("qwen2-1.5b"), param_dtype="float32",
                               num_layers=COLUMN_IDENTITY_LAYERS)
     token_identity("column", cfg, COLUMN_PCFG,
                    f"; reduced depth: {COLUMN_IDENTITY_LAYERS} of 28 layers "
                    "at full width")
-    return launches
+    return launches, served
 
 
 # ------------------------------------------------ continuous batching
@@ -1621,6 +1728,8 @@ def continuous_main(tag: str, smi: str, eng, reqs: list) -> dict:
         eng.telemetry.close()
         eng.telemetry = None
         events = read_trace(path)
+        os.makedirs(BENCH_TORCH, exist_ok=True)     # [analyze] reads it
+        shutil.copyfile(path, CONT_TRACE)
     st = eng.stats
     n_tok = sum(len(r.tokens) for r in results)
     E = {"engine": "continuous"}
@@ -1698,7 +1807,7 @@ def continuous_main(tag: str, smi: str, eng, reqs: list) -> dict:
     return {"results": results, "launches": launches}
 
 
-TRACE_REPEATS = 2
+TRACE_REPEATS = 1
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx")
 
@@ -2399,33 +2508,40 @@ def tuned_serve(tag: str, smi: str, model, art, tuned) -> dict:
     return launches, engines["tuned"], reqs, tokens
 
 
-def tuned_reload(tag: str, smi: str, model, tuned, reqs, tokens) -> None:
-    """(d) Save and load: the plans survive, and re-serving the loaded
-    artifact with first-dispatch search on runs no search."""
-    loaded = save_and_load(tag, tuned, model.config)
-    plans = tune_mod.describe_plans(loaded.packed)
-    same = plans == tune_mod.describe_plans(tuned.packed)
-    print(f"[{tag}] (d) plans of {len(plans)} leaves identical after save "
-          f"and load: {same} ({smi})", flush=True)
-    if not same or not plans:
-        fail(f"[{tag}] (d) plans lost in save and load")
+@contextlib.contextmanager
+def autotune_on(found: list):
+    """First-dispatch search on (``REPRO_AUTOTUNE=1``, no plan memoized)
+    inside; appends to ``found`` the candidates it timed."""
     tune_mod.clear_tuned_cache()
     os.environ["REPRO_AUTOTUNE"] = "1"
     try:
         with registry_scope() as reg:
-            eng = launch_serve.make_engine(model, loaded, batch=4,
-                                           max_seq=544, packed=True,
-                                           device=DEV)
-            got = [r.tokens for r in eng.generate(reqs)]
-            n = reg.sum_counter("tune.candidates_total")
+            yield
+            found.append(reg.sum_counter("tune.candidates_total"))
     finally:
         del os.environ["REPRO_AUTOTUNE"]
-    print(f"[{tag}] (d) the loaded artifact re-served (REPRO_AUTOTUNE=1): "
-          f"{n:.0f} candidates timed, tokens identical: {got == tokens} "
-          f"({smi})", flush=True)
-    if n or got != tokens:
-        fail(f"[{tag}] (d) re-serving searched ({n}) or changed tokens")
-    del eng, loaded
+
+
+def tuned_reload(tag: str, smi: str, model, tuned, reqs) -> None:
+    """(d) ``round_trip`` of the tuned artifact's first 4 layers, the
+    loaded cut served with first-dispatch search on: the plans survive,
+    and the loaded cut runs no search and serves the in-memory cut's
+    tokens."""
+    found = []
+    cut, loaded = round_trip(tag, tuned, model.config, reqs,
+                             serving=lambda: autotune_on(found))
+    plans = tune_mod.describe_plans(loaded.packed)
+    same = plans == tune_mod.describe_plans(cut.packed)
+    print(f"[{tag}] (d) plans of {len(plans)} leaves identical after save "
+          f"and load: {same} ({smi})", flush=True)
+    if not same or not plans:
+        fail(f"[{tag}] (d) plans lost in save and load")
+    print(f"[{tag}] (d) the loaded artifact served with REPRO_AUTOTUNE=1: "
+          f"{found[0]:.0f} candidates timed ({smi})", flush=True)
+    if found[0]:
+        fail(f"[{tag}] (d) serving the loaded artifact searched "
+             f"({found[0]})")
+    del loaded
 
 
 def tune_profile(tag: str, smi: str, model, tuned, graph_eng, reqs,
@@ -2520,9 +2636,9 @@ def phase_tune(smi: str, art, kernel_rows: list) -> dict:
           f"{list(TUNE['check_ms'])}, VGG-16's convs at batch 32) in "
           f"{time.perf_counter() - t0:.2f} s ({smi})", flush=True)
     tuned, _ = tune_artifact(tag, smi, art)
-    launches, graph_eng, reqs, tokens = tuned_serve(tag, smi, model, art,
-                                                    tuned)
-    tuned_reload(tag, smi, model, tuned, reqs, tokens)
+    launches, graph_eng, reqs, _ = tuned_serve(tag, smi, model, art,
+                                               tuned)
+    tuned_reload(tag, smi, model, tuned, reqs)
     tune_profile(tag, smi, model, tuned, graph_eng, reqs, kernel_rows)
     del graph_eng, tuned
     torch.cuda.empty_cache()
@@ -2801,7 +2917,8 @@ def window_fp32(tag: str, cfg) -> None:
 def phase_window(smi: str) -> dict:
     """h2o-danube-1.8b at full width (24 layers, d_model 2560, 32 / 8 heads
     of 80, window 4096), bf16, seeded random weights, greedy tile-pattern
-    4 of 8 at block_p 128 on the card, packed, saved and loaded; then (a)
+    4 of 8 at block_p 128 on the card, packed (``round_trip`` of its first
+    4 layers); then (a)
     ``ServeEngine``, (b) ``ContinuousEngine``, (c) ``SpeculativeEngine``
     on a ring cache of 4 096 slots, and the fp32 bar at 4 layers."""
     tag = "window"
@@ -2820,14 +2937,13 @@ def phase_window(smi: str) -> dict:
           f"{art.dense_bytes()} packed {art.packed_bytes()} ({smi})",
           flush=True)
     check_exact(tag, art)
-    loaded = save_and_load(tag, art, cfg)
-    del art
+    round_trip(tag, art, cfg, make_requests(cfg.vocab_size))
     torch.cuda.empty_cache()
-    a = window_a(tag, smi, model, loaded)
+    a = window_a(tag, smi, model, art)
     torch.cuda.empty_cache()
-    b = window_b(tag, smi, model, loaded)
+    b = window_b(tag, smi, model, art)
     torch.cuda.empty_cache()
-    c = window_c(tag, smi, model, loaded)
+    c = window_c(tag, smi, model, art)
     peak = torch.cuda.max_memory_allocated()
     print(f"[{tag}] readings: prefill ms per chunk (graph) "
           + json.dumps({ch["S"]: ch["prefill_graph_ms"]
@@ -2838,7 +2954,7 @@ def phase_window(smi: str) -> dict:
           + f", tokens/s (a) {a['tok_s']:.1f} (b) {b['tok_s']:.1f} (c) "
           f"{c['tok_s']:.1f}, acceptance (c) {c['acceptance_rate']:.4f}, "
           f"peak device memory {peak} bytes ({smi})", flush=True)
-    del loaded, model
+    del art, model
     torch.cuda.empty_cache()
     window_fp32(tag, cfg)
     return {k: a[k] + b[k] + c[k] for k in ("pattern_gemm",
@@ -2851,7 +2967,7 @@ DEV = "cuda"
 ADMM_ITERS = 8            # prune_config_for(..., iters=8): rho steps every 2
 ADMM_BATCH, ADMM_SEQ = 16, 64
 ADMM_SERVE = dict(requests=4, prompt=128, new=16)
-ADMM_SHORT_LAYERS = 4     # whole-model, kill-and-resume: 4 of 28 layers
+ADMM_SHORT_LAYERS = 2     # whole-model, kill-and-resume: 2 of 28 layers
 # retraining draws its labels from the first 10 of the head's 1000 classes,
 # so 10 AdamW steps visibly lower the loss (from ln 1000); at lr 1e-3 the
 # full-width VGG-16's loss jumps between steps, at 3e-4 it falls steadily
@@ -3038,7 +3154,8 @@ def moved_from_greedy(tag: str, what: str, pruned, teacher, pcfg, *,
 def kill_and_resume(tag: str, model, params) -> None:
     """4 iterations, a checkpoint every 2: a run stopped by its callback
     after iteration 2 and resumed must end bit-equal (params, Z, U, key,
-    history) to an uninterrupted run, whose weights moved (fp32)."""
+    history) to an uninterrupted run (which checkpoints its final step
+    only), whose weights moved (fp32)."""
     import filecmp
 
     pcfg = prune_config_for(scheme="tile_pattern", rate=2, iters=4,
@@ -3049,14 +3166,14 @@ def kill_and_resume(tag: str, model, params) -> None:
             raise Stop
 
     with tempfile.TemporaryDirectory(prefix="admm-ckpt-") as d:
-        def run(sub, **kw):
+        def run(sub, save_every=2, **kw):
             pr = PrivacyPreservingPruner(LMAdapter(model, seq_len=ADMM_SEQ),
                                          pcfg)
-            return pr.run(as_key(1), params, save_every=2,
+            return pr.run(as_key(1), params, save_every=save_every,
                           checkpoint_dir=os.path.join(d, sub), **kw)
 
         t0 = time.perf_counter()
-        whole = run("a")
+        whole = run("a", save_every=4)      # only the step compared
         t_run = time.perf_counter() - t0
         try:
             run("b", callback=stop)
@@ -3103,10 +3220,9 @@ def kill_and_resume(tag: str, model, params) -> None:
 def launcher_pair(tag: str) -> None:
     """``launch.prune --reduced`` then ``launch.serve --reduced --artifact
     --packed`` as subprocesses on the card: both exit 0, and the reduced
-    config's head_dim 16 prefills through the blockwise fallback."""
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [os.path.join(ROOT, "src")] + [p for p in os.environ.get(
-            "PYTHONPATH", "").split(os.pathsep) if p]))
+    config's head_dim 16 prefills on flash's SIMT route, with no blockwise
+    fallback."""
+    env = port_env()
     with tempfile.TemporaryDirectory(prefix="admm-launch-") as d:
         art = os.path.join(d, "artifact")
         cmds = (["repro_torch.launch.prune", "--arch", "qwen2-1.5b",
@@ -3131,17 +3247,17 @@ def launcher_pair(tag: str) -> None:
     line = [ln for ln in outs[1].splitlines()
             if ln.startswith("prefill attention {")]
     routes = json.loads(line[0][line[0].index("{"):]) if line else {}
-    if not routes.get("blockwise_fallbacks") or any(
-            routes.get("flash", {}).values()):
-        fail(f"[{tag}] the reduced serve did not prefill through the "
-             f"blockwise fallback: {routes}")
+    if routes.get("blockwise_fallbacks", 1) or not routes.get(
+            "flash", {}).get("simt"):
+        fail(f"[{tag}] the reduced serve did not prefill on flash's SIMT "
+             f"route: {routes}")
 
 
 def phase_admm(smi: str) -> dict:
     """qwen2-1.5b at full width pruned by layer-wise ADMM on synthetic
-    tokens, served packed; then at 4 layers the whole-model formulation,
-    kill and resume, and the launcher pair. Returns the served run's
-    launch counts."""
+    tokens, served packed; then at ``ADMM_SHORT_LAYERS`` layers the
+    whole-model formulation, kill and resume, and the launcher pair.
+    Returns the served run's launch counts."""
     tag = "admm"
     t_phase = time.perf_counter()
 
@@ -3231,7 +3347,7 @@ def phase_admm(smi: str) -> dict:
     kill_and_resume(tag, model4, params4)
     del model4, params4
     torch.cuda.empty_cache()
-    lap("4-layer whole-model and kill-and-resume")
+    lap(f"{ADMM_SHORT_LAYERS}-layer whole-model and kill-and-resume")
     launcher_pair(tag)
     return launches
 
@@ -3350,7 +3466,7 @@ def phase_admm_cnn(smi: str) -> int:
 
 # ------------------------------------- the privacy-preserving pruning service
 
-PIPE_LM_LAYERS = 4        # the LM arm at full width, 4 of 28 layers
+PIPE_LM_LAYERS = 2        # the LM arm at full width, 2 of 28 layers
 PIPE_SERVE = dict(requests=4, prompt=128, new=16)
 # the reference's gate on the MIA report (benchmarks/check_regression.py):
 # synthetic-data pruning leaks no more than real-data pruning (+0.05) or the
@@ -4699,8 +4815,8 @@ def ssm_serve(tag: str, smi: str, model, art, pf_per_layer: int) -> dict:
 def hymba_prepare(tag: str, smi: str):
     """(a) hymba-1.5b at full width and depth, bf16: init, the tile
     refusal with the mamba leaves in, prune a layer at a time (4 of 8,
-    block_p 64, mamba and the head left out), pack, save and load (every
-    leaf bit-equal) -> (model, the loaded artifact)."""
+    block_p 64, mamba and the head left out), pack, ``round_trip`` of its
+    first 4 layers -> (model, the artifact)."""
     cfg = get_config("hymba-1.5b")
     model = LM(cfg, device=DEV)
     torch.cuda.reset_peak_memory_stats()
@@ -4732,13 +4848,12 @@ def hymba_prepare(tag: str, smi: str):
     if packed != want:
         fail(f"[{tag}] (a) packed leaves {sorted(packed)}, designed "
              f"{sorted(want)}")
-    loaded = save_and_load(tag, art, cfg)
-    del art
-    loaded.bind(model, packed=True)
-    if loaded.bind_report["fallbacks"]:
-        fail(f"[{tag}] (a) bind fell back: {loaded.bind_report}")
+    round_trip(tag, art, cfg, make_requests(cfg.vocab_size))
+    art.bind(model, packed=True)
+    if art.bind_report["fallbacks"]:
+        fail(f"[{tag}] (a) bind fell back: {art.bind_report}")
     torch.cuda.empty_cache()
-    return model, loaded
+    return model, art
 
 
 def hymba_wrap(tag: str, smi: str, model, art) -> dict:
@@ -5074,6 +5189,359 @@ def phase_ssm(smi: str) -> dict:
     return total
 
 
+# ------------------------------------- roofline, analysis, training, examples
+
+BENCH_TORCH = os.path.join(ROOT, "experiments", "bench_torch")
+ATTRIBUTION = os.path.join(BENCH_TORCH, "attribution.json")
+CONT_TRACE = os.path.join(BENCH_TORCH, "trace_telemetry.jsonl")
+# [roofline]: every distinct packed leaf (one per reference path) through
+# the registry under the profiler, the GEMMs at [kernels]' M, VGG-16's convs
+# on one image of 64 x 64 and of 256 x 256 (M a power of two, so the
+# profiler's bucket is the M dispatched); bf16, activations modeled at 2
+# bytes; a fraction above FRACTION_MAX means the model leaves out bytes
+ROOF = dict(gemm_ms=GEMM_MS, conv_ms=(4096, 65536), samples=8, warmup=2)
+FRACTION_MAX = 1.05
+# [train]: qwen2-1.5b at full width, 4 of 28 layers, batch 8 x 512 tokens,
+# bf16, masks of a greedy tile prune of the same seed's init; a run of
+# ``steps``, the same run stopped after its step-``every`` checkpoint and
+# resumed for the steps left, a run with int8 gradient compression. Every
+# step is inside TrainConfig's 10 warmup steps, whose learning rates do not
+# depend on a run's length, so the resumed run can be given the steps left
+TRAIN = dict(layers=4, batch=8, seq=512, steps=4, every=2, compressed=3)
+TRAIN_CLI = ["--arch", "qwen2-1.5b", "--reduced", "--steps", "20",
+             "--batch", "8", "--seq", "128"]
+EXAMPLES_DIR = os.path.join(ROOT, "examples")
+EXAMPLES = ("torch_quickstart.py", "torch_prune_then_serve_lm.py",
+            "torch_privacy_pruning_cnn.py")
+# runs an example as __main__ in this subprocess, then prints on a line of
+# its own the kernel launches it made (graph replays counted), its prefills
+# that fell back to blockwise attention, and its seconds
+EXAMPLE_WRAP = (
+    "import json, runpy, sys, time\n"
+    "from repro_torch.kernels import column_gemm, flash_attention, "
+    "pattern_conv, pattern_gemm\n"
+    "from repro_torch.models import attention\n"
+    "t0 = time.perf_counter()\n"
+    "sys.argv = sys.argv[1:]\n"
+    "runpy.run_path(sys.argv[0], run_name='__main__')\n"
+    "print('[launches] ' + json.dumps({'seconds': time.perf_counter() - t0, "
+    "'fallbacks': attention.PREFILL_FALLBACKS, "
+    "'launches': {m.__name__.split('.')[-1]: m.LAUNCHES for m in "
+    "(pattern_gemm, flash_attention, column_gemm, pattern_conv)}}))\n")
+
+
+def port_env() -> dict:
+    """The environment of a subprocess that imports the port."""
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")] + [p for p in os.environ.get(
+            "PYTHONPATH", "").split(os.pathsep) if p]))
+
+
+def kernels_row(rows: list, kernel: str, shape: str):
+    """The bf16 ``[kernels]`` row of ``kernel`` at ``shape``, if timed."""
+    for r in rows:
+        if (r["kernel"], r["shape"], r["dtype"]) == (
+                kernel, shape, "bfloat16") and r["ms"] is not None:
+            return r
+    return None
+
+
+def gemm_row_name(path: str) -> str:
+    name = path.split("/")[-1]
+    return "wk/wv" if name in ("wk", "wv") else name
+
+
+def roofline_tree(tag: str, what: str, tree, ms, kernel: str,
+                  kernel_rows: list) -> list:
+    """Attribute each distinct packed leaf of ``tree`` alone (its own
+    profile rows, its own model: a row is one kernel shape), print each
+    row beside the ``[kernels]`` row of the same shape, gate the row."""
+    out = []
+    for path, leaf in attribution.packed_leaves(tree):
+        sub = {path: leaf}
+        prof = attribution.profile_packed_tree(
+            sub, ms, samples=ROOF["samples"], warmup=ROOF["warmup"],
+            device=DEV, dtype=torch.bfloat16)
+        for r in attribution.attribute(prof, sub, itemsize=2):
+            r["leaf"] = f"{what} {path}"
+            out.append(r)
+            if kernel == "pattern_conv":
+                A, C = leaf.shape[0], leaf.shape[1]
+                ref = next((k for k in kernel_rows if k["kernel"] == kernel
+                            and k["dtype"] == "bfloat16" and k["shape"]
+                            .startswith("B=32 ") and k["shape"].endswith(
+                                f" {C}->{A}")), None)
+            else:
+                ref = kernels_row(kernel_rows, kernel,
+                                  f"{gemm_row_name(path)} M={r['bucket']}"
+                                  if r["bucket"] > 32 else
+                                  f"{gemm_row_name(path)} M=4")
+            cross = ("no [kernels] row" if ref is None else
+                     f"[kernels] {ref['shape']}: bound "
+                     f"{ref['bound_ms'] * 1e3:.2f} us ({ref['bound_by']}), "
+                     f"{ref['ms'] * 1e3:.2f} us")
+            frac = r["achieved_fraction"]
+            print(f"[{tag}] {r['leaf']} {r['kind']} m{r['bucket']} "
+                  f"({r['samples']} samples): measured "
+                  f"{r['measured_ns'] / 1e3:.2f} us, modeled "
+                  f"{(r['modeled_ns'] or 0) / 1e3:.2f} us ({r['bound']}), "
+                  f"achieved {frac}; cross-check {cross}", flush=True)
+            if r["modeled_ns"] is None or not 0.0 < frac <= FRACTION_MAX:
+                fail(f"[{tag}] {r['leaf']} m{r['bucket']}: achieved "
+                     f"fraction {frac} outside (0, {FRACTION_MAX}]")
+    return out
+
+
+def phase_roofline(smi: str, tile_art, column_art, kernel_rows: list
+                   ) -> dict:
+    """The port's roofline attribution at full width in bf16: qwen2-1.5b's
+    tile artifact from [serve] and column artifact from [column] at M = 4,
+    512, 2 048, VGG-16 ``pattern_shared`` at 224 x 224; counts zeroed
+    around the profiles. Writes ``attribution.json``. Returns the
+    launches."""
+    tag = "roofline"
+    _, cnn, _ = build_cnn(*CNN_PATHS[0][1:3], "bfloat16")
+    trees = (("qwen2-1.5b tile", tile_art.packed, ROOF["gemm_ms"],
+              "pattern_gemm"),
+             ("qwen2-1.5b column", column_art.packed, ROOF["gemm_ms"],
+              "column_gemm"),
+             ("vgg16 pattern_shared", cnn.packed, ROOF["conv_ms"],
+              "pattern_conv"))
+    names = ("pattern_gemm", "column_gemm", "pattern_conv")
+    reset_launches()                              # the main path
+    t0 = time.perf_counter()
+    rows = [r for what, tree, ms, kernel in trees
+            for r in roofline_tree(tag, what, tree, ms, kernel, kernel_rows)]
+    launches = launch_counts(names)
+    os.makedirs(BENCH_TORCH, exist_ok=True)
+    attribution.write_report(ATTRIBUTION, rows, device=smi,
+                             itemsize=2, dtype="bfloat16")
+    fracs = [r["achieved_fraction"] for r in rows]
+    print(f"[{tag}] {len(rows)} rows in {time.perf_counter() - t0:.1f} s "
+          f"(achieved fraction min {min(fracs):.4f}, max {max(fracs):.4f}); "
+          f"launches {json.dumps(launches)}; wrote {ATTRIBUTION} ({smi})",
+          flush=True)
+    if not all(launches.values()):
+        fail(f"[{tag}] a kernel never launched: {launches}")
+    del cnn
+    return launches
+
+
+def phase_analyze(smi: str) -> None:
+    """``python -m repro_torch.launch.analyze`` on [continuous]'s trace and
+    [roofline]'s report: exit 0, the 12 requests counted; a missing trace
+    exits 2 (``main`` in process)."""
+    tag = "analyze"
+    out = os.path.join(BENCH_TORCH, "analysis.json")
+    cmd = [sys.executable, "-m", "repro_torch.launch.analyze", "--trace",
+           CONT_TRACE, "--attribution", ATTRIBUTION, "--out", out]
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, env=port_env(), capture_output=True, text=True,
+                       timeout=300)
+    print(f"[{tag}] python -m repro_torch.launch.analyze: exit "
+          f"{p.returncode} in {time.perf_counter() - t0:.1f} s", flush=True)
+    if p.returncode != 0:
+        fail(f"[{tag}] analyze failed: {p.stdout[-2000:]} {p.stderr[-2000:]}")
+    doc = json.load(open(out))
+    s = doc["summary"]
+    rows = doc.get("attribution", {}).get("rows", [])
+    print(f"[{tag}] summary {json.dumps(s)}; SLO {json.dumps(doc['slo'])}; "
+          f"attribution rows {len(rows)}", flush=True)
+    for line in p.stdout.splitlines()[:3]:
+        print(f"[{tag}] | {line}", flush=True)
+    if s["requests"] != CONT["requests"] or s["status_counts"] != {
+            "ok": CONT["requests"]} or not doc.get("attribution"):
+        fail(f"[{tag}] the analysis does not count [continuous]'s "
+             f"{CONT['requests']} requests: {s}")
+    rc = launch_analyze.main(["--trace", os.path.join(BENCH_TORCH,
+                                                      "missing.jsonl")])
+    print(f"[{tag}] a missing trace: exit {rc}", flush=True)
+    if rc != 2:
+        fail(f"[{tag}] a missing trace exits {rc}, not 2")
+
+
+def train_cfg(tmp: str, name: str, **kw) -> TrainConfig:
+    base = dict(steps=TRAIN["steps"], learning_rate=3e-4,
+                checkpoint_every=10 ** 6,
+                checkpoint_dir=os.path.join(tmp, name), keep_checkpoints=1)
+    base.update(kw)
+    return TrainConfig(**base)
+
+
+class TrainStop(Exception):
+    pass
+
+
+def stop_at(k: int):
+    def hook(res):
+        if res.step == k:
+            raise TrainStop
+    return hook
+
+
+def phase_train(smi: str) -> None:
+    """``run_training`` on qwen2-1.5b at full width, 4 layers, masked:
+    s per step, the straggler monitor, peak memory; gates: pruned weights
+    stay 0, stopped-and-resumed ≡ uninterrupted, int8 compression finite
+    with every residual within half its scale; the CLI in a subprocess."""
+    tag = "train"
+    cli_dir = tempfile.TemporaryDirectory(prefix="train-cli-")
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_CLI,
+         "--ckpt-dir", cli_dir.name], env=port_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"),
+                              num_layers=TRAIN["layers"])
+    model = LM(cfg, device=DEV)
+    masks = greedy_prune(model.init(torch.Generator(device=DEV).manual_seed(
+        0)), TILE_PCFG, device=DEV).masks
+    del model
+    kw = dict(seq_len=TRAIN["seq"], global_batch=TRAIN["batch"],
+              masks=masks, device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="train-") as tmp:
+        t0 = time.perf_counter()
+        whole = run_training(cfg, train_cfg(tmp, "whole"), **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        secs = [r.seconds for r in whole["metrics"]]
+        losses = [r.metrics["loss"] for r in whole["metrics"]]
+        print(f"[{tag}] qwen2-1.5b L={cfg.num_layers} of 28 d_model="
+              f"{cfg.d_model} {cfg.param_dtype}, batch {TRAIN['batch']} x "
+              f"{TRAIN['seq']} tokens, masked (greedy tile 4 of 8): "
+              f"{len(secs)} steps in {wall:.2f} s, s per step "
+              f"{json.dumps([round(s, 4) for s in secs])} (after the first: "
+              f"median {statistics.median(secs[1:]):.4f}); losses "
+              f"{json.dumps([round(v, 4) for v in losses])}; straggler "
+              f"{json.dumps(whole['straggler'])}; peak device memory {peak} "
+              f"bytes ({smi})", flush=True)
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"[{tag}] non-finite losses {losses}")
+        params = dict(tree_items(whole["state"]["params"]))
+        bad = [p for p, m in tree_items(masks)
+               if m is not None and bool(params[p][m == 0].any())]
+        kept = sum(int((m == 0).sum()) for _, m in tree_items(masks)
+                   if m is not None)
+        print(f"[{tag}] pruned weights still exactly 0 after "
+              f"{len(secs)} steps: {not bad} ({kept} pruned)", flush=True)
+        if bad or not kept:
+            fail(f"[{tag}] pruned weights moved: {bad[:4]}")
+
+        cut = train_cfg(tmp, "cut", checkpoint_every=TRAIN["every"])
+        t0 = time.perf_counter()
+        try:                                  # stops once step 2 committed
+            run_training(cfg, cut, on_step=stop_at(TRAIN["every"]), **kw)
+        except TrainStop:
+            pass
+        if CheckpointManager(cut.checkpoint_dir).latest_step() != TRAIN[
+                "every"]:
+            fail(f"[{tag}] the stopped run left no step-{TRAIN['every']} "
+                 "checkpoint")
+        resumed = run_training(cfg, dataclasses.replace(
+            cut, steps=TRAIN["steps"] - TRAIN["every"],
+            checkpoint_every=10 ** 6), **kw)["state"]
+        a, b = tree_items(whole["state"]), dict(tree_items(resumed))
+        same = [p for p, x in a if x.dtype == b[p].dtype
+                and torch.equal(x, b[p])]
+        n = len(b)
+        print(f"[{tag}] stopped after the step-{TRAIN['every']} checkpoint "
+              f"and resumed for the {TRAIN['steps'] - TRAIN['every']} steps "
+              f"left ({time.perf_counter() - t0:.1f} s with one save and one "
+              f"restore): the step-{TRAIN['steps']} state bit-equal to the "
+              f"uninterrupted run's in {len(same)}/{n} leaves", flush=True)
+        if len(same) != n:
+            fail(f"[{tag}] the resumed run differs from the uninterrupted")
+        del whole, resumed, params
+        torch.cuda.empty_cache()
+
+        comp = run_training(cfg, train_cfg(
+            tmp, "int8", steps=TRAIN["compressed"], grad_compression=True),
+            **kw)
+        losses = [r.metrics["loss"] for r in comp["metrics"]]
+        ratio = max(r.metrics["ef_residual_ratio"] for r in comp["metrics"])
+        print(f"[{tag}] --grad-compression: losses "
+              f"{json.dumps([round(v, 4) for v in losses])}; largest "
+              f"|residual| / scale {ratio:.6f} (at most 1/2)", flush=True)
+        if not all(math.isfinite(v) for v in losses) or ratio > 0.5 + 1e-5:
+            fail(f"[{tag}] int8 compression: losses {losses}, residual "
+                 f"ratio {ratio}")
+        del comp
+    torch.cuda.empty_cache()
+    out, err = cli.communicate(timeout=600)
+    cli_dir.cleanup()
+    last = out.strip().splitlines()[-1:] if out.strip() else []
+    print(f"[{tag}] python -m repro_torch.launch.train "
+          f"{' '.join(TRAIN_CLI)}: exit {cli.returncode}; {last}",
+          flush=True)
+    if cli.returncode != 0 or not last or not re.match(
+            r"arch=qwen2-1\.5b steps=20 loss: first=\S+ last=\S+$", last[0]):
+        fail(f"[{tag}] the training CLI failed: {err[-3000:]}")
+
+
+def start_examples() -> tuple:
+    """The three ``examples/torch_*.py`` with the reference's defaults, in
+    subprocesses started together -> (their start time, the processes).
+    They are small (width-0.125 CNNs on 16 x 16, a 2-layer LM), so they
+    run beside [pipeline], whose gates are exact: the seconds of both are
+    taken under that contention."""
+    return time.perf_counter(), {name: subprocess.Popen(
+        [sys.executable, "-c", EXAMPLE_WRAP,
+         os.path.join(EXAMPLES_DIR, name)], env=port_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in EXAMPLES}
+
+
+def phase_examples(smi: str, started: tuple) -> dict:
+    """Waits for ``start_examples``' processes: exit 0, packed tokens
+    identical to dense, the LM example's prefills all on the flash kernel,
+    the quickstart's packed accuracy equal to its retrained one. Returns
+    the kernel launches they made."""
+    tag = "examples"
+    t0, procs = started
+    launches = dict.fromkeys(KERNEL_MODS, 0)
+    outs = {}
+    longest = 0.0
+    for name, p in procs.items():
+        out, err = p.communicate(timeout=900)
+        lines = out.strip().splitlines()
+        for line in lines:
+            print(f"[{tag}] | {line}", flush=True)
+        if p.returncode != 0 or not lines or not lines[-1].startswith(
+                "[launches] "):
+            fail(f"[{tag}] {name} failed (exit {p.returncode}): "
+                 f"{err[-3000:]}")
+        doc = json.loads(lines[-1][len("[launches] "):])
+        got = doc["launches"]
+        print(f"[{tag}] {name}: exit 0, its main {doc['seconds']:.1f} s "
+              f"(beside [pipeline]); launches {json.dumps(got)}, blockwise "
+              f"fallbacks {doc['fallbacks']}", flush=True)
+        longest = max(longest, doc["seconds"])
+        for k, v in got.items():
+            launches[k] += v
+        outs[name] = (out, got, doc["fallbacks"])
+    lm, lm_launches, lm_fallbacks = outs["torch_prune_then_serve_lm.py"]
+    if ("[serve] packed tokens identical to dense: True" not in lm
+            or not lm_launches["pattern_gemm"]
+            or not lm_launches["flash_attention"] or lm_fallbacks):
+        fail(f"[{tag}] the LM example's packed tokens differ from dense, or "
+             f"it never ran pattern_gemm or flash_attention, or a prefill "
+             f"fell back to blockwise attention ({lm_fallbacks}): "
+             f"{lm_launches}")
+    qs, qs_launches, _ = outs["torch_quickstart.py"]
+    retrained = re.search(r"retrained pruned model accuracy: (\S+)", qs)
+    packed = re.search(r"packed accuracy: (\S+)", qs)
+    if (not retrained or not packed or packed.group(1) != retrained.group(1)
+            or not qs_launches["pattern_conv"]):
+        fail(f"[{tag}] the quickstart's packed accuracy differs from its "
+             f"retrained accuracy or never ran pattern_conv: {qs_launches}")
+    print(f"[time] examples {longest:.1f} s (the longest of the three, run "
+          f"together beside [pipeline]: under contention; all done "
+          f"{time.perf_counter() - t0:.1f} s after their start)", flush=True)
+    print(f"[{tag}] launches {json.dumps(launches)} ({smi})", flush=True)
+    return launches
+
+
 META = {
     "pattern_gemm": ("src/repro_torch/kernels/csrc/pattern_gemm.cu",
                      "src/repro/kernels/pattern_gemm.py:124"),
@@ -5140,12 +5608,12 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
 
-    def timed(tag, fn, *args):
+    def timed(tag, fn, *args, note=""):
         t = time.perf_counter()
         out = fn(*args)
         torch.cuda.empty_cache()
         print(f"[time] {tag} {time.perf_counter() - t:.1f} s (profile "
-              f"retakes {RETAKE_S.get(tag, 0.0):.1f} s)", flush=True)
+              f"retakes {RETAKE_S.get(tag, 0.0):.1f} s{note})", flush=True)
         return out
 
     with torch.no_grad():
@@ -5155,8 +5623,12 @@ def main() -> int:
         launches, served = timed("serve", phase_serve, smi)
         timed("identity", phase_identity)
         conv = [timed(path[0], phase_cnn, smi, *path) for path in CNN_PATHS]
-        column = timed("column", phase_column, smi)
+        column, column_art = timed("column", phase_column, smi)
+        roof = timed("roofline", phase_roofline, smi, served, column_art,
+                     rows)
+        del column_art
         cont = timed("continuous", phase_continuous, smi, served)
+        timed("analyze", phase_analyze, smi)
         spec = timed("speculative", phase_speculative, smi, served)
         tuned = timed("tune", phase_tune, smi, served, rows)
         del served
@@ -5166,7 +5638,11 @@ def main() -> int:
         ssm = timed("ssm", phase_ssm, smi)
         admm = timed("admm", phase_admm, smi)
         admm_conv = timed("admm_cnn", phase_admm_cnn, smi)
-        pipe = timed("pipeline", phase_pipeline, smi)
+        examples = start_examples()
+        pipe = timed("pipeline", phase_pipeline, smi,
+                     note="; beside [examples]: under contention")
+        ex = phase_examples(smi, examples)            # prints its [time]
+        timed("train", phase_train, smi)
     print(f"[time] all phases {time.perf_counter() - t0:.1f} s", flush=True)
     runs = {
         "pattern_gemm": "tile-pattern qwen2-1.5b serving 8 requests "
@@ -5197,8 +5673,12 @@ def main() -> int:
                         f"prefilling ({ssm['pattern_gemm']}) + the "
                         "ADMM-pruned "
                         f"one serving 4 ({admm['pattern_gemm']}) + the "
-                        "pipeline's saved 4-layer one serving 4 "
-                        f"({pipe['pattern_gemm']})",
+                        "pipeline's saved 2-layer one serving 4 "
+                        f"({pipe['pattern_gemm']}) + [roofline]: the "
+                        "[serve] artifact's 8 distinct leaves profiled at "
+                        f"M = 4, 512, 2048 ({roof['pattern_gemm']}) + "
+                        "[examples]: the LM example serving 8 requests "
+                        f"packed ({ex['pattern_gemm']})",
         "flash_attention": "tile-pattern qwen2-1.5b serving 8 requests "
                            f"({launches['flash_attention']}) + the same "
                            "artifact through ContinuousEngine serving 12 "
@@ -5225,22 +5705,33 @@ def main() -> int:
                            f"({ssm['flash_attention']}) "
                            "+ the ADMM-pruned one serving 4 "
                            f"({admm['flash_attention']}) + the pipeline's "
-                           f"saved 4-layer one serving 4 "
-                           f"({pipe['flash_attention']})",
+                           f"saved 2-layer one serving 4 "
+                           f"({pipe['flash_attention']}) + [examples]: the "
+                           "LM example's prefills (4 / 2 heads of 16, the "
+                           f"SIMT route) ({ex['flash_attention']})",
         "pattern_conv": "one bf16 forward of VGG-16 at batch 32 "
                         f"({conv[0]}) + one of ResNet-18 at batch 256 "
                         f"({conv[1]}) + one of the ADMM-pruned, retrained "
                         f"VGG-16 at batch 32 ({admm_conv}) + one of the "
                         "pipeline's saved VGG-16 (32 x 32) at batch 64 "
-                        f"({pipe['pattern_conv']})",
-        "column_gemm": "column-pruned qwen2-1.5b serving 8 requests",
+                        f"({pipe['pattern_conv']}) + [roofline]: VGG-16's "
+                        "13 packed convs profiled on one 64 x 64 and one "
+                        f"256 x 256 image ({roof['pattern_conv']}) + "
+                        "[examples]: the quickstart's packed VGG-16 "
+                        f"(width 0.125) on 3 batches ({ex['pattern_conv']})",
+        "column_gemm": "column-pruned qwen2-1.5b serving 8 requests "
+                       f"({column['column_gemm']}) + [roofline]: the "
+                       "[column] artifact's 8 distinct leaves profiled at "
+                       f"M = 4, 512, 2048 ({roof['column_gemm']})",
     }
     launches = {k: launches[k] + cont[k] + spec[k] + tuned[k] + win[k]
-                + fam[k] + moe[k] + ssm[k] + admm[k] + pipe[k]
-                for k in launches}
+                + fam[k] + moe[k] + ssm[k] + admm[k] + pipe[k] + ex[k]
+                + roof.get(k, 0) for k in launches}
     launches.update(pattern_conv=sum(conv) + admm_conv
-                    + pipe["pattern_conv"],
-                    column_gemm=column["column_gemm"])
+                    + pipe["pattern_conv"] + roof["pattern_conv"]
+                    + ex["pattern_conv"],
+                    column_gemm=column["column_gemm"] + roof["column_gemm"]
+                    + ex["column_gemm"])
     print(smi, flush=True)
     print(json.dumps({"kernels": summarize(rows, launches, runs)}),
           flush=True)

@@ -1,4 +1,5 @@
-"""Model configuration dataclass (copied from ``repro/configs/base.py``)."""
+"""Model and training configuration dataclasses (copied from
+``repro/configs/base.py``)."""
 
 from __future__ import annotations
 
@@ -101,3 +102,22 @@ class ModelConfig:
         dense = self.param_count() - L * self.num_experts * 3 * D * fe
         active = L * self.moe_top_k * 3 * D * fe
         return dense + active
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The training loop's knobs (copied from ``repro/configs/base.py``;
+    ``launch/train.py::run_training`` reads them)."""
+
+    steps: int = 100
+    learning_rate: float = 3e-4
+    warmup_steps: int = 10
+    weight_decay: float = 0.1
+    optimizer: str = "adamw"
+    grad_clip: float = 1.0
+    grad_compression: bool = False   # int8 + error feedback on the grads
+    masked: bool = False             # retraining with a pruning mask
+    seed: int = 0
+    checkpoint_every: int = 100
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    keep_checkpoints: int = 3

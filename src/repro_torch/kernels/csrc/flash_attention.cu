@@ -44,9 +44,10 @@
 //    its full byte count to the mbarrier, as at the ragged S edge. The
 //    zero columns waste 3/8 of the MMA work; a 64 + 16 box layout would
 //    not.
-//  - simt (fp32, any route the wgmma kernel does not take; hd 32, 64, 80
-//    or 128): one block per 64-row q tile keeps each 64 x 64 score tile in
-//    shared memory and does both products with fp32 FMAs: each thread owns
+//  - simt (fp32, any route the wgmma kernel does not take; hd 16, 32, 64,
+//    80 or 128, hd 16 being the reduced configs'): one block per 64-row
+//    q tile keeps each 64 x 64 score tile in shared memory and does both
+//    products with fp32 FMAs: each thread owns
 //    one query row's quarter (16 scores, hd / 4 output columns), the 4
 //    threads of a row meeting through warp shuffles. fp32 stays fp32: TF32
 //    tensor cores would miss the 2e-5 tolerance.
@@ -188,6 +189,7 @@ int simt_hd(const void* q, const void* k, const void* v, void* o, int B,
             int S, int H, int KV, int hd, float scale, int causal, int window,
             cudaStream_t s) {
   switch (hd) {
+    case 16: return launch_simt<T, 16>(q, k, v, o, B, S, H, KV, scale, causal, window, s);
     case 32: return launch_simt<T, 32>(q, k, v, o, B, S, H, KV, scale, causal, window, s);
     case 64: return launch_simt<T, 64>(q, k, v, o, B, S, H, KV, scale, causal, window, s);
     case 80: return launch_simt<T, 80>(q, k, v, o, B, S, H, KV, scale, causal, window, s);
@@ -465,8 +467,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 // window <= 0 means no sliding window. `variant` is the route the caller
 // chose (V_*; flash_attention.py:flash_variant): wgmma (bf16, hd 64, 80
 // or 128, 16-byte aligned operands) with `block_q` of 64 or 128 query
-// rows, or simt (bf16 or fp32, hd 32, 64, 80 or 128). Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for arguments the variant does not take.
+// rows, or simt (bf16 or fp32, hd 16, 32, 64, 80 or 128). Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for arguments the variant
+// does not take.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int S,
                                       int H, int KV, int hd, float scale,

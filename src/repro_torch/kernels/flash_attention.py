@@ -22,7 +22,7 @@ from repro_torch.kernels.sm90 import VARIANTS
 
 LAUNCHES = 0
 
-HEAD_DIMS = (32, 64, 80, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)   # 16: the reduced configs (simt)
 # hd 80 runs the HD = 128 wgmma instance on 80-column maps (TMA zero-fills
 # the rest)
 WGMMA_HEAD_DIMS = (64, 80, 128)

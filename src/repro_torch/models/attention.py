@@ -36,8 +36,8 @@ def flash_prefill_supported(seq_len: int, num_heads: int, num_kv_heads: int,
                             head_dim: int) -> bool:
     """Can the ``flash_attention`` kernel serve this prefill shape?
 
-    The kernel's own limits: a head dim in ``HEAD_DIMS`` (32, 64, 80 or
-    128) and an exact GQA ratio. It takes every S (TMA zero-fills the
+    The kernel's own limits: a head dim in ``HEAD_DIMS`` (16, 32, 64, 80
+    or 128) and an exact GQA ratio. It takes every S (TMA zero-fills the
     ragged edge), so unlike the reference's Pallas kernel it needs no S
     divisible by its block. A shape that fails takes
     ``blockwise_attention``, so serving never crashes on a shape the

@@ -1,7 +1,13 @@
-"""Optimizers and schedules over the port's parameter trees (mirrors
-``repro/optim``; the distributed-only gradient compression is not
-ported)."""
+"""Optimizers, schedules and int8 gradient compression over the port's
+parameter trees (mirrors ``repro/optim``)."""
 
+from repro_torch.optim.grad_compression import (
+    ErrorFeedbackState,
+    compress_int8,
+    decompress_int8,
+    error_feedback_compress,
+    error_feedback_init,
+)
 from repro_torch.optim.masked import masked
 from repro_torch.optim.optimizers import (
     Optimizer,
@@ -17,5 +23,7 @@ from repro_torch.optim.schedules import (
     warmup_cosine,
 )
 
-__all__ = ["Optimizer", "adamw", "clip_scale", "constant", "cosine_decay", "masked",
+__all__ = ["ErrorFeedbackState", "Optimizer", "adamw", "clip_scale",
+           "compress_int8", "constant", "cosine_decay", "decompress_int8",
+           "error_feedback_compress", "error_feedback_init", "masked",
            "momentum", "paper_rho_schedule", "sgd", "warmup_cosine"]

@@ -77,7 +77,9 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype):
     for B, S, H, KV, hd, causal, window in ((2, 70, 4, 2, 64, True, None),
                                             (1, 130, 6, 3, 128, False, 50),
                                             (2, 64, 4, 4, 32, True, 16),
-                                            (4, 200, 12, 2, 128, True, None)):
+                                            (4, 200, 12, 2, 128, True, None),
+                                            (8, 15, 4, 2, 16, True, None),
+                                            (2, 40, 4, 2, 16, True, 32)):
         q = torch.randn(B, S, H, hd, generator=g, device=cuda).to(dtype)
         k = torch.randn(B, S, KV, hd, generator=g, device=cuda).to(dtype)
         v = torch.randn(B, S, KV, hd, generator=g, device=cuda).to(dtype)
@@ -619,21 +621,22 @@ SRC = str(Path(__file__).resolve().parents[1] / "src")
 
 
 def test_serve_launcher_reduced_prefills_through_the_fallback(cuda):
-    """``launch.serve --reduced`` (head_dim 16, which the flash kernel does
-    not take) serves on the card: every prefill takes blockwise attention
-    and counts a fallback; no flash launch."""
+    """``launch.serve --reduced`` (head_dim 16) serves on the card: every
+    prefill launches the flash kernel on its SIMT route (head_dim 16 has
+    no wgmma instance) and none falls back to blockwise attention."""
     from repro_torch.launch import serve
 
     _zero_counts()
     results = serve.main(["--arch", "qwen2-1.5b", "--reduced", "--requests",
                           "3", "--max-new", "5"])
     assert [len(r.tokens) for r in results] == [5, 5, 5]
-    assert fa.LAUNCHES == 0 and attention.PREFILL_FALLBACKS > 0
+    assert fa.LAUNCHES > 0 and fa.ROUTE_LAUNCHES["simt"] == fa.LAUNCHES
+    assert attention.PREFILL_FALLBACKS == 0
 
 
 def test_supported_shape_takes_flash_and_counts_no_fallback(cuda):
     g = torch.Generator(device=cuda).manual_seed(0)
-    for hd, flash in ((64, True), (16, False)):
+    for hd, route in ((64, "wgmma"), (16, "simt"), (24, None)):
         cfg = reduced_config("qwen2-1.5b", head_dim=hd,
                              param_dtype="bfloat16")
         model = LM(cfg, device=cuda)
@@ -644,8 +647,8 @@ def test_supported_shape_takes_flash_and_counts_no_fallback(cuda):
         model.prefill(params, tokens, 32)
         torch.cuda.synchronize()
         L = cfg.num_layers
-        if flash:
-            assert (fa.LAUNCHES, fa.ROUTE_LAUNCHES["wgmma"],
+        if route:
+            assert (fa.LAUNCHES, fa.ROUTE_LAUNCHES[route],
                     attention.PREFILL_FALLBACKS) == (L, L, 0)
         else:
             assert (fa.LAUNCHES, attention.PREFILL_FALLBACKS) == (0, L)
@@ -717,8 +720,8 @@ def test_prune_then_serve_launchers_on_the_card(cuda, tmp_path):
 
 
 def test_prune_then_serve_danube_launchers_on_the_card(cuda, tmp_path):
-    """``--arch h2o-danube-1.8b --reduced`` (window 32, head_dim 16: the
-    blockwise fallback with the window) pruned and served packed on the
+    """``--arch h2o-danube-1.8b --reduced`` (window 32, head_dim 16: flash's
+    SIMT route with the window) pruned and served packed on the
     card, prompts of 40 tokens past the ring of 32."""
     art = str(tmp_path / "artifact")
     _launcher("repro_torch.launch.prune", "--arch", "h2o-danube-1.8b",
@@ -900,8 +903,8 @@ def test_continuous_graphs_match_eager_and_solo(cuda, which):
     """The continuous engine through its slot graphs against the same
     schedule run eagerly (``graphs`` off): the same tokens, statuses and
     stats; each request equals its run alone through an engine of the
-    same batch size. Reduced: head_dim 16, so prefill takes the blockwise
-    fallback; qwen2-1.5b's full width at 2 layers takes flash's wgmma
+    same batch size. Reduced: head_dim 16, so prefill takes flash's SIMT
+    route; qwen2-1.5b's full width at 2 layers takes flash's wgmma
     route for every admission, and so does the ring of ``RING_CFG`` at
     hd 80 (a prompt of 80 past the ring, budgets across the wrap)."""
     lens = (40, 17, 64, 9, 33, 17)
@@ -931,12 +934,10 @@ def test_continuous_graphs_match_eager_and_solo(cuda, which):
     got = graph.generate(reqs)
     torch.cuda.synchronize()
     admissions = len(reqs)
-    if which == "reduced":
-        assert fa.LAUNCHES == 0
-        assert attention.PREFILL_FALLBACKS == cfg.num_layers * admissions
-    else:
-        assert fa.ROUTE_LAUNCHES["wgmma"] == cfg.num_layers * admissions
-        assert attention.PREFILL_FALLBACKS == 0
+    route = "simt" if which == "reduced" else "wgmma"
+    assert (fa.LAUNCHES, fa.ROUTE_LAUNCHES[route]) == (
+        cfg.num_layers * admissions,) * 2
+    assert attention.PREFILL_FALLBACKS == 0
     assert _outcome(got) == _outcome(eager.generate(reqs))
     assert graph.stats == eager.stats
     assert [len(r.tokens) for r in got] == [r.max_new_tokens for r in reqs]
@@ -1270,7 +1271,7 @@ def test_moe_apply_graph_matches_eager(cuda, dtype, B, S):
 
 @pytest.mark.parametrize("which", ["reduced", "full_width_2_layers"])
 def test_moe_lm_served_through_graphs_matches_eager(cuda, which):
-    """qwen2-moe-a2.7b reduced (head_dim 16: blockwise prefill) and at
+    """qwen2-moe-a2.7b reduced (head_dim 16: flash's SIMT route) and at
     full width with 2 layers (flash on wgmma), tile packed with the
     experts left dense: the chunked engine's prefill logits and decode
     tokens through its graphs bit-identical to eager ``LM.prefill`` /

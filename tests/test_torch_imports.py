@@ -26,7 +26,8 @@ def _imported_roots(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
-                         [ROOT / "chip_smoke.py"],
+                         [ROOT / "chip_smoke.py"] +
+                         sorted((ROOT / "examples").glob("torch_*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
@@ -47,11 +48,29 @@ def test_engine_import_pulls_in_no_jax():
             "repro_torch.serve.speculative, repro_torch.models.model, "
             "repro_torch.core.synthetic, repro_torch.testing, "
             "repro_torch.models.moe, repro_torch.models.ssm, "
-            "repro_torch.configs.xlstm_1_3b, repro_torch.configs.hymba_1_5b; "
+            "repro_torch.configs.xlstm_1_3b, repro_torch.configs.hymba_1_5b, "
+            "repro_torch.roofline, repro_torch.roofline.attribution, "
+            "repro_torch.launch.analyze, repro_torch.optim.grad_compression; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_examples_pull_in_no_jax():
+    """Each ``examples/torch_*.py`` imported (not run) loads no jax."""
+    code = ("import importlib.util, sys, glob; "
+            "[importlib.util.spec_from_file_location('ex', p).loader"
+            ".exec_module(importlib.util.module_from_spec("
+            "importlib.util.spec_from_file_location('ex', p))) "
+            "for p in sorted(glob.glob(sys.argv[1] + '/torch_*.py'))]; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code,
+                          str(ROOT / "examples")], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
 
@@ -177,3 +196,23 @@ def test_pipeline_launcher_refuses_a_missing_card(tmp_path):
         pipeline.main(["--arch", "vgg16", "--reduced", "--quick",
                        "--out", str(tmp_path / "out")])
     assert not (tmp_path / "out" / "vgg16" / "progress.json").exists()
+
+
+def test_train_launcher_refuses_a_missing_card(tmp_path):
+    """``launch/train.py``'s ``run_training`` and CLI want the card by
+    default, as the other launchers do."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    from repro_torch.configs import reduced_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import train
+
+    with pytest.raises(RuntimeError):
+        train.run_training(reduced_config("qwen2-1.5b"),
+                           TrainConfig(steps=1,
+                                       checkpoint_dir=str(tmp_path / "c")),
+                           seq_len=8, global_batch=2)
+    with pytest.raises(RuntimeError):
+        train.main(["--arch", "qwen2-1.5b", "--reduced", "--steps", "1",
+                    "--ckpt-dir", str(tmp_path / "c")])
+    assert not (tmp_path / "c").exists()
