@@ -242,8 +242,8 @@ result line is printed:
               bit-identical to its solo run) and ``SpeculativeEngine``
               (the artifact packed drafting for its pruned weights bound
               dense, ``[speculative]``'s settings; round graph ≡ eager);
-              (c) deepseek-moe-16b (28 layers, 64 routed top-6 + 2
-              shared, vocab 102 400) as (a); (d) at 4 layers of full
+              (c) deepseek-moe-16b (14 of its 28 layers, full width: 64
+              routed top-6 + 2 shared, vocab 102 400) as (a); (d) at 4 layers of full
               width in fp32, both configs: packed tokens ≡ dense-pruned,
               continuous ≡ ``ServeEngine(batch_size=1)``; (e) the
               artifact at 2 layers saved, loaded bit-equal and served;
@@ -251,7 +251,7 @@ result line is printed:
               uniform synthetic tokens (batch 16 x 64): seconds, busy
               share, launches; packed, one prefill gated.
 13. ssm     — the recurrent families, each part with its ``[time]``:
-              (a) hymba-1.5b at full width and depth (32 layers, d_model
+              (a) hymba-1.5b at full width, 16 of 32 layers (d_model
               1600, 25 / 5 heads of 64, d_ff 5504, mamba 25 x 64 with
               N 16, window 2048, bf16): tile with the mamba leaves in
               raises (the reference's ``ValueError``); pruned a layer at
@@ -270,9 +270,9 @@ result line is printed:
               ring through the graphs (its capture seconds);
               ``ContinuousEngine`` on 8 requests of S 512 /
               200 / 64 (flash on wgmma per admission, each ≡ its solo
-              run); ``SpeculativeEngine`` refuses. (b) xlstm-1.3b (48
-              blocks in 6 groups of 7 mLSTM + 1 sLSTM, d_model 2048, 4
-              heads of 512): tile with the cells in raises; greedy tile
+              run); ``SpeculativeEngine`` refuses. (b) xlstm-1.3b (24 of
+              its 48 blocks: 3 of 6 groups of 7 mLSTM + 1 sLSTM, d_model
+              2048, 4 heads of 512): tile with the cells in raises; greedy tile
               with the cells excluded packs the head alone; served as
               (a) (2 x 32 head launches, no flash), graph ≡ eager; the
               continuous and speculative engines refuse; the device
@@ -357,16 +357,39 @@ result line is printed:
               qwen2-1.5b --reduced --steps 20 --batch 8 --seq 128`` as a
               subprocess: exit 0 and the reference's line.
 16c. examples — ``examples/torch_quickstart.py``,
-              ``torch_prune_then_serve_lm.py`` and
-              ``torch_privacy_pruning_cnn.py`` with the reference's
-              defaults, three subprocesses started together just before
-              [pipeline], run beside it and waited for before [train]
-              (the ``[time]`` line: the longest one's own seconds, under
-              contention), each printing the kernel launches it made:
-              exit 0, packed tokens identical to dense (``pattern_gemm``
-              and flash launched, no blockwise fallback), the
-              quickstart's packed accuracy equal to its retrained
-              accuracy (``pattern_conv`` launched).
+              ``torch_prune_then_serve_lm.py``,
+              ``torch_privacy_pruning_cnn.py`` and
+              ``torch_distributed_masked_retraining.py`` with the
+              reference's defaults (the last at world size 1: one rank
+              on the card, NCCL, its 1 × 1 -> 1 × 1 meshes), four
+              subprocesses started together just before [pipeline], run
+              beside it and waited for before [train] (the ``[time]``
+              line: the longest one's own seconds, under contention),
+              each printing the kernel launches it made: exit 0, packed
+              tokens identical to dense (``pattern_gemm`` and flash
+              launched, no blockwise fallback), the quickstart's packed
+              accuracy equal to its retrained accuracy (``pattern_conv``
+              launched), the distributed example's resumed and elastic
+              loss paths equal.
+16d. scaleout — an NCCL process group of one rank (a ``FileStore`` in a
+              temporary directory, no TCP port) and a 1 × 1 ("data",
+              "model") mesh: (a) ``run_training(mesh=...)`` with [train]'s
+              int8-compressed run's config, masks, seed and steps; gates:
+              every loss, grad norm and residual ratio and every final
+              param bit-equal to [train]'s unsharded run (whose numbers
+              it reuses), pruned weights 0; s per step beside [train]'s.
+              (b) at 2 of 28 layers, a train state saved on the mesh and
+              restored through ``CheckpointManager.restore(...,
+              shardings=...)`` onto the mesh and onto no mesh: every leaf
+              bit-equal. (c) started after (a)'s steps, beside (b),
+              ``python -m repro_torch.launch.dryrun --arch qwen2-1.5b
+              --shape all --mesh both --jobs 6`` on the fake process
+              group: every
+              applicable cell OK, long_500k SKIP with the reference's
+              reason; per cell the per-device argument bytes, FLOPs,
+              collective bytes by type, the roofline report's dominant
+              term and useful ratio (gate: at most 1.05) and seconds.
+              Then the process group is destroyed.
 17. report  — one ``{"kernels": [...]}`` JSON line covering all four
               kernels (each a sum over the bf16 shapes its served path
               launches; the GEMMs' ``lm_head`` at M = 512 and 2048, which
@@ -433,7 +456,17 @@ from repro_torch.launch import analyze as launch_analyze  # noqa: E402
 from repro_torch.launch import pipeline as launch_pipeline  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch.prune import prune_config_for  # noqa: E402
-from repro_torch.launch.train import run_training  # noqa: E402
+from repro_torch.configs.base import SHAPES  # noqa: E402
+from repro_torch.configs.shapes import skip_reason  # noqa: E402
+from repro_torch.launch.train import init_state, run_training  # noqa: E402
+from repro_torch.parallel.sharding import (  # noqa: E402
+    axis_rules,
+    default_rules,
+    gather_full,
+    is_dtensor,
+    shardings_of,
+)
+from repro_torch.roofline import report as roofline_report  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.privacy import report as privacy_report  # noqa: E402
 from repro_torch.roofline import attribution, hw  # noqa: E402
@@ -4160,8 +4193,9 @@ def phase_families(smi: str) -> dict:
 
 # ------------------------------------------------------------------- moe
 
+# deepseek-moe-16b is served at 14 of its 28 layers (full width)
 MOE = dict(fp32_layers=4, artifact_layers=2, admm_layers=2,
-           cont_requests=6, split_steps=4)
+           cont_requests=6, split_steps=4, deepseek_layers=14)
 MOE_EXPERTS = (r".*experts.*",)
 MOE_NAMES = ("qwen2-moe-a2.7b", "deepseek-moe-16b")
 
@@ -4193,11 +4227,14 @@ def moe_tile_refused(tag: str, cfg, params) -> None:
     fail(f"[{tag}] {cfg.name}: tile_pattern pruned the expert leaves")
 
 
-def moe_prepare(tag: str, smi: str, name: str):
-    """``name`` at full width and depth, bf16: init, prune a block at a
-    time (tile 4 of 8, experts left out), pack. The expert leaves of the
-    packed tree must be the init's tensors, not copies. -> (model, art)."""
+def moe_prepare(tag: str, smi: str, name: str, layers: int = 0):
+    """``name`` at full width, at full depth or ``layers`` of it, bf16:
+    init, prune a block at a time (tile 4 of 8, experts left out), pack.
+    The expert leaves of the packed tree must be the init's tensors, not
+    copies. -> (model, art)."""
     cfg = get_config(name)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     model = LM(cfg, device=DEV)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4554,8 +4591,9 @@ def moe_admm(tag: str, smi: str, name: str) -> dict:
 
 
 def phase_moe(smi: str) -> dict:
-    """The MoE family: (a) qwen2-moe-a2.7b and (c) deepseek-moe-16b at full
-    width and depth served through the graphs, (b) qwen2-moe-a2.7b through
+    """The MoE family: (a) qwen2-moe-a2.7b at full width and depth and (c)
+    deepseek-moe-16b at full width, 14 of 28 layers, served through the
+    graphs, (b) qwen2-moe-a2.7b through
     the continuous and speculative engines, (d) the fp32 bars, (e) the
     artifact, (f) one ADMM iteration. Returns the main paths' launch
     counts, summed."""
@@ -4574,7 +4612,8 @@ def phase_moe(smi: str) -> dict:
         return {k: out[k] + spec[k] for k in out}
 
     def deepseek_serve():
-        model, art = moe_prepare(tag, smi, MOE_NAMES[1])
+        model, art = moe_prepare(tag, smi, MOE_NAMES[1],
+                                 layers=MOE["deepseek_layers"])
         return moe_serve(tag, smi, model, art)
 
     parts = (("(a) qwen2-moe-a2.7b", qwen_serve),
@@ -4596,8 +4635,11 @@ def phase_moe(smi: str) -> dict:
 
 # ---------------------------------------------------------------- [ssm]
 
+# served at full width and half depth: hymba-1.5b 16 of 32 layers,
+# xlstm-1.3b 24 of 48 blocks (3 of its 6 groups)
 SSM = dict(batch=4, max_seq=544, new=32, wrap_prompt=2048, wrap_new=64,
-           cont_requests=8, fp32_layers=4, admm_layers=2)
+           cont_requests=8, fp32_layers=4, admm_layers=2, hymba_layers=16,
+           xlstm_layers=24)
 SSM_NAMES = ("hymba-1.5b", "xlstm-1.3b")
 HYMBA_EXCLUDE = (r".*mamba.*", r"lm_head")     # lm_head: 32 001 columns
 XLSTM_EXCLUDE = (r".*mlstm.*", r".*slstm.*")
@@ -4813,11 +4855,12 @@ def ssm_serve(tag: str, smi: str, model, art, pf_per_layer: int) -> dict:
 
 
 def hymba_prepare(tag: str, smi: str):
-    """(a) hymba-1.5b at full width and depth, bf16: init, the tile
+    """(a) hymba-1.5b at full width, 16 of 32 layers, bf16: init, the tile
     refusal with the mamba leaves in, prune a layer at a time (4 of 8,
     block_p 64, mamba and the head left out), pack, ``round_trip`` of its
     first 4 layers -> (model, the artifact)."""
-    cfg = get_config("hymba-1.5b")
+    cfg = dataclasses.replace(get_config("hymba-1.5b"),
+                              num_layers=SSM["hymba_layers"])
     model = LM(cfg, device=DEV)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4980,11 +5023,12 @@ def hymba_split(tag: str, smi: str, model, art) -> None:
 
 
 def xlstm_prepare(tag: str, smi: str):
-    """(b) xlstm-1.3b at full width and depth (6 groups of 7 mLSTM + 1
-    sLSTM blocks), bf16: init, the tile refusal on a grouped mLSTM leaf,
-    greedy tile 4 of 8 (block_p 128) with the cells left out, so only the
-    head packs -> (model, artifact)."""
-    cfg = get_config("xlstm-1.3b")
+    """(b) xlstm-1.3b at full width, 24 of 48 blocks (3 of its 6 groups of
+    7 mLSTM + 1 sLSTM blocks), bf16: init, the tile refusal on a grouped
+    mLSTM leaf, greedy tile 4 of 8 (block_p 128) with the cells left out,
+    so only the head packs -> (model, artifact)."""
+    cfg = dataclasses.replace(get_config("xlstm-1.3b"),
+                              num_layers=SSM["xlstm_layers"])
     model = LM(cfg, device=DEV)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -5149,7 +5193,7 @@ def ssm_fp32(tag: str) -> dict:
 
 def phase_ssm(smi: str) -> dict:
     """The recurrent families: (a) hymba-1.5b and (b) xlstm-1.3b at full
-    width and depth, pruned, packed and served through the graphs, (c)
+    width and half depth, pruned, packed and served through the graphs, (c)
     ADMM of each, (d) the fp32 bars. Returns the main paths' launch
     counts, summed."""
     tag = "ssm"
@@ -5212,7 +5256,8 @@ TRAIN_CLI = ["--arch", "qwen2-1.5b", "--reduced", "--steps", "20",
              "--batch", "8", "--seq", "128"]
 EXAMPLES_DIR = os.path.join(ROOT, "examples")
 EXAMPLES = ("torch_quickstart.py", "torch_prune_then_serve_lm.py",
-            "torch_privacy_pruning_cnn.py")
+            "torch_privacy_pruning_cnn.py",
+            "torch_distributed_masked_retraining.py")
 # runs an example as __main__ in this subprocess, then prints on a line of
 # its own the kernel launches it made (graph replays counted), its prefills
 # that fell back to blockwise attention, and its seconds
@@ -5379,11 +5424,13 @@ def stop_at(k: int):
     return hook
 
 
-def phase_train(smi: str) -> None:
+def phase_train(smi: str) -> dict:
     """``run_training`` on qwen2-1.5b at full width, 4 layers, masked:
     s per step, the straggler monitor, peak memory; gates: pruned weights
     stay 0, stopped-and-resumed ≡ uninterrupted, int8 compression finite
-    with every residual within half its scale; the CLI in a subprocess."""
+    with every residual within half its scale; the CLI in a subprocess.
+    Returns the int8 run's config, masks, metrics, step seconds and final
+    params, which [scaleout] holds its sharded run to."""
     tag = "train"
     cli_dir = tempfile.TemporaryDirectory(prefix="train-cli-")
     cli = subprocess.Popen(
@@ -5466,6 +5513,10 @@ def phase_train(smi: str) -> None:
         if not all(math.isfinite(v) for v in losses) or ratio > 0.5 + 1e-5:
             fail(f"[{tag}] int8 compression: losses {losses}, residual "
                  f"ratio {ratio}")
+        ref = {"cfg": cfg, "kw": kw, "metrics": [r.metrics for r in
+                                                 comp["metrics"]],
+               "secs": [r.seconds for r in comp["metrics"]],
+               "params": comp["state"]["params"]}
         del comp
     torch.cuda.empty_cache()
     out, err = cli.communicate(timeout=600)
@@ -5477,10 +5528,197 @@ def phase_train(smi: str) -> None:
     if cli.returncode != 0 or not last or not re.match(
             r"arch=qwen2-1\.5b steps=20 loss: first=\S+ last=\S+$", last[0]):
         fail(f"[{tag}] the training CLI failed: {err[-3000:]}")
+    return ref
+
+
+# [scaleout]: the train state of (b) at 2 of 28 layers; the dry-run's cells
+# traced in DRYRUN_JOBS processes on the host beside (a) and (b)
+SCALEOUT = dict(ckpt_layers=2, dryrun_jobs=6, useful_max=1.05)
+DRYRUN_CELLS = {(shape, mesh) for shape in ("train_4k", "prefill_32k",
+                                            "decode_32k")
+                for mesh in ("16x16", "2x16x16")}
+
+
+def scaleout_train(tag: str, smi: str, mesh, ref: dict) -> None:
+    """(a) ``run_training(mesh=...)`` on the 1 × 1 mesh with [train]'s
+    int8 run's config, masks, seed and steps: bit-equal to it."""
+    cfg, kw = ref["cfg"], ref["kw"]
+    with tempfile.TemporaryDirectory(prefix="scaleout-train-") as tmp:
+        t0 = time.perf_counter()
+        res = run_training(cfg, train_cfg(
+            tmp, "mesh", steps=TRAIN["compressed"], grad_compression=True),
+            mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    got = [r.metrics for r in res["metrics"]]
+    secs = [r.seconds for r in res["metrics"]]
+    placed = {str(tuple(x.placements)) for x in
+              tree_leaves(res["state"]["params"])}
+    params = {p: x.full_tensor() for p, x in
+              tree_items(res["state"]["params"])}
+    want = dict(tree_items(ref["params"]))
+    same = [p for p, x in params.items() if x.dtype == want[p].dtype
+            and torch.equal(x, want[p])]
+    masks = kw["masks"]
+    moved = [p for p, m in tree_items(masks)
+             if m is not None and bool(params[p][m == 0].any())]
+    print(f"[{tag}] (a) run_training(mesh=1x1 (data, model), NCCL) "
+          f"qwen2-1.5b L={cfg.num_layers} of 28, batch {TRAIN['batch']} x "
+          f"{TRAIN['seq']}, masked, int8 compression, {len(got)} steps in "
+          f"{wall:.2f} s: s per step {json.dumps([round(x, 4) for x in secs])}"
+          f" against [train]'s unsharded "
+          f"{json.dumps([round(x, 4) for x in ref['secs']])}; param "
+          f"placements {sorted(placed)} ({smi})", flush=True)
+    print(f"[{tag}] (a) metrics bit-equal to [train]'s unsharded run at "
+          f"every step: {got == ref['metrics']} (losses "
+          f"{json.dumps([m['loss'] for m in got])}, grad norms "
+          f"{json.dumps([m['grad_norm'] for m in got])}); final params "
+          f"bit-equal in {len(same)}/{len(want)} leaves; pruned weights "
+          f"still 0: {not moved}", flush=True)
+    if got != ref["metrics"]:
+        fail(f"[{tag}] (a) the sharded run's metrics {got} differ from the "
+             f"unsharded run's {ref['metrics']}")
+    if len(same) != len(want) or set(params) != set(want):
+        fail(f"[{tag}] (a) final params differ from the unsharded run's in "
+             f"{sorted(set(want) - set(same))[:6]}")
+    if moved:
+        fail(f"[{tag}] (a) pruned weights moved: {moved[:4]}")
+
+
+def scaleout_checkpoint(tag: str, mesh, cfg) -> None:
+    """(b) a train state at ``SCALEOUT["ckpt_layers"]`` layers, built on
+    the mesh, saved, restored onto the mesh and onto no mesh."""
+    cfg2 = dataclasses.replace(cfg, num_layers=SCALEOUT["ckpt_layers"])
+    model, opt = LM(cfg2, device=DEV), adamw(3e-4)
+    gen = lambda: torch.Generator(device=DEV).manual_seed(0)
+    with axis_rules(default_rules(mesh)):
+        state = init_state(model, opt, gen())
+    plain_like = init_state(model, opt, gen())
+    with tempfile.TemporaryDirectory(prefix="scaleout-ckpt-") as tmp:
+        manager = CheckpointManager(tmp, keep=1)
+        t0 = time.perf_counter()
+        manager.save(1, state)
+        t_save = time.perf_counter() - t0
+        size = disk_bytes(tmp)
+        t0 = time.perf_counter()
+        on_mesh = manager.restore(state, shardings=shardings_of(state))
+        t_mesh = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plain = manager.restore(plain_like)
+        t_plain = time.perf_counter() - t0
+    want = dict(tree_items(state))
+    a, b = dict(tree_items(on_mesh)), dict(tree_items(plain))
+    same_mesh = [p for p, x in a.items() if is_dtensor(x)
+                 == is_dtensor(want[p]) and torch.equal(
+                     gather_full(x), gather_full(want[p]))
+                 and (not is_dtensor(x) or x.placements
+                      == want[p].placements)]
+    same_plain = [p for p, x in b.items() if not is_dtensor(x)
+                  and torch.equal(x, gather_full(want[p]))]
+    print(f"[{tag}] (b) qwen2-1.5b L={cfg2.num_layers} of 28 train state "
+          f"({len(want)} leaves, {size} bytes on disk) saved on the 1x1 "
+          f"mesh in {t_save:.2f} s, restored onto it in {t_mesh:.2f} s and "
+          f"onto no mesh in {t_plain:.2f} s: bit-equal on the mesh in "
+          f"{len(same_mesh)}/{len(want)} leaves, unsharded in "
+          f"{len(same_plain)}/{len(want)}", flush=True)
+    if len(same_mesh) != len(want) or len(same_plain) != len(want):
+        fail(f"[{tag}] (b) restored leaves differ: on the mesh "
+             f"{sorted(set(want) - set(same_mesh))[:6]}, unsharded "
+             f"{sorted(set(want) - set(same_plain))[:6]}")
+
+
+def scaleout_dryrun(tag: str, smi: str, proc, out: str, t0: float) -> None:
+    """(c) waits for the dry-run subprocess: its lines, its records and
+    the roofline report of both meshes."""
+    text, err = proc.communicate(timeout=600)
+    wall = time.perf_counter() - t0
+    lines = [l for l in text.splitlines()
+             if l[:4] in ("OK  ", "SKIP", "FAIL")]
+    for line in lines:
+        print(f"[{tag}] (c) | {line}", flush=True)
+    ok = {tuple(l.split()[1].rstrip(":").split("__")[1:]) for l in lines
+          if l.startswith("OK")}
+    reason = skip_reason(get_config("qwen2-1.5b"), SHAPES["long_500k"])
+    skips = [l for l in lines if l.startswith("SKIP")]
+    if (proc.returncode != 0 or ok != DRYRUN_CELLS or len(skips) != 2
+            or any(not l.endswith(f": {reason}") for l in skips)):
+        fail(f"[{tag}] (c) the dry-run (exit {proc.returncode}) left cells "
+             f"not OK or skipped for another reason: {lines} "
+             f"{err[-3000:]}")
+    worst = 0.0
+    for mesh in ("16x16", "2x16x16"):
+        for rec in roofline_report.load_cells(out, mesh):
+            if rec.get("status") != "ok":
+                continue
+            coll = {k: v for k, v in rec["collectives"].items() if v}
+            worst = max(worst, rec["useful_flop_ratio"])
+            print(f"[{tag}] (c) qwen2-1.5b {rec['shape']} on {mesh} "
+                  f"({roofline_report.MESH_DEVICES[mesh]} cards), per "
+                  f"device: argument bytes "
+                  f"{rec['memory']['argument_bytes']}, temp bytes "
+                  f"{rec['memory']['temp_bytes']}, FLOPs {rec['flops']:.4e}"
+                  f", bytes {rec['bytes_accessed']:.4e}, collective bytes "
+                  f"{json.dumps(coll)}; dominant {rec['dominant']} "
+                  f"(compute {rec['compute_s']:.4e} s, memory "
+                  f"{rec['memory_s']:.4e} s, collective "
+                  f"{rec['collective_s']:.4e} s), useful ratio "
+                  f"{rec['useful_flop_ratio']:.4f}, roofline fraction "
+                  f"{rec['roofline_fraction']:.4f}; traced in "
+                  f"{rec['trace_seconds']:.1f} s (H100 terms; {smi})",
+                  flush=True)
+    print(f"[{tag}] (c) the dry-run: {len(ok)} OK, {len(skips)} SKIP in "
+          f"{wall:.1f} s wall ({SCALEOUT['dryrun_jobs']} processes on the "
+          f"host, beside (b)); largest useful ratio {worst:.4f} "
+          f"(at most {SCALEOUT['useful_max']})", flush=True)
+    if worst > SCALEOUT["useful_max"]:
+        fail(f"[{tag}] (c) a useful ratio of {worst} counts fewer traced "
+             "FLOPs than the model needs")
+
+
+def phase_scaleout(smi: str, ref: dict) -> None:
+    """[scaleout]: one NCCL rank, a 1 × 1 mesh; (a) sharded training
+    bit-equal to [train]'s, (b) a checkpoint across the mesh and none,
+    (c) the dry-run on the fake group, started once (a)'s timed steps
+    are done (so they run on a quiet host, as [train]'s did) and run
+    beside (b)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    tag = "scaleout"
+    work = tempfile.TemporaryDirectory(prefix="scaleout-")
+    out = os.path.join(work.name, "dryrun")
+    t0 = time.perf_counter()
+    dry = None
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(work.name, "store"), 1), rank=0, world_size=1)
+        try:
+            mesh = init_device_mesh("cuda", (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            scaleout_train(tag, smi, mesh, ref)
+            t_dry = time.perf_counter()
+            dry = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", "qwen2-1.5b", "--shape", "all", "--mesh",
+                 "both", "--jobs", str(SCALEOUT["dryrun_jobs"]), "--out",
+                 out], env=port_env(), stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+            scaleout_checkpoint(tag, mesh, ref["cfg"])
+        finally:
+            dist.destroy_process_group()
+        print(f"[{tag}] (a) and (b) done {time.perf_counter() - t0:.1f} s "
+              "into the phase; the process group destroyed", flush=True)
+        scaleout_dryrun(tag, smi, dry, out, t_dry)
+    finally:
+        if dry is not None and dry.poll() is None:
+            dry.kill()
+            dry.wait()
+        work.cleanup()
 
 
 def start_examples() -> tuple:
-    """The three ``examples/torch_*.py`` with the reference's defaults, in
+    """The four ``examples/torch_*.py`` with the reference's defaults, in
     subprocesses started together -> (their start time, the processes).
     They are small (width-0.125 CNNs on 16 x 16, a 2-layer LM), so they
     run beside [pipeline], whose gates are exact: the seconds of both are
@@ -5495,8 +5733,10 @@ def start_examples() -> tuple:
 def phase_examples(smi: str, started: tuple) -> dict:
     """Waits for ``start_examples``' processes: exit 0, packed tokens
     identical to dense, the LM example's prefills all on the flash kernel,
-    the quickstart's packed accuracy equal to its retrained one. Returns
-    the kernel launches they made."""
+    the quickstart's packed accuracy equal to its retrained one, the
+    distributed example's resumed and elastic loss paths equal (one rank:
+    1 × 1 both times, so bit for bit). Returns the kernel launches they
+    made."""
     tag = "examples"
     t0, procs = started
     launches = dict.fromkeys(KERNEL_MODS, 0)
@@ -5535,7 +5775,14 @@ def phase_examples(smi: str, started: tuple) -> dict:
             or not qs_launches["pattern_conv"]):
         fail(f"[{tag}] the quickstart's packed accuracy differs from its "
              f"retrained accuracy or never ran pattern_conv: {qs_launches}")
-    print(f"[time] examples {longest:.1f} s (the longest of the three, run "
+    dx, _, _ = outs["torch_distributed_masked_retraining.py"]
+    paths = {k: re.search(rf"^\[{k} 1x1\] .*loss path (\[.*\])$", dx, re.M)
+             for k in ("train", "resume", "elastic")}
+    if (not all(paths.values()) or "[check]" not in dx
+            or paths["resume"].group(1) != paths["elastic"].group(1)):
+        fail(f"[{tag}] the distributed example did not train, resume and "
+             f"reshard at world size 1 to equal loss paths: {paths}")
+    print(f"[time] examples {longest:.1f} s (the longest of the four, run "
           f"together beside [pipeline]: under contention; all done "
           f"{time.perf_counter() - t0:.1f} s after their start)", flush=True)
     print(f"[{tag}] launches {json.dumps(launches)} ({smi})", flush=True)
@@ -5642,7 +5889,8 @@ def main() -> int:
         pipe = timed("pipeline", phase_pipeline, smi,
                      note="; beside [examples]: under contention")
         ex = phase_examples(smi, examples)            # prints its [time]
-        timed("train", phase_train, smi)
+        train_ref = timed("train", phase_train, smi)
+    timed("scaleout", phase_scaleout, smi, train_ref)
     print(f"[time] all phases {time.perf_counter() - t0:.1f} s", flush=True)
     runs = {
         "pattern_gemm": "tile-pattern qwen2-1.5b serving 8 requests "

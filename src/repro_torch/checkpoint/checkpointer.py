@@ -156,9 +156,59 @@ def _structure(tree: Any) -> str:
     return "*"
 
 
+def _distributed() -> bool:
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized() \
+        and dist.get_world_size() > 1
+
+
+def _gathered(tree: Any) -> Tuple[List[Tuple[str, Any]], bool]:
+    """(``_flatten(tree)`` with every DTensor leaf gathered whole, whether
+    there was one). Gathering is a collective: every rank calls it, in
+    the same leaf order."""
+    flat, sharded = [], False
+    for path, leaf in _flatten(tree):
+        if hasattr(leaf, "full_tensor"):
+            leaf, sharded = leaf.full_tensor(), True
+        flat.append((path, leaf))
+    return flat, sharded
+
+
+def _writes(sharded: bool) -> bool:
+    """Does this process write? All of a tree without DTensor leaves
+    (a one-process save); rank 0 alone of a sharded one."""
+    import torch.distributed as dist
+
+    return not (sharded and _distributed()) or dist.get_rank() == 0
+
+
+def _barrier(sharded: bool) -> None:
+    """Every rank of a sharded save waits for rank 0's commit."""
+    if sharded and _distributed():
+        import torch.distributed as dist
+
+        dist.barrier()
+
+
 def save_pytree(directory: str, tree: Any, *,
                 extra: Optional[Dict] = None) -> None:
-    """Atomically save a tree of tensors/arrays and ``PackedTensor``s."""
+    """Atomically save a tree of tensors/arrays and ``PackedTensor``s.
+
+    A sharded (DTensor) leaf is gathered and written whole, in the
+    reference's format, so a checkpoint saved on one mesh restores onto
+    another or onto none. A tree with such leaves is saved by every rank
+    of the run together: each gathers, rank 0 writes, and all return once
+    the directory is committed.
+    """
+    flat, sharded = _gathered(tree)
+    if _writes(sharded):
+        _write_pytree(directory, tree, flat, extra)
+    _barrier(sharded)
+
+
+def _write_pytree(directory: str, tree: Any, flat: List[Tuple[str, Any]],
+                  extra: Optional[Dict]) -> None:
     parent = os.path.dirname(os.path.abspath(directory)) or "."
     os.makedirs(parent, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="tmp.ckpt.", dir=parent)
@@ -175,7 +225,7 @@ def save_pytree(directory: str, tree: Any, *,
             with open(fpath, "rb") as f:
                 return zlib.crc32(f.read()) & 0xFFFFFFFF
 
-        for i, (path, leaf) in enumerate(_flatten(tree)):
+        for i, (path, leaf) in enumerate(flat):
             if _is_packed(leaf):
                 bufs = []
                 for name, buf in zip(leaf.names, leaf.buffers):
@@ -339,9 +389,18 @@ def _unflatten(like: Any, leaves: List[Any]) -> Any:
     return build(like)
 
 
-def restore_pytree(directory: str, like: Any) -> Any:
+def restore_pytree(directory: str, like: Any, *, shardings: Any = None
+                   ) -> Any:
     """Restore into the structure of ``like``; each tensor lands on the
-    device of the ``like`` leaf it replaces (CPU for other leaves)."""
+    device of the ``like`` leaf it replaces (CPU for other leaves).
+
+    ``shardings``, a tree congruent with ``like`` of
+    ``parallel.sharding.NamedSharding`` (None leaves stay whole), makes
+    each dense leaf a DTensor with its target placements, each rank
+    keeping its shard: so a checkpoint written on one mesh restores onto
+    a different one. ``PackedTensor`` leaves stay as loaded: their packed
+    buffers have shapes the dense placements cannot describe.
+    """
     manifest = _read_manifest(directory)
     flat = _flatten(like)
     if len(manifest["leaves"]) != len(flat):
@@ -353,7 +412,30 @@ def restore_pytree(directory: str, like: Any) -> Any:
         dev = leaf.device if isinstance(leaf, torch.Tensor) else (
             torch.device("cpu"))
         leaves.append(_load_leaf(directory, entry, dev))
+    if shardings is not None:
+        from repro_torch.parallel.sharding import shard
+
+        targets = [s for _, s in _flatten_with_none(like, shardings)]
+        leaves = [x if _is_packed(x) else shard(x, s)
+                  for x, s in zip(leaves, targets)]
     return _unflatten(like, leaves)
+
+
+def _flatten_with_none(like: Any, shardings: Any
+                       ) -> List[Tuple[str, Any]]:
+    """(path, sharding) for each leaf ``_flatten(like)`` keeps, read from
+    ``shardings`` (a tree congruent with ``like``; a None subtree shards
+    nothing beneath it)."""
+    out = []
+    for path, _ in _flatten(like):
+        node = shardings
+        for key in path.split("/") if path else ():
+            if node is None:
+                break
+            node = node[int(key)] if isinstance(node, (list, tuple)) \
+                else node[key]
+        out.append((path, node))
+    return out
 
 
 def _nest(flat: Dict[str, Any],
@@ -441,17 +523,25 @@ class CheckpointManager:
 
     def save(self, step: int, tree: Any, *,
              extra: Optional[Dict] = None) -> None:
-        save_pytree(self._dir(step), tree, extra=extra)
-        self._rotate()
+        """Save (DTensor leaves gathered whole; of a sharded tree rank 0
+        writes and rotates, the other ranks wait for it)."""
+        flat, sharded = _gathered(tree)
+        if _writes(sharded):
+            _write_pytree(self._dir(step), tree, flat, extra)
+            self._rotate()
+        _barrier(sharded)
 
-    def restore(self, like: Any, step: Optional[int] = None) -> Any:
+    def restore(self, like: Any, step: Optional[int] = None, *,
+                shardings: Any = None) -> Any:
         """Step ``step`` (default: the newest) in the structure of ``like``,
-        each tensor on the device of the leaf it replaces."""
+        each tensor on the device of the leaf it replaces; with
+        ``shardings`` each dense leaf a DTensor of its target placements
+        (``restore_pytree``)."""
         if step is None:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.root}")
-        return restore_pytree(self._dir(step), like)
+        return restore_pytree(self._dir(step), like, shardings=shardings)
 
     def extra(self, step: Optional[int] = None) -> Dict:
         if step is None:

@@ -34,8 +34,11 @@ def apply_mask(params: Any, masks: Optional[Any]) -> Any:
     their params as they are."""
     if masks is None:
         return params
+    from repro_torch.parallel.sharding import local_elementwise
+
     return tree_map_with_path(
-        lambda _, w, m: w if m is None else w * m.to(w.dtype), params, masks)
+        lambda _, w, m: w if m is None else local_elementwise(
+            lambda w, m: w * m.to(w.dtype), w, m), params, masks)
 
 
 def mask_gradients(grads: Any, masks: Optional[Any]) -> Any:

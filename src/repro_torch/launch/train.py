@@ -1,8 +1,19 @@
-"""Training on one card (mirrors ``repro/launch/train.py``).
+"""The training driver (mirrors ``repro/launch/train.py``).
 
-Builds: init (masked when retraining) -> train step (masked retraining +
-optional int8 gradient compression) -> fault-tolerant loop with
-checkpointing, resumed from the latest checkpoint.
+Builds: mesh -> axis rules -> sharded init (masked when retraining) ->
+train step (masked retraining + optional int8 gradient compression) ->
+fault-tolerant loop with checkpointing, resumed from the latest
+checkpoint. ``make_train_step`` and ``train_state_specs`` are also what
+``launch/dryrun.py`` traces.
+
+With ``mesh`` (a ``DeviceMesh`` of ("data", "model") or ("pod", "data",
+"model")) the run is SPMD on ``torch.distributed``: every rank calls
+``run_training`` with the same arguments, the state lives as DTensors
+placed by ``parallel.sharding.default_rules(mesh)``, each rank builds
+the global batch from (seed, step) and keeps its shard, and DTensor's
+sharding propagation runs the step (gradients reduced to their params'
+placements before the clip). Checkpoints are written whole by rank 0
+and restore onto any mesh, or none.
 
 ``make_train_step`` is the reference's step: grads -> the mask function
 -> global-norm clip -> fp32 grads -> (int8 + error feedback) ->
@@ -17,9 +28,6 @@ CLI (the card unless ``--device cpu``):
 
 ``--masks DIR`` restores the mask function ``launch/prune.py`` wrote
 (``<out>/masks``) and runs the client's masked retraining.
-
-Not ported here (they need more than one device): the mesh, the axis
-rules and sharded init (``train_state_specs``).
 """
 
 from __future__ import annotations
@@ -41,6 +49,21 @@ from repro_torch.data import DataConfig, make_pipeline_for
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import build_model
 from repro_torch.models.transformer import LM
+from repro_torch.parallel.sharding import (
+    AxisRules,
+    NamedSharding,
+    axis_rules,
+    batch_spec,
+    current_rules,
+    default_rules,
+    gather_full,
+    like,
+    local_elementwise,
+    param_shardings,
+    shard,
+    shard_tree,
+    shardings_of,
+)
 from repro_torch.optim import (
     adamw,
     clip_scale,
@@ -63,8 +86,22 @@ def init_state(model: LM, optimizer, gen: torch.Generator, *,
                masks: Any = None, grad_compression: bool = False
                ) -> Dict[str, Any]:
     """``{"params", "opt", "step"}`` (+ ``"ef"`` with compression); the
-    params drawn from ``gen`` on the model's device, masked if asked."""
+    params drawn from ``gen`` on the model's device, masked if asked.
+
+    Under active axis rules the state is built sharded: every rank draws
+    the same params, keeps its shard of each leaf (placed by
+    ``param_logical_axes``), and the moments and residuals are made
+    sharded like their params; ``masks`` are sharded like the params
+    too. So a sharded init holds exactly the unsharded one's values.
+    """
     params = model.init(gen)
+    rules = current_rules()
+    if rules is not None and rules.mesh is not None:
+        shardings = param_shardings(rules, model.param_logical_axes(),
+                                    params)
+        params = shard_tree(params, shardings)
+        if masks is not None:
+            masks = shard_tree(masks, shardings)
     if masks is not None:
         params = apply_mask(params, masks)
     state = {
@@ -104,7 +141,9 @@ def make_train_step(model: LM, optimizer, *, masks: Any = None,
             loss = model.train_loss(p, batch)
             leaves = [w for _, w in tree_items(p)]
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        it = iter([torch.zeros_like(w) if g is None else g
+        # a sharded gradient's pending reductions (the data-parallel
+        # all-reduce / reduce-scatter) land it on its param's placements
+        it = iter([torch.zeros_like(w) if g is None else like(g, w)
                    for w, g in zip(leaves, grads)])
         grads = tree_map(lambda _: next(it), p)
         metrics = {"loss": loss.detach()}
@@ -113,20 +152,22 @@ def make_train_step(model: LM, optimizer, *, masks: Any = None,
                 grads = mask_gradients(grads, masks)
             gnorm, scale = clip_scale(tree_leaves(grads), grad_clip)
             metrics["grad_norm"] = gnorm
-            grads = tree_map(lambda g: g.to(torch.float32) * scale, grads)
+            grads = tree_map(lambda g: local_elementwise(
+                lambda g, s: g.to(torch.float32) * s, g, scale), grads)
             new_state = dict(state)
             if grad_compression:
                 q, s, new_state["ef"] = error_feedback_compress(
                     grads, state["ef"])
-                grads = tree_map(decompress_int8, q, s)
+                grads = tree_map(lambda q, s: local_elementwise(
+                    decompress_int8, q, s), q, s)
                 metrics["ef_residual_ratio"] = torch.stack([
                     r.abs().max() / sc for r, sc in zip(
                         tree_leaves(new_state["ef"].residual),
                         tree_leaves(s))]).max()
             updates, new_state["opt"] = optimizer.update(
                 grads, state["opt"], state["params"])
-            params = tree_map(
-                lambda w, u: (w.to(torch.float32) + u).to(w.dtype),
+            params = tree_map(lambda w, u: local_elementwise(
+                lambda w, u: (w.to(torch.float32) + u).to(w.dtype), w, u),
                 state["params"], updates)
             if masks is not None:
                 params = apply_mask(params, masks)
@@ -135,6 +176,38 @@ def make_train_step(model: LM, optimizer, *, masks: Any = None,
         return new_state, metrics
 
     return step
+
+
+def train_state_specs(model: LM, optimizer, rules: Optional[AxisRules], *,
+                      grad_compression: bool = False):
+    """(state shapes, state shardings) of ``init_state``: the shapes as
+    meta tensors (nothing allocated), the shardings a congruent tree of
+    ``NamedSharding`` (None without rules). Moments and residuals follow
+    their params' placements; scalars are replicated."""
+    params = model.abstract_params()
+    shapes = {"params": params, "opt": optimizer.init(params),
+              "step": torch.zeros((), dtype=torch.int32, device="meta")}
+    if grad_compression:
+        shapes["ef"] = error_feedback_init(params)
+    if rules is None:
+        return shapes, None
+    from torch.distributed.tensor import Replicate
+
+    p_shard = param_shardings(rules, model.param_logical_axes(), params)
+    repl = NamedSharding(rules.mesh, (Replicate(),) * rules.mesh.ndim)
+
+    def opt_fields(opt_shapes):
+        """Each field of an optimizer's NamedTuple state: a scalar
+        replicated, a param-congruent tree sharded like the params."""
+        return type(opt_shapes)(*[
+            repl if isinstance(field, torch.Tensor) else p_shard
+            for field in opt_shapes])
+
+    shardings = {"params": p_shard, "opt": opt_fields(shapes["opt"]),
+                 "step": repl}
+    if grad_compression:
+        shardings["ef"] = type(shapes["ef"])(p_shard)
+    return shapes, shardings
 
 
 # ---------------------------------------------------------------------------
@@ -160,18 +233,42 @@ def run_training(
     the reference's does; its batches are regenerated from (seed, step),
     so it ends bit-equal to a run never stopped. Returns ``{"state",
     "metrics": [StepResult], "straggler": the monitor's snapshot}``.
+
+    With ``mesh`` (every rank of its process group calling this with the
+    same arguments) the run is sharded under ``default_rules(mesh)``:
+    the state and each step's batch are DTensors, and a checkpoint
+    written on any mesh (or none) resumes onto this one. ``masks`` are
+    whole trees; ``device`` must be the mesh's device type. The MoE,
+    SSM and hybrid families do not run under the axis rules yet and are
+    refused with a mesh (``NotImplementedError``).
     """
-    if mesh is not None:
+    if mesh is not None and (cfg.num_experts or
+                             cfg.family in ("ssm", "hybrid")):
         raise NotImplementedError(
-            "run_training(mesh=...) needs the port's scale-out slice "
-            "(launch/mesh.py, parallel/sharding.py, sharded init); one "
-            "card runs with mesh=None")
+            f"{cfg.name}: sharded training of the MoE, SSM and hybrid "
+            "families is not ported (a tensor made inside their forward "
+            "meets the DTensor params; ROADMAP queue 1 item 0); run it "
+            "with mesh=None")
     dev = resolve_device(device)
+    if mesh is not None and mesh.device_type != dev.type:
+        raise ValueError(f"mesh on {mesh.device_type!r} but device {dev}")
+    rules = default_rules(mesh) if mesh is not None else None
+    with axis_rules(rules):
+        return _run(cfg, tcfg, seq_len=seq_len, global_batch=global_batch,
+                    masks=masks, on_step=on_step, dev=dev, rules=rules)
+
+
+def _run(cfg: ModelConfig, tcfg: TrainConfig, *, seq_len: int,
+         global_batch: int, masks: Any, on_step, dev: torch.device,
+         rules: Optional[AxisRules]) -> Dict[str, Any]:
     model = build_model(cfg, device=dev)
     optimizer = adamw(
         warmup_cosine(tcfg.learning_rate, tcfg.warmup_steps, tcfg.steps),
         weight_decay=tcfg.weight_decay,
     )
+    if rules is not None and masks is not None:
+        masks = shard_tree(masks, param_shardings(
+            rules, model.param_logical_axes(), model.abstract_params()))
     step_fn = make_train_step(
         model, optimizer, masks=masks, grad_clip=tcfg.grad_clip,
         grad_compression=tcfg.grad_compression,
@@ -193,18 +290,26 @@ def run_training(
         straggler=StragglerMonitor(),
     )
 
+    shardings = shardings_of(state) if rules is not None else None
     start = 0
     latest = manager.latest_step()
     if latest is not None:
         log.info("resuming from checkpoint step %d", latest)
-        state = manager.restore(state)
+        state = manager.restore(state, shardings=shardings)
         start = latest
 
     metrics_log = []
 
+    def batch_at(step):
+        batch = data.batch_at(step)
+        if rules is None:
+            return batch
+        return {k: shard(v, batch_spec(rules, v.ndim, shape=v.shape))
+                for k, v in batch.items()}
+
     def step_adapter(state, step):
-        state, metrics = step_fn(state, data.batch_at(step))
-        return state, {k: float(v) for k, v in metrics.items()}
+        state, metrics = step_fn(state, batch_at(step))
+        return state, {k: float(gather_full(v)) for k, v in metrics.items()}
 
     def record(res):
         metrics_log.append(res)
@@ -214,7 +319,8 @@ def run_training(
     state = loop.run(
         state, step_adapter,
         start_step=start, num_steps=tcfg.steps,
-        restore_fn=lambda template, s: manager.restore(template, step=s),
+        restore_fn=lambda template, s: manager.restore(
+            template, step=s, shardings=shardings),
         on_step=record,
     )
     return {"state": state, "metrics": metrics_log,

@@ -159,22 +159,61 @@ def _qchunk_fwd(q, k, v, *, causal: bool, window: Optional[int], chunk: int,
         acc = torch.zeros((B, chunk, KV, G, hd), device=q.device)
         j0 = _band_start(qi, band, n)
         for kj in range(j0, j0 + band):
-            vc = vf[:, kj * chunk:(kj + 1) * chunk]
-            s = _scores(qc, kf[:, kj * chunk:(kj + 1) * chunk], q_pos,
-                        kj * chunk + pos, causal, window)
-            m_new = torch.maximum(m, s.amax(dim=2))
-            p = torch.exp(s - m_new[:, :, None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=2)
-            pv = torch.einsum("bqpkg,bpkd->bqkgd",
-                              p.to(v.dtype).to(torch.float32), vc)
-            acc = acc * corr[..., None] + pv
-            m = m_new
+            m, l, acc = _fwd_tile(qc, kf[:, kj * chunk:(kj + 1) * chunk],
+                                  vf[:, kj * chunk:(kj + 1) * chunk], m, l,
+                                  acc, q_pos, kj * chunk + pos, causal,
+                                  window, v.dtype)
         outs.append((acc / l.clamp_min(1e-30)[..., None]).to(q.dtype))
         ms.append(m)
         ls.append(l)
     out = torch.cat(outs, dim=1).reshape(B, S, H, hd).to(q.dtype)
     return out, torch.stack(ms), torch.stack(ls)
+
+
+def _fwd_tile(qc, kc, vc, m, l, acc, q_pos, k_pos, causal: bool,
+              window: Optional[int], v_dtype):
+    """One kv chunk of a q chunk's online softmax -> (m, l, acc)."""
+    s = _scores(qc, kc, q_pos, k_pos, causal, window)
+    m_new = torch.maximum(m, s.amax(dim=2))
+    p = torch.exp(s - m_new[:, :, None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(dim=2)
+    pv = torch.einsum("bqpkg,bpkd->bqkgd",
+                      p.to(v_dtype).to(torch.float32), vc)
+    return m_new, l, acc * corr[..., None] + pv
+
+
+def _p_tile(qc, kc, m, linv, q_pos, k_pos, causal: bool,
+            window: Optional[int]):
+    s = _scores(qc, kc, q_pos, k_pos, causal, window)
+    return torch.exp(s - m[:, :, None]) * linv[:, :, None]
+
+
+def _ds_tile(p, do_c, vc, D_c):
+    dP = torch.einsum("bqkgd,bpkd->bqpkg", do_c, vc)
+    return p * (dP - D_c[:, :, None])
+
+
+def _dq_tile(qc, kc, vc, do_c, D_c, m, linv, q_pos, k_pos, causal: bool,
+             window: Optional[int], k_dtype):
+    """Pass A of the backward: one kv chunk's share of a q chunk's dq."""
+    ds = _ds_tile(_p_tile(qc, kc, m, linv, q_pos, k_pos, causal, window),
+                  do_c, vc, D_c)
+    return torch.einsum("bqpkg,bpkd->bqkgd", ds.to(k_dtype).to(
+        torch.float32), kc)
+
+
+def _dkv_tile(qc, kc, vc, do_c, D_c, m, linv, q_pos, k_pos, causal: bool,
+              window: Optional[int], q_dtype, do_dtype):
+    """Pass B of the backward: one q chunk's share of a kv chunk's
+    (dk, dv)."""
+    p = _p_tile(qc, kc, m, linv, q_pos, k_pos, causal, window)
+    dv = torch.einsum("bqpkg,bqkgd->bpkd", p.to(do_dtype).to(torch.float32),
+                      do_c)
+    ds = _ds_tile(p, do_c, vc, D_c)
+    dk = torch.einsum("bqpkg,bqkgd->bpkd", ds.to(q_dtype).to(torch.float32),
+                      qc)
+    return dk, dv
 
 
 def _qchunk_bwd(q, k, v, out, m_all, l_all, dout, *, causal: bool,
@@ -200,23 +239,17 @@ def _qchunk_bwd(q, k, v, out, m_all, l_all, dout, *, causal: bool,
     def rows(t, i):
         return t[:, i * chunk:(i + 1) * chunk]
 
-    def p_tile(qi, kj):
-        s = _scores(rows(qg, qi), rows(kf, kj), qi * chunk + pos,
-                    kj * chunk + pos, causal, window)
-        return torch.exp(s - m_all[qi][:, :, None]) * linv[qi][:, :, None]
-
-    def ds_tile(p, qi, kj):
-        dP = torch.einsum("bqkgd,bpkd->bqpkg", rows(do, qi), rows(vf, kj))
-        return p * (dP - rows(D, qi)[:, :, None])
+    def tile_args(qi, kj):
+        return (rows(qg, qi), rows(kf, kj), rows(vf, kj), rows(do, qi),
+                rows(D, qi), m_all[qi], linv[qi], qi * chunk + pos,
+                kj * chunk + pos, causal, window)
 
     dq = []
     for qi in range(n):                                 # pass A: dq
         dqc = torch.zeros((B, chunk, KV, G, hd), dtype=f32, device=q.device)
         j0 = _band_start(qi, band, n)
         for kj in range(j0, j0 + band):
-            ds = ds_tile(p_tile(qi, kj), qi, kj)
-            dqc = dqc + torch.einsum("bqpkg,bpkd->bqkgd",
-                                     ds.to(k.dtype).to(f32), rows(kf, kj))
+            dqc = dqc + _dq_tile(*tile_args(qi, kj), k.dtype)
         dq.append((dqc * scale).to(q.dtype))
     qband = band if causal else n
     dk, dv = [], []
@@ -225,12 +258,9 @@ def _qchunk_bwd(q, k, v, out, m_all, l_all, dout, *, causal: bool,
         dvc = torch.zeros_like(dkc)
         j0 = kj if causal else 0
         for qi in range(j0, min(j0 + qband, n)):
-            p = p_tile(qi, kj)
-            dvc = dvc + torch.einsum("bqpkg,bqkgd->bpkd",
-                                     p.to(dout.dtype).to(f32), rows(do, qi))
-            ds = ds_tile(p, qi, kj)
-            dkc = dkc + torch.einsum("bqpkg,bqkgd->bpkd",
-                                     ds.to(q.dtype).to(f32), rows(qg, qi))
+            dk_t, dv_t = _dkv_tile(*tile_args(qi, kj), q.dtype, dout.dtype)
+            dvc = dvc + dv_t
+            dkc = dkc + dk_t
         dk.append(dkc.to(k.dtype))
         dv.append(dvc.to(v.dtype))
     return (torch.cat(dq, dim=1).reshape(B, S, H, hd), torch.cat(dk, dim=1),
@@ -295,7 +325,8 @@ def slot_prompt_rows(capacity: int, prompt_len: int, ring: bool,
 def chunk_attention(q: torch.Tensor, k_cache: torch.Tensor,
                     v_cache: torch.Tensor, slot_pos: torch.Tensor,
                     q_pos: torch.Tensor, *, window: Optional[int] = None,
-                    softmax_scale: Optional[float] = None) -> torch.Tensor:
+                    softmax_scale: Optional[float] = None,
+                    reduce_scores=None) -> torch.Tensor:
     """K new positions per row against the cache: masked softmax in fp32.
 
     q (B, K, H, hd); caches (B, C, KV, hd), the chunk's own k/v already
@@ -303,15 +334,18 @@ def chunk_attention(q: torch.Tensor, k_cache: torch.Tensor,
     (B, K). Query i sees slot p iff 0 <= slot_pos[p] <= q_pos[i], so the
     chunk's causality falls out of the cache mask. ``decode_attention``
     is this function at K = 1: a chunk and K single steps share their
-    per-query arithmetic.
+    per-query arithmetic. ``reduce_scores`` sums the raw scores across
+    the ranks a head dim is split over (a sharded cache's local call).
     """
     B, C, KV, hd = k_cache.shape
     K, H = q.shape[1], q.shape[2]
     G = H // KV
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(hd)
     qg = q.reshape(B, K, KV, G, hd).to(torch.float32)
-    s = torch.einsum("bqkgd,bpkd->bqkgp", qg,
-                     k_cache.to(torch.float32)) * scale
+    s = torch.einsum("bqkgd,bpkd->bqkgp", qg, k_cache.to(torch.float32))
+    if reduce_scores is not None:
+        s = reduce_scores(s)
+    s = s * scale
     sp = slot_pos[:, None, :]
     ok = (sp >= 0) & (sp <= q_pos[:, :, None])
     if window is not None:
@@ -327,11 +361,13 @@ def chunk_attention(q: torch.Tensor, k_cache: torch.Tensor,
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, slot_pos: torch.Tensor,
                      q_pos: torch.Tensor, *, window: Optional[int] = None,
-                     softmax_scale: Optional[float] = None) -> torch.Tensor:
+                     softmax_scale: Optional[float] = None,
+                     reduce_scores=None) -> torch.Tensor:
     """One new position per row against the cache: q (B, 1, H, hd), q_pos
     (B,); ``chunk_attention`` with K = 1."""
     return chunk_attention(q, k_cache, v_cache, slot_pos, q_pos[:, None],
-                           window=window, softmax_scale=softmax_scale)
+                           window=window, softmax_scale=softmax_scale,
+                           reduce_scores=reduce_scores)
 
 
 def insert_slots(pos: torch.Tensor, capacity: int, ring: bool):

@@ -38,7 +38,12 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import copy
+import math
+import re
+
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
@@ -68,7 +73,21 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.moe import moe_apply, moe_init
-from repro_torch.utils.tree import tree_items, tree_map
+from repro_torch.parallel.sharding import (
+    constrain,
+    current_rules,
+    is_dtensor,
+    local_rows,
+    logical_placements,
+    logical_sharding,
+    merge_dims,
+    mesh_axis_sizes,
+    replicate,
+    shard_tree,
+    sharded_dims,
+    split_dim,
+)
+from repro_torch.utils.tree import tree_items, tree_map, unflatten
 
 LOSS_CHUNK = 512               # sequence positions per cross-entropy chunk
 MOE_AUX_COEF = 0.01
@@ -97,7 +116,8 @@ def _write_state(bufs: Dict[str, torch.Tensor], state: Dict[str, Any],
 
 
 class LM:
-    """The reference's ``LM`` for every family, on one device."""
+    """The reference's ``LM`` for every family, on one device or, under
+    axis rules, on DTensors over a mesh."""
 
     def __init__(self, config: ModelConfig, *, device: DeviceLike = None):
         if config.family not in PORTED_FAMILIES:
@@ -186,6 +206,153 @@ class LM:
         # an embedding-input model has no table to tie its head to
         return not (self.config.tie_embeddings and self.takes_tokens)
 
+    # --------------------------------------------------------------- shardings
+
+    def param_logical_axes(self) -> Dict[str, Any]:
+        """Tree (congruent with ``init``'s) of logical-axis tuples. A
+        per-layer leaf of ``params["blocks"]`` carries its own axes, with
+        no "layers" lead (the reference stacks the layers on one); an
+        xLSTM's mLSTM leaves keep one for their (per - 1) stacking axis."""
+
+        def leaf_axes(path: str, shape: Tuple[int, ...]) -> tuple:
+            nd = len(shape)
+            if path == "embed":
+                return ("vocab", "embed")
+            if path == "lm_head":
+                return ("embed", "vocab")
+            lead: tuple = ("layers",) * (nd - self._leaf_rank(path, shape))
+            return lead + self._logical_for(path, nd - len(lead))
+
+        return unflatten({p: leaf_axes(p, s)
+                          for p, s in self.param_shapes().items()})
+
+    @staticmethod
+    def _leaf_rank(path: str, shape: Tuple[int, ...]) -> int:
+        """Rank of the per-layer tensor (strip the mLSTM stacking dim)."""
+        nd = len(shape)
+        if re.match(r"blocks/\d+/mlstm/", path):
+            return nd - 1
+        return nd
+
+    @staticmethod
+    def _logical_for(path: str, rank: int) -> tuple:
+        """Logical axes of the per-layer tensor by param name."""
+        name = path.split("/")[-1]
+        owner = path.split("/")[-2] if "/" in path else ""
+        if rank == 0:
+            return ()
+        if rank == 1:
+            return (None,)
+        if owner == "experts":                # (E, D, F) / (E, F, D)
+            if name == "w_down":
+                return ("experts", "expert_mlp", "embed")
+            return ("experts", "embed", "expert_mlp")
+        if name == "router":
+            return ("embed", None)
+        if name in ("wq", "wk", "wv"):
+            return ("embed", "heads")
+        if name == "wo":
+            return ("heads", "embed")
+        if name in ("w_gate", "w_up", "w_in", "w_up2", "w_gates", "w_if"):
+            return ("embed", "mlp")
+        if name in ("w_down", "w_out", "w_down2"):
+            return ("mlp", "embed")
+        if name == "conv_w":
+            return (None, "mlp")
+        if name in ("w_bcdt", "a_log"):
+            return ("mlp", None)
+        if name == "r_gates":
+            return (None, None, "mlp") if rank == 3 else (None, "mlp")
+        # default: shard trailing dim on model if large
+        return tuple([None] * (rank - 1) + ["mlp"])
+
+    def cache_logical_axes(self, cache) -> Any:
+        """Logical axes of ``init_cache``'s tree (batch and kv_heads
+        sharded): each layer's k/v row (B, C, KV, hd) without the
+        reference's "layers" lead; the stacked recurrent states as the
+        reference's."""
+
+        def axes(path: str, x) -> tuple:
+            nd = len(x.shape)
+            if path.startswith("k") or path.startswith("v"):
+                # kv_heads shards on model when divisible; otherwise the
+                # kv_dim fallback takes the model axis (shape-aware specs)
+                return ("batch", None, "kv_heads", "kv_dim")
+            if "mlstm" in path or "slstm" in path:
+                return tuple([None] * nd)
+            if "mamba" in path:
+                return ("layers", "batch") + tuple([None] * (nd - 2))
+            return tuple([None] * nd)
+
+        return unflatten({p: axes(p, x) for p, x in tree_items(cache)})
+
+    def _res_axes(self) -> tuple:
+        """Logical axes of the residual stream (B, S, D): the sequence
+        sharded on the model axis between blocks (Megatron-SP) for the
+        attention families, the feature dim for the recurrent ones (their
+        time scans cannot split S)."""
+        if self.config.family in ("ssm", "hybrid"):
+            return ("batch", None, "act_model")
+        return ("batch", "act_seq", None)
+
+    def _gemm_input(self, h: torch.Tensor) -> torch.Tensor:
+        """A normed residual (B, S, D) on its way into a block's GEMMs:
+        under Megatron-SP its sequence, split over the model axis, is
+        gathered first (flattening (B, S) for the GEMM would otherwise
+        split the merged dim two ways); a no-op without rules."""
+        if self._res_axes()[1] != "act_seq":
+            return h
+        return constrain(h, ("batch", None, None))
+
+    @staticmethod
+    def _attn_tp() -> int:
+        """TP degree of the "heads" logical axis under the active rules."""
+        rules = current_rules()
+        if rules is None or rules.mesh is None:
+            return 1
+        ax = rules.lookup("heads")
+        return mesh_axis_sizes(rules.mesh)[ax] if ax is not None else 1
+
+    def _expand_heads_for_tp(self, q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor):
+        """Head-parallel attention for any (H, KV, TP): k/v repeated to
+        one per q head when KV % TP != 0, then heads zero-padded to a
+        multiple of TP when H % TP != 0 (qwen2's 12, phi4's 24, hymba's 25
+        on TP 16) -> (q, k, v, H); the caller slices the output back to
+        H heads."""
+        tp = self._attn_tp()
+        H, KV = q.shape[2], k.shape[2]
+        if tp <= 1 or (H % tp == 0 and KV % tp == 0):
+            return q, k, v, H
+        if KV % tp != 0:
+            G = H // KV
+            k, v = (_on_heads(t, lambda t: torch.repeat_interleave(
+                t, G, dim=2)) for t in (k, v))          # (B, S, H, hd)
+        Hp = ((H + tp - 1) // tp) * tp
+        if Hp != H:
+            pad = lambda t: F.pad(t, (0, 0, 0, Hp - H))
+            q = _on_heads(q, pad)
+            if k.shape[2] != Hp:
+                k, v = _on_heads(k, pad), _on_heads(v, pad)
+        return q, k, v, H
+
+    @staticmethod
+    def _attn_axes() -> Tuple[tuple, tuple]:
+        """Logical axes of q and of k/v inside attention (head-parallel)."""
+        return (("batch", None, "heads", None),
+                ("batch", None, "kv_heads", "head_dim"))
+
+    def on_meta(self) -> "LM":
+        """This model on the meta device: its ``init`` and ``init_cache``
+        give every leaf's shape and dtype and allocate nothing."""
+        meta = copy.copy(self)
+        meta.device = torch.device("meta")
+        return meta
+
+    def abstract_params(self) -> Dict[str, Any]:
+        """``init``'s tree on the meta device."""
+        return self.on_meta().init(torch.Generator())
+
     @torch.no_grad()
     def init(self, gen: torch.Generator) -> Dict[str, Any]:
         """Random weights drawn from ``gen`` (a generator on this device)."""
@@ -258,13 +425,15 @@ class LM:
         """Token ids (B, S) through the table, or (B, S, D) embeddings cast
         to the parameter dtype."""
         if self.takes_tokens:
-            return params["embed"][inputs]
-        if inputs.ndim != 3 or inputs.shape[-1] != self.config.d_model:
+            x = _embed(params["embed"], inputs)
+        elif inputs.ndim != 3 or inputs.shape[-1] != self.config.d_model:
             raise ValueError(
                 f"{self.config.name} takes (B, S, {self.config.d_model}) "
                 f"embeddings from its front end, got shape "
                 f"{tuple(inputs.shape)}")
-        return inputs.to(self.dtype)
+        else:
+            x = inputs.to(self.dtype)
+        return constrain(x, self._res_axes())
 
     def _qkv(self, bp, h: torch.Tensor, sin, cos):
         cfg = self.config
@@ -274,9 +443,11 @@ class LM:
         k = dense_apply(h, attn_p["wk"], bias=attn_p.get("bk"))
         v = dense_apply(h, attn_p["wv"], bias=attn_p.get("bv"))
         B, S, _ = h.shape
-        q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
-        k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-        v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+        q = split_dim(q, 2, (cfg.num_heads, cfg.head_dim))
+        k = split_dim(k, 2, (cfg.num_kv_heads, cfg.head_dim))
+        v = split_dim(v, 2, (cfg.num_kv_heads, cfg.head_dim))
+        qa, ka = self._attn_axes()
+        q, k, v = constrain(q, qa), constrain(k, ka), constrain(v, ka)
         return apply_rope_tables(q, sin, cos), apply_rope_tables(k, sin, cos), v
 
     def _mlp(self, bp, x: torch.Tensor, aux: Optional[list] = None
@@ -284,7 +455,7 @@ class LM:
         """The channel mixer and its residual: MoE, the FFN or nothing.
         ``aux``, a list, gets a MoE layer's load-balancing loss."""
         cfg = self.config
-        h = rmsnorm(bp["norm2"], x, cfg.norm_eps)
+        h = self._gemm_input(rmsnorm(bp["norm2"], x, cfg.norm_eps))
         if cfg.num_experts:
             y, layer_aux = moe_apply(bp["moe"], h, top_k=cfg.moe_top_k,
                                      capacity_factor=cfg.capacity_factor)
@@ -294,13 +465,18 @@ class LM:
             y = ffn_apply(bp["mlp"], h, cfg.ffn_type)
         else:
             y = 0
-        return x + y
+        res = self._res_axes()
+        # the row-parallel GEMM's partial sums reduce-scattered onto the
+        # residual's split (Megatron-SP); in the backward its gradient is
+        # gathered whole before the GEMM's
+        return constrain(x + constrain(y, res), res)
 
     def rope(self, S: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
         """(sin, cos) rotary tables of positions 0 .. S - 1."""
         positions = torch.arange(S, dtype=torch.int32, device=device)
-        return rope_tables(positions, self.config.head_dim,
-                           self.config.rope_theta)
+        sin, cos = rope_tables(positions, self.config.head_dim,
+                               self.config.rope_theta)
+        return replicate(sin), replicate(cos)
 
     def block(self, bp, x: torch.Tensor, rope, *, use_flash: bool = False,
               kv: Optional[list] = None,
@@ -315,12 +491,10 @@ class LM:
         third entry; ``aux``, a list, its MoE load-balancing loss."""
         cfg = self.config
         B, S, _ = x.shape
-        h = rmsnorm(bp["norm1"], x, cfg.norm_eps)
+        h = self._gemm_input(rmsnorm(bp["norm1"], x, cfg.norm_eps))
         q, k, v = self._qkv(bp, h, *rope)
-        out = prefill_attention(q, k, v, causal=cfg.causal,
-                                window=cfg.sliding_window,
-                                use_flash=use_flash)
-        mixer = dense_apply(out.reshape(B, S, cfg.attn_dim), bp["attn"]["wo"])
+        out = self._attention(q, k, v, use_flash)
+        mixer = dense_apply(merge_dims(out, 2), bp["attn"]["wo"])
         entry: Tuple[Any, ...] = (k, v)
         if cfg.family == "hybrid":
             if kv is not None:
@@ -332,7 +506,39 @@ class LM:
             mixer = 0.5 * (mixer + m_out)
         if kv is not None:
             kv.append(entry)
-        return self._mlp(bp, x + mixer, aux)
+        res = self._res_axes()
+        return self._mlp(bp, constrain(x + constrain(mixer, res), res), aux)
+
+    def _attention(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   use_flash: bool) -> torch.Tensor:
+        """``prefill_attention`` of q (B, S, H, hd), k/v (B, S, KV, hd).
+        Under rules on DTensors it runs head-parallel: heads expanded to
+        divide the model axis, then the plain attention on each rank's
+        local shard (whole heads of a batch slice) through ``local_map``,
+        and the padded heads sliced off."""
+        cfg = self.config
+        if not is_dtensor(q):
+            return prefill_attention(q, k, v, causal=cfg.causal,
+                                     window=cfg.sliding_window,
+                                     use_flash=use_flash)
+        from torch.distributed.tensor.experimental import local_map
+
+        rules = current_rules()
+        qa, _ = self._attn_axes()
+        qe, ke, ve, H = self._expand_heads_for_tp(q, k, v)
+        pq = logical_placements(rules, qa, tuple(qe.shape))
+        pk = logical_placements(rules, qa, tuple(ke.shape))
+
+        def core(ql, kl, vl):
+            return prefill_attention(ql, kl, vl, causal=cfg.causal,
+                                     window=cfg.sliding_window,
+                                     use_flash=use_flash)
+
+        out = local_map(core, out_placements=list(pq),
+                        in_placements=(pq, pk, pk),
+                        device_mesh=rules.mesh, redistribute_inputs=True)(
+                            qe, ke, ve)
+        return out if out.shape[2] == H else out[:, :, :H, :]
 
     def hidden_states(self, params, tokens: torch.Tensor, *,
                       collect_kv: bool = False, use_flash: bool = False,
@@ -376,7 +582,7 @@ class LM:
                 if return_states:
                     out, st = out
                     mst.append(st)
-                x = x + out
+                x = constrain(x + out, self._res_axes())
             bp = gp["slstm"]
             h = rmsnorm(bp["norm"], x, cfg.norm_eps)
             out = ssm_mod.slstm_apply(_cell(bp), h, num_heads=H,
@@ -384,7 +590,7 @@ class LM:
             if return_states:
                 out, sst = out
                 states.append({"mlstm": mst, "slstm": sst})
-            x = x + out
+            x = constrain(x + out, self._res_axes())
         return x, states
 
     def lm_head_weight(self, params):
@@ -409,18 +615,23 @@ class LM:
         c = min(LOSS_CHUNK, S)
 
         def chunk_nll(h_c, y_c):
-            logits = torch.einsum("bcd,dv->bcv", h_c, w).to(torch.float32)
+            logits = constrain(torch.einsum("bcd,dv->bcv", h_c, w),
+                               ("batch", None, "vocab")).to(torch.float32)
+            if 2 in sharded_dims(logits):
+                return _vocab_parallel_nll(logits, y_c)
             gold = torch.gather(logits, -1, y_c[..., None].long())[..., 0]
             return (torch.logsumexp(logits, dim=-1) - gold).sum()
 
-        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        total = replicate(torch.zeros((), dtype=torch.float32,
+                                      device=h.device))
         for i in range(S // c):
             total = total + checkpoint(chunk_nll, h[:, i * c:(i + 1) * c],
                                        labels[:, i * c:(i + 1) * c],
                                        use_reentrant=False)
         loss = total / (B * S)
         if cfg.num_experts:
-            aux_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+            aux_sum = replicate(torch.zeros((), dtype=torch.float32,
+                                            device=h.device))
             for a in aux:                  # in layer order, as the scan adds
                 aux_sum = aux_sum + a
             loss = loss + MOE_AUX_COEF * aux_sum / cfg.num_layers
@@ -497,7 +708,7 @@ class LM:
         """
         B, S = tokens.shape[:2]
         if cache is None:
-            cache = self.init_cache(B, seq_len)
+            cache = self._sharded_cache(self.init_cache(B, seq_len))
         if self.config.family == "ssm":
             return self._xlstm_prefill(params, tokens, cache)
         C = cache["slot_pos"].shape[1]
@@ -508,12 +719,12 @@ class LM:
                                    use_flash=True)
         for layer, (k, v, *mamba) in enumerate(kv):
             for name, new in (("k", k), ("v", v)):
-                cache[name][layer].index_copy_(1, rows.long(),
-                                               new[:, S - keep:])
+                dst, new = _local_pair(cache[name][layer], new)
+                dst.index_copy_(1, rows.long(), new[:, S - keep:])
             if mamba:
                 _write_state(cache["mamba"], mamba[0], (layer,))
-        cache["slot_pos"].copy_(sp_row.expand(B, C))
-        cache["pos"].fill_(S)
+        _local(cache["slot_pos"]).copy_(sp_row.expand(B, C))
+        _local(cache["pos"]).fill_(S)
         return cache, self.lm_logits(params, h[:, -1:, :])
 
     def _xlstm_prefill(self, params, tokens: torch.Tensor,
@@ -589,23 +800,27 @@ class LM:
         if cfg.family == "ssm":
             return self._xlstm_decode(params, cache, tokens)
         x = self.embed_inputs(params, tokens)
-        B = x.shape[0]
-        pos = cache["pos"]
+        # positions and slots are replicated: each rank updates its copy
+        pos, slot_pos = _local(cache["pos"]), _local(cache["slot_pos"])
         sin, cos = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
+        sin, cos = replicate(sin, x), replicate(cos, x)
         # the new position's slot is the same in every layer's cache
-        rows, slot, keep = insert_slots(pos, cache["slot_pos"].shape[1],
+        rows, slot, keep = insert_slots(pos, slot_pos.shape[1],
                                         ring=self._cache_ring(cache))
-        cache_insert(cache["slot_pos"], pos[:, None], rows, slot, keep)
+        cache_insert(slot_pos, pos[:, None], rows, slot, keep)
         for layer, bp in enumerate(params["blocks"]):
             h = rmsnorm(bp["norm1"], x, cfg.norm_eps)
             q, k, v = self._qkv(bp, h, sin, cos)
             kc, vc = cache["k"][layer], cache["v"][layer]
-            cache_insert(kc, k, rows, slot, keep)
-            cache_insert(vc, v, rows, slot, keep)
-            attn = decode_attention(q, kc, vc, cache["slot_pos"], pos,
-                                    window=cfg.sliding_window)
-            mixer = dense_apply(attn.reshape(B, 1, cfg.attn_dim),
-                                bp["attn"]["wo"])
+            if is_dtensor(kc):
+                attn = self._sharded_decode_attention(
+                    q, k, v, kc, vc, slot_pos, pos, slot, keep)
+            else:
+                cache_insert(kc, k, rows, slot, keep)
+                cache_insert(vc, v, rows, slot, keep)
+                attn = decode_attention(q, kc, vc, slot_pos, pos,
+                                        window=cfg.sliding_window)
+            mixer = dense_apply(merge_dims(attn, 2), bp["attn"]["wo"])
             if cfg.family == "hybrid":
                 bufs = cache["mamba"]
                 m_out, st = ssm_mod.mamba_step(
@@ -617,6 +832,52 @@ class LM:
         pos.add_(1)
         h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return cache, self.lm_logits(params, h)
+
+    def _sharded_cache(self, cache: Dict[str, Any]) -> Dict[str, Any]:
+        """``cache`` as DTensors of ``cache_logical_axes`` under active
+        rules; as it is otherwise."""
+        rules = current_rules()
+        if rules is None or rules.mesh is None:
+            return cache
+        axes = self.cache_logical_axes(cache)
+        return shard_tree(cache, tree_map(
+            lambda x, ax: logical_sharding(rules, ax, tuple(x.shape)),
+            cache, axes))
+
+    def _sharded_decode_attention(self, q, k, v, kc, vc, slot_pos, pos,
+                                  slot, keep) -> torch.Tensor:
+        """One decode step's insert and attention on a sharded cache, on
+        each rank's local shards: q and the new k/v split as the cache is
+        (batch on the data axes; kv heads, or the head dim under the
+        kv_dim fallback, on the model axis). A split head dim sums each
+        rank's partial scores across the model axis before the softmax.
+        The output (B, 1, H, hd) is split as q is."""
+        from torch.distributed._functional_collectives import all_reduce
+        from torch.distributed.tensor import DTensor
+
+        cfg = self.config
+        mesh, cp = kc.device_mesh, tuple(kc.placements)
+        q_l, k_l, v_l = (t.redistribute(mesh, cp).to_local()
+                         for t in (q, k, v))
+        kc_l, vc_l = kc.to_local(), vc.to_local()
+        b = local_rows(kc, 0)
+        rows = torch.arange(kc_l.shape[0], device=kc_l.device)
+        cache_insert(kc_l, k_l, rows, slot[b], keep[b])
+        cache_insert(vc_l, v_l, rows, slot[b], keep[b])
+        hd_axes = [i for i, p in enumerate(cp) if p.is_shard(3)]
+
+        def reduce_scores(s):
+            for i in hd_axes:
+                s = all_reduce(s, "sum", (mesh, i))
+            return s
+
+        out = decode_attention(q_l, kc_l, vc_l, slot_pos[b], pos[b],
+                               window=cfg.sliding_window,
+                               softmax_scale=1.0 / math.sqrt(cfg.head_dim),
+                               reduce_scores=reduce_scores if hd_axes
+                               else None)
+        return DTensor.from_local(out, mesh, cp, run_check=False,
+                                  shape=q.shape, stride=q.stride())
 
     def _xlstm_decode(self, params, cache: Dict[str, Any],
                       tokens: torch.Tensor):
@@ -789,6 +1050,143 @@ class LM:
         sp[b, slot] = torch.where(rej, snap["slot_pos"], sp[b, slot])
         cache["pos"].copy_(snap["pos"] + keep.to(snap["pos"].dtype))
         return cache
+
+
+class _VocabNLL(torch.autograd.Function):
+    """Summed next-token NLL of one rank's logits (b, c, V / n), its
+    vocab split over mesh axes ``axes``: the softmax's max and sum and
+    the gold logit all-reduced across the split; the gradient softmax
+    minus one-hot on the local columns."""
+
+    @staticmethod
+    def forward(ctx, lg, y, mesh, axes, lo):
+        from torch.distributed._functional_collectives import all_reduce
+
+        def across(t, op):
+            for a in axes:
+                t = all_reduce(t, op, (mesh, a))
+            return t
+
+        m = across(lg.amax(dim=-1), "max")
+        e = torch.exp(lg - m[..., None])
+        z = across(e.sum(dim=-1), "sum")
+        local = y.long() - lo
+        ok = (local >= 0) & (local < lg.shape[-1])
+        idx = local.clamp(0, lg.shape[-1] - 1)[..., None]
+        gold = across(torch.gather(lg, -1, idx)[..., 0] * ok, "sum")
+        ctx.save_for_backward(e, z, idx, ok)
+        return (torch.log(z) + m - gold).sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        e, z, idx, ok = ctx.saved_tensors
+        grad = e / z[..., None]
+        grad = grad.scatter_add(-1, idx, -ok[..., None].to(grad.dtype))
+        return g * grad, None, None, None, None
+
+
+def _vocab_parallel_nll(logits: torch.Tensor, y: torch.Tensor
+                        ) -> torch.Tensor:
+    """Summed NLL of DTensor ``logits`` (B, c, V), the vocab split over
+    mesh axes (Megatron's vocab-parallel cross-entropy, on each rank's
+    local shard through ``local_map``): a sum that is partial over the
+    axes the batch is split on."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = logits.device_mesh
+    pl = list(logits.placements)
+    axes = [i for i, p in enumerate(pl) if p.is_shard(2)]
+    y_pl = [Shard(0) if p.is_shard(0) else Replicate() for p in pl]
+    out_pl = [Partial() if p.is_shard(0) else Replicate() for p in pl]
+    cols = logits.shape[2]
+    for a in axes:
+        cols //= mesh.size(a)
+
+    def nll(lg, t):
+        block = 0
+        for a in axes:                  # the rank's column block, row-major
+            block = block * mesh.size(a) + mesh.get_local_rank(a)
+        return _VocabNLL.apply(lg, t, mesh, axes, block * cols)
+
+    return local_map(nll, out_placements=out_pl, in_placements=(pl, y_pl),
+                     in_grad_placements=(pl, y_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(logits, y)
+
+
+def _embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``. A DTensor table is looked up on each rank's local
+    rows through ``local_map``: where its vocab dim is split over mesh
+    axes, an id outside the rank's rows gives 0 and the output is a
+    partial sum across those axes (Megatron's vocab-parallel embedding);
+    its embed dim is gathered whole first, and its gradient summed over
+    the axes the ids' batch is split on."""
+    if not is_dtensor(table) or all(p.is_replicate()
+                                    for p in table.placements):
+        return table[ids]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    n = mesh.ndim
+    ids_pl = tuple(ids.placements) if is_dtensor(ids) else (Replicate(),) * n
+    vocab = [i for i, p in enumerate(table.placements) if p.is_shard(0)]
+    split = [i for i in range(n) if i not in vocab and ids_pl[i].is_shard(0)]
+    t_in = [Shard(0) if i in vocab else Replicate() for i in range(n)]
+    t_grad = [Shard(0) if i in vocab else Partial() if i in split
+              else Replicate() for i in range(n)]
+    out_pl = [Partial() if i in vocab else Shard(0) if i in split
+              else Replicate() for i in range(n)]
+    ids_in = [Shard(0) if i in split else Replicate() for i in range(n)]
+    ext = 1
+    for i in vocab:
+        ext *= mesh.size(i)
+    rows = table.shape[0] // ext
+
+    def lookup(t, i):
+        if not vocab:
+            return t[i]
+        block = 0
+        for a in vocab:                 # the rank's row block, row-major
+            block = block * mesh.size(a) + mesh.get_local_rank(a)
+        local = i.long() - block * rows
+        ok = (local >= 0) & (local < rows)
+        return t[local.clamp(0, rows - 1)] * ok[..., None].to(t.dtype)
+
+    return local_map(lookup, out_placements=out_pl,
+                     in_placements=(t_in, ids_in),
+                     in_grad_placements=(t_grad, ids_in), device_mesh=mesh,
+                     redistribute_inputs=True)(table, ids)
+
+
+def _on_heads(t: torch.Tensor, fn) -> torch.Tensor:
+    """``fn`` (a reshaping of the heads dim 2 of (B, S, H, hd)) on a
+    DTensor's local shards, its heads dim gathered whole first: DTensor's
+    own pad falls over on some placements of a 3-D mesh."""
+    if not is_dtensor(t):
+        return fn(t)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    pl = [Replicate() if p.is_shard(2) else p for p in t.placements]
+    return local_map(fn, out_placements=pl, in_placements=(pl,),
+                     in_grad_placements=(pl,), device_mesh=t.device_mesh,
+                     redistribute_inputs=True)(t)
+
+
+def _local(x: torch.Tensor) -> torch.Tensor:
+    """A replicated DTensor's local tensor (every rank holds it whole, so
+    each updates its own copy in place); a plain tensor as it is."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def _local_pair(dst: torch.Tensor, new: torch.Tensor):
+    """(dst, new) as local tensors of the same shard: ``new`` placed as
+    sharded cache ``dst`` is, so each rank writes its own rows."""
+    if not is_dtensor(dst):
+        return dst, new
+    return dst.to_local(), new.redistribute(dst.device_mesh,
+                                            dst.placements).to_local()
 
 
 def finite_rows(logits: torch.Tensor) -> torch.Tensor:

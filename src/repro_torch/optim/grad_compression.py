@@ -18,6 +18,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.parallel.sharding import local_elementwise
 from repro_torch.utils.tree import (
     reference_path,
     tree_items,
@@ -51,8 +52,7 @@ class ErrorFeedbackState(NamedTuple):
 
 def error_feedback_init(params: Any) -> ErrorFeedbackState:
     return ErrorFeedbackState(residual=tree_map(
-        lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-        params))
+        lambda p: torch.zeros_like(p, dtype=torch.float32), params))
 
 
 def error_feedback_compress(grads: Any, ef: ErrorFeedbackState
@@ -63,8 +63,8 @@ def error_feedback_compress(grads: Any, ef: ErrorFeedbackState
     all-reduces q (and averages scales) across replicas, then calls
     ``decompress_int8``.
     """
-    corrected = tree_map(lambda g, r: g.to(torch.float32) + r, grads,
-                         ef.residual)
+    corrected = tree_map(lambda g, r: local_elementwise(
+        lambda g, r: g.to(torch.float32) + r, g, r), grads, ef.residual)
     absmax: Dict[str, torch.Tensor] = {}
     for path, c in tree_items(corrected):
         key, m = reference_path(path), c.abs().max()
@@ -73,7 +73,9 @@ def error_feedback_compress(grads: Any, ef: ErrorFeedbackState
     scales = {k: _scale_of(m) for k, m in absmax.items()}
     s_tree = tree_map_with_path(lambda path, _: scales[reference_path(path)],
                                 corrected)
-    q_tree = tree_map(_quantize, corrected, s_tree)
-    new_resid = tree_map(lambda c, q, s: c - decompress_int8(q, s),
-                         corrected, q_tree, s_tree)
+    q_tree = tree_map(lambda c, s: local_elementwise(_quantize, c, s),
+                      corrected, s_tree)
+    new_resid = tree_map(lambda c, q, s: local_elementwise(
+        lambda c, q, s: c - decompress_int8(q, s), c, q, s),
+        corrected, q_tree, s_tree)
     return q_tree, s_tree, ErrorFeedbackState(residual=new_resid)

@@ -17,6 +17,7 @@ from typing import Any, Callable, Iterable, NamedTuple, Tuple, Union
 
 import torch
 
+from repro_torch.parallel.sharding import local_elementwise
 from repro_torch.utils.tree import tree_map
 
 Schedule = Union[float, Callable[[torch.Tensor], torch.Tensor]]
@@ -31,7 +32,8 @@ def _step0() -> torch.Tensor:
 
 
 def _zeros32(p: torch.Tensor) -> torch.Tensor:
-    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    # zeros_like: a sharded (DTensor) param gets moments sharded like it
+    return torch.zeros_like(p, dtype=torch.float32)
 
 
 def clip_scale(grads: Iterable[torch.Tensor], max_norm: float
@@ -111,24 +113,25 @@ def adamw(lr: Schedule, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
     def update(grads, state, params=None):
         step = state.step + 1
         lrt = _lr_at(lr, state.step)
-        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g.to(torch.float32),
-                      state.mu, grads)
-        nu = tree_map(
+        # elementwise on each leaf: a sharded leaf updates its local shard
+        mu = tree_map(lambda m, g: local_elementwise(
+            lambda m, g: b1 * m + (1 - b1) * g.to(torch.float32), m, g),
+            state.mu, grads)
+        nu = tree_map(lambda v, g: local_elementwise(
             lambda v, g: b2 * v + (1 - b2) * g.to(torch.float32).square(),
-            state.nu, grads)
+            v, g), state.nu, grads)
         c1 = 1.0 - b1 ** step.to(torch.float32)
         c2 = 1.0 - b2 ** step.to(torch.float32)
 
-        def upd(m, v, p):
+        def upd(m, v, p, lrt, c1, c2):
             u = -lrt * (m / c1) / (torch.sqrt(v / c2) + eps)
             if weight_decay and p is not None:
                 u = u - lrt * weight_decay * p.to(torch.float32)
             return u
 
-        if params is None:
-            updates = tree_map(lambda m, v: upd(m, v, None), mu, nu)
-        else:
-            updates = tree_map(upd, mu, nu, params)
+        updates = tree_map(lambda m, v, p: local_elementwise(
+            upd, m, v, p, lrt, c1, c2), mu, nu,
+            tree_map(lambda _: None, mu) if params is None else params)
         return updates, AdamWState(step=step, mu=mu, nu=nu)
 
     return Optimizer(init, update)

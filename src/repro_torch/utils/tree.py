@@ -9,7 +9,7 @@ converts one to the other.
 from __future__ import annotations
 
 import re
-from typing import Any, Callable, Iterator, Tuple
+from typing import Any, Callable, Dict, Iterator, Tuple
 
 _LAYER = re.compile(r"^blocks/\d+/")
 
@@ -73,3 +73,24 @@ def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
 def tree_leaves(tree: Any) -> list:
     """Every non-``None`` leaf, depth first."""
     return [leaf for _, leaf in tree_items(tree) if leaf is not None]
+
+
+def unflatten(flat: Dict[str, Any]) -> Any:
+    """The tree of ``{'/'-path: leaf}``: a level whose keys are all digits
+    becomes a list (an LM's ``blocks``), any other a dict."""
+    root: Dict[str, Any] = {}
+    for path, leaf in flat.items():
+        node = root
+        *heads, last = path.split("/")
+        for key in heads:
+            node = node.setdefault(key, {})
+        node[last] = leaf
+
+    def build(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [build(node[str(i)]) for i in range(len(node))]
+        return {k: build(v) for k, v in node.items()}
+
+    return build(root)

@@ -1568,3 +1568,51 @@ def test_recurrent_lm_served_through_graphs_matches_eager(cuda, name,
     out = graph.generate(reqs)
     assert _outcome(out) == _outcome(eager.generate(reqs))
     assert _outcome(out) == [_outcome(graph.generate([r]))[0] for r in reqs]
+
+
+def test_run_training_on_a_one_card_mesh_is_bit_equal(cuda, tmp_path):
+    """``run_training(mesh=...)`` on a 1 × 1 ("data", "model") mesh of an
+    NCCL group of one rank (a ``FileStore``, no port): losses, grad norms
+    and final params bit-equal to the unsharded run's over 3 masked,
+    int8-compressed steps (a checkpoint saved on the mesh at step 2)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.train import run_training
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import tree_items, unflatten
+
+    cfg = reduced_config("qwen2-1.5b")
+    g = torch.Generator().manual_seed(11)
+    masks = unflatten({
+        p: ((torch.rand(s, generator=g) < 0.5).to(torch.bfloat16).to(cuda)
+            if p.startswith("blocks/") and len(s) == 2 else None)
+        for p, s in build_model(cfg, device=cuda).param_shapes().items()})
+
+    def run(name, mesh=None):
+        tcfg = TrainConfig(steps=3, learning_rate=1e-3, warmup_steps=1,
+                           grad_compression=True, checkpoint_every=2,
+                           checkpoint_dir=str(tmp_path / name), seed=3)
+        return run_training(cfg, tcfg, seq_len=32, global_batch=4,
+                            masks=masks, mesh=mesh, device=cuda)
+
+    plain = run("plain")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        sharded = run("mesh", mesh)
+        params = {p: x.full_tensor() for p, x in
+                  tree_items(sharded["state"]["params"])}
+    finally:
+        dist.destroy_process_group()
+    assert [r.metrics for r in sharded["metrics"]] == [
+        r.metrics for r in plain["metrics"]]
+    want = dict(tree_items(plain["state"]["params"]))
+    assert set(params) == set(want)
+    for path, w in want.items():
+        assert torch.equal(params[path], w), path

@@ -262,9 +262,29 @@ def test_masks_survive_and_mesh_raises(tmp_path):
             assert not bool(w[m == 0].any()), path
             pruned += int((m == 0).sum())
     assert pruned > 0
-    with pytest.raises(NotImplementedError, match="scale-out"):
+
+    class CardMesh:                  # a mesh of cards for a run on the CPU
+        device_type = "cuda"
+
+    with pytest.raises(ValueError, match="mesh on 'cuda'"):
         train.run_training(cfg, _tcfg(tmp_path, "x"), seq_len=16,
-                           global_batch=2, mesh=object(), device="cpu")
+                           global_batch=2, mesh=CardMesh(), device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "deepseek-moe-16b",
+                                  "hymba-1.5b", "xlstm-1.3b"])
+def test_mesh_refuses_the_families_not_yet_sharded(tmp_path, arch):
+    """The MoE, SSM and hybrid families are refused on a mesh, before
+    anything is built, with the reason and the way round."""
+
+    class Mesh:
+        device_type = "cpu"
+
+    with pytest.raises(NotImplementedError,
+                       match="not ported.*queue 1 item 0.*mesh=None"):
+        train.run_training(reduced_config(arch), _tcfg(tmp_path, "f"),
+                           seq_len=16, global_batch=2, mesh=Mesh(),
+                           device="cpu")
 
 
 LINE = re.compile(r"^arch=(\S+) steps=(\d+) loss: first=(\d+\.\d{4}) "
