@@ -242,7 +242,7 @@ result line is printed:
               bit-identical to its solo run) and ``SpeculativeEngine``
               (the artifact packed drafting for its pruned weights bound
               dense, ``[speculative]``'s settings; round graph ≡ eager);
-              (c) deepseek-moe-16b (14 of its 28 layers, full width: 64
+              (c) deepseek-moe-16b (7 of its 28 layers, full width: 64
               routed top-6 + 2 shared, vocab 102 400) as (a); (d) at 4 layers of full
               width in fp32, both configs: packed tokens ≡ dense-pruned,
               continuous ≡ ``ServeEngine(batch_size=1)``; (e) the
@@ -270,8 +270,8 @@ result line is printed:
               ring through the graphs (its capture seconds);
               ``ContinuousEngine`` on 8 requests of S 512 /
               200 / 64 (flash on wgmma per admission, each ≡ its solo
-              run); ``SpeculativeEngine`` refuses. (b) xlstm-1.3b (24 of
-              its 48 blocks: 3 of 6 groups of 7 mLSTM + 1 sLSTM, d_model
+              run); ``SpeculativeEngine`` refuses. (b) xlstm-1.3b (16 of
+              its 48 blocks: 2 of 6 groups of 7 mLSTM + 1 sLSTM, d_model
               2048, 4 heads of 512): tile with the cells in raises; greedy tile
               with the cells excluded packs the head alone; served as
               (a) (2 x 32 head launches, no flash), graph ≡ eager; the
@@ -389,7 +389,26 @@ result line is printed:
               reason; per cell the per-device argument bytes, FLOPs,
               collective bytes by type, the roofline report's dominant
               term and useful ratio (gate: at most 1.05) and seconds.
-              Then the process group is destroyed.
+              (d) after (a), on the same mesh, beside (c): the MoE,
+              hybrid and ssm families at full width, cut in depth
+              (qwen2-moe-a2.7b 1 of 24 layers, hymba-1.5b 2 of 32,
+              xlstm-1.3b 8 of 48 blocks: one mLSTM group and its sLSTM
+              block), seeded random bf16 weights: ``run_training`` for 2
+              steps with [train]'s batch and int8 config and a seeded
+              50% mask of every 2-D leaf but the embedding (the cells'
+              and the heads; xlstm-1.3b's grouped mLSTM per-layer
+              vectors too, so half its forget biases are 0), on the
+              mesh and on none; gates: every metric and final param bit-equal,
+              every metric finite, pruned weights 0. Then a sharded
+              ``prefill`` of 4 x 512 prompts and 8 greedy
+              ``decode_step``s against the
+              unsharded ones: every step's logits and tokens bit-equal;
+              the sharded MoE and hymba prefills launch
+              ``flash_attention`` on their local shards once a layer,
+              with no blockwise fallback (the shapes of [kernels]' 16 /
+              16 hd-128 and 25 / 5 hd-64 window-2 048 cases at B = 4,
+              S = 512). Seconds and peak device memory per family. Then
+              the process group is destroyed.
 17. report  — one ``{"kernels": [...]}`` JSON line covering all four
               kernels (each a sum over the bf16 shapes its served path
               launches; the GEMMs' ``lm_head`` at M = 512 and 2048, which
@@ -461,9 +480,13 @@ from repro_torch.configs.shapes import skip_reason  # noqa: E402
 from repro_torch.launch.train import init_state, run_training  # noqa: E402
 from repro_torch.parallel.sharding import (  # noqa: E402
     axis_rules,
+    batch_spec,
     default_rules,
     gather_full,
     is_dtensor,
+    param_shardings,
+    shard,
+    shard_tree,
     shardings_of,
 )
 from repro_torch.roofline import report as roofline_report  # noqa: E402
@@ -510,6 +533,7 @@ from repro_torch.utils.tree import (  # noqa: E402
     tree_items,
     tree_leaves,
     tree_map,
+    unflatten,
 )
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -4193,9 +4217,9 @@ def phase_families(smi: str) -> dict:
 
 # ------------------------------------------------------------------- moe
 
-# deepseek-moe-16b is served at 14 of its 28 layers (full width)
+# deepseek-moe-16b is served at 7 of its 28 layers (full width)
 MOE = dict(fp32_layers=4, artifact_layers=2, admm_layers=2,
-           cont_requests=6, split_steps=4, deepseek_layers=14)
+           cont_requests=6, split_steps=4, deepseek_layers=7)
 MOE_EXPERTS = (r".*experts.*",)
 MOE_NAMES = ("qwen2-moe-a2.7b", "deepseek-moe-16b")
 
@@ -4592,7 +4616,7 @@ def moe_admm(tag: str, smi: str, name: str) -> dict:
 
 def phase_moe(smi: str) -> dict:
     """The MoE family: (a) qwen2-moe-a2.7b at full width and depth and (c)
-    deepseek-moe-16b at full width, 14 of 28 layers, served through the
+    deepseek-moe-16b at full width, 7 of 28 layers, served through the
     graphs, (b) qwen2-moe-a2.7b through
     the continuous and speculative engines, (d) the fp32 bars, (e) the
     artifact, (f) one ADMM iteration. Returns the main paths' launch
@@ -4635,11 +4659,11 @@ def phase_moe(smi: str) -> dict:
 
 # ---------------------------------------------------------------- [ssm]
 
-# served at full width and half depth: hymba-1.5b 16 of 32 layers,
-# xlstm-1.3b 24 of 48 blocks (3 of its 6 groups)
+# served at full width and cut in depth: hymba-1.5b 16 of 32 layers,
+# xlstm-1.3b 16 of 48 blocks (2 of its 6 groups)
 SSM = dict(batch=4, max_seq=544, new=32, wrap_prompt=2048, wrap_new=64,
            cont_requests=8, fp32_layers=4, admm_layers=2, hymba_layers=16,
-           xlstm_layers=24)
+           xlstm_layers=16)
 SSM_NAMES = ("hymba-1.5b", "xlstm-1.3b")
 HYMBA_EXCLUDE = (r".*mamba.*", r"lm_head")     # lm_head: 32 001 columns
 XLSTM_EXCLUDE = (r".*mlstm.*", r".*slstm.*")
@@ -5023,7 +5047,7 @@ def hymba_split(tag: str, smi: str, model, art) -> None:
 
 
 def xlstm_prepare(tag: str, smi: str):
-    """(b) xlstm-1.3b at full width, 24 of 48 blocks (3 of its 6 groups of
+    """(b) xlstm-1.3b at full width, 16 of 48 blocks (2 of its 6 groups of
     7 mLSTM + 1 sLSTM blocks), bf16: init, the tile refusal on a grouped
     mLSTM leaf, greedy tile 4 of 8 (block_p 128) with the cells left out,
     so only the head packs -> (model, artifact)."""
@@ -5193,7 +5217,7 @@ def ssm_fp32(tag: str) -> dict:
 
 def phase_ssm(smi: str) -> dict:
     """The recurrent families: (a) hymba-1.5b and (b) xlstm-1.3b at full
-    width and half depth, pruned, packed and served through the graphs, (c)
+    width, cut in depth, pruned, packed and served through the graphs, (c)
     ADMM of each, (d) the fp32 bars. Returns the main paths' launch
     counts, summed."""
     tag = "ssm"
@@ -5675,12 +5699,155 @@ def scaleout_dryrun(tag: str, smi: str, proc, out: str, t0: float) -> None:
              "FLOPs than the model needs")
 
 
-def phase_scaleout(smi: str, ref: dict) -> None:
+# [scaleout] (d): each family at full width and this many layers, trained
+# for 2 steps and serving 4 x 512 prompts 8 greedy steps. qwen2-moe-a2.7b
+# at 1 layer: 1.19 B params (its untied 151 936-row embedding and head
+# 0.62 B, a layer's 60 experts 0.52 B); at 2 layers (1.76 B) an int8 step
+# holds the old and the new params, AdamW moments and residuals, the fp32
+# gradients and updates at once and ran out of the card's 80 GB
+SCALEOUT_FAMILIES = (("qwen2-moe-a2.7b", 1), ("hymba-1.5b", 2),
+                     ("xlstm-1.3b", 8))
+SCALEOUT_SERVE = dict(batch=4, prompt=512, new=8, steps=2)
+
+
+def family_masks(model: LM) -> dict:
+    """A seeded 50% mask (bf16 {0, 1}) of every 2-D leaf but the
+    embedding, None elsewhere: the cells' matrices and the heads; an
+    expert's (E, D, F) leaf is left whole. xlstm-1.3b's grouped mLSTM
+    leaves are (7, ...), so its per-layer vectors are masked too: half
+    its forget biases are 0 and those gates near 0.5, whose chunk
+    exponents pass fp32's exp (the gradients stay finite only through
+    ``ssm._mlstm_chunk``'s masked exponents)."""
+    g = torch.Generator(device=DEV).manual_seed(11)
+    return unflatten({
+        p: ((torch.rand(s, generator=g, device=DEV) < 0.5).to(torch.bfloat16)
+            if len(s) == 2 and p != "embed" else None)
+        for p, s in model.param_shapes().items()})
+
+
+def family_serve(model: LM, params, prompts, mesh=None):
+    """The prefill of ``prompts`` and ``SCALEOUT_SERVE["new"]`` greedy
+    decode steps, sharded on ``mesh`` if given -> (each step's logits,
+    gathered whole; the tokens; the prefill's flash launches and
+    blockwise fallbacks)."""
+    rules = default_rules(mesh) if mesh is not None else None
+    place = lambda t: t
+    with axis_rules(rules):
+        if rules is not None:
+            params = shard_tree(params, param_shardings(
+                rules, model.param_logical_axes(), params))
+            place = lambda t: shard(t, batch_spec(rules, 2, shape=t.shape))
+        reset_launches()
+        cache, logits = model.prefill(params, place(prompts),
+                                      prompts.shape[1] + SCALEOUT_SERVE["new"])
+        torch.cuda.synchronize()
+        flash = (fa_mod.LAUNCHES, attention.PREFILL_FALLBACKS)
+        steps, toks = [gather_full(logits)], []
+        for _ in range(SCALEOUT_SERVE["new"]):
+            tok = steps[-1].argmax(-1).to(torch.int32)
+            toks.append(tok)
+            cache, logits = model.decode_step(params, cache, place(tok))
+            steps.append(gather_full(logits))
+    return steps, torch.cat(toks, dim=1), flash
+
+
+def family_train(tag: str, smi: str, mesh, cfg, full: int) -> None:
+    """(d) ``run_training`` unsharded, then on the mesh: bit for bit."""
+    model = LM(cfg, device=DEV)
+    masks = family_masks(model)
+    kw = dict(seq_len=TRAIN["seq"], global_batch=TRAIN["batch"],
+              masks=masks, device=DEV)
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="scaleout-fam-") as tmp:
+        for what, m in (("plain", None), ("mesh", mesh)):
+            res = run_training(cfg, train_cfg(
+                tmp, what, steps=SCALEOUT_SERVE["steps"],
+                grad_compression=True), mesh=m, **kw)
+            runs[what] = ([r.metrics for r in res["metrics"]],
+                          [r.seconds for r in res["metrics"]],
+                          {p: gather_full(x) for p, x in
+                           tree_items(res["state"]["params"])})
+            del res
+            torch.cuda.empty_cache()
+    (got, secs, params), (want, want_secs, plain) = runs["mesh"], runs["plain"]
+    same = [p for p, x in params.items() if x.dtype == plain[p].dtype
+            and torch.equal(x, plain[p])]
+    moved = [p for p, m in tree_items(masks)
+             if m is not None and bool(params[p][m == 0].any())]
+    kept = sum(int((m == 0).sum()) for _, m in tree_items(masks)
+               if m is not None)
+    print(f"[{tag}] (d) {cfg.name} L={cfg.num_layers} of {full} d_model="
+          f"{cfg.d_model} {cfg.param_dtype} "
+          f"({sum(x.numel() for x in plain.values())} params), batch "
+          f"{TRAIN['batch']} x {TRAIN['seq']}, masked ({kept} pruned), int8 "
+          f"compression, {len(got)} steps: s per step on the 1x1 mesh "
+          f"{json.dumps([round(x, 4) for x in secs])} against unsharded "
+          f"{json.dumps([round(x, 4) for x in want_secs])}; metrics "
+          f"bit-equal at every step: {got == want} (losses "
+          f"{json.dumps([m['loss'] for m in got])}); final params bit-equal "
+          f"in {len(same)}/{len(plain)} leaves; pruned weights still 0: "
+          f"{not moved} ({smi})", flush=True)
+    if got != want or not all(math.isfinite(v) for m in got
+                              for v in m.values()):
+        fail(f"[{tag}] (d) {cfg.name}: the sharded run's metrics {got} "
+             f"differ from the unsharded run's {want} or are not finite")
+    if len(same) != len(plain) or set(params) != set(plain):
+        fail(f"[{tag}] (d) {cfg.name}: final params differ in "
+             f"{sorted(set(plain) - set(same))[:6]}")
+    if moved or not kept:
+        fail(f"[{tag}] (d) {cfg.name}: pruned weights moved: {moved[:4]}")
+
+
+def scaleout_family(tag: str, smi: str, mesh, name: str, layers: int
+                    ) -> int:
+    """(d) one family: sharded training and serving against unsharded,
+    bit for bit -> the sharded prefill's flash launches."""
+    full = get_config(name).num_layers
+    cfg = dataclasses.replace(get_config(name), num_layers=layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    family_train(tag, smi, mesh, cfg, full)
+    t_train = time.perf_counter() - t0
+    model = LM(cfg, device=DEV)
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    prompts = torch.randint(
+        0, cfg.vocab_size, (SCALEOUT_SERVE["batch"], SCALEOUT_SERVE["prompt"]),
+        generator=torch.Generator(device=DEV).manual_seed(5), device=DEV,
+        dtype=torch.int32)
+    t1 = time.perf_counter()
+    want, want_toks, _ = family_serve(model, params, prompts)
+    got, toks, (flash, fallbacks) = family_serve(model, params, prompts, mesh)
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated()
+    same = sum(torch.equal(a, b) for a, b in zip(got, want))
+    attn = cfg.family != "ssm"
+    print(f"[{tag}] (d) {cfg.name} serving {SCALEOUT_SERVE['batch']} x "
+          f"{SCALEOUT_SERVE['prompt']} prompts and "
+          f"{SCALEOUT_SERVE['new']} greedy steps on the 1x1 mesh and "
+          f"unsharded: logits bit-equal at {same}/{len(want)} steps, tokens "
+          f"equal: {torch.equal(toks, want_toks)}; the sharded prefill's "
+          f"flash_attention launches {flash} (layers {cfg.num_layers}), "
+          f"blockwise fallbacks {fallbacks}; training {t_train:.1f} s, "
+          f"serving {t_serve:.1f} s, peak device memory {peak} bytes "
+          f"({smi})", flush=True)
+    if same != len(want) or not torch.equal(toks, want_toks):
+        fail(f"[{tag}] (d) {cfg.name}: sharded serving differs from "
+             f"unsharded ({same}/{len(want)} steps' logits equal)")
+    if attn and (flash != cfg.num_layers or fallbacks):
+        fail(f"[{tag}] (d) {cfg.name}: the sharded prefill launched flash "
+             f"{flash} times for {cfg.num_layers} layers, {fallbacks} "
+             "fallbacks")
+    return flash
+
+
+def phase_scaleout(smi: str, ref: dict) -> int:
     """[scaleout]: one NCCL rank, a 1 × 1 mesh; (a) sharded training
     bit-equal to [train]'s, (b) a checkpoint across the mesh and none,
     (c) the dry-run on the fake group, started once (a)'s timed steps
     are done (so they run on a quiet host, as [train]'s did) and run
-    beside (b)."""
+    beside (b) and (d), the families sharded. Returns (d)'s sharded
+    prefills' flash launches."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -5688,7 +5855,7 @@ def phase_scaleout(smi: str, ref: dict) -> None:
     work = tempfile.TemporaryDirectory(prefix="scaleout-")
     out = os.path.join(work.name, "dryrun")
     t0 = time.perf_counter()
-    dry = None
+    dry, flash = None, 0
     try:
         torch.cuda.set_device(0)
         dist.init_process_group("nccl", store=dist.FileStore(
@@ -5705,16 +5872,23 @@ def phase_scaleout(smi: str, ref: dict) -> None:
                  out], env=port_env(), stdout=subprocess.PIPE,
                 stderr=subprocess.PIPE, text=True)
             scaleout_checkpoint(tag, mesh, ref["cfg"])
+            t_fam = time.perf_counter()
+            flash = sum(scaleout_family(tag, smi, mesh, name, layers)
+                        for name, layers in SCALEOUT_FAMILIES)
+            print(f"[{tag}] (d) the families in "
+                  f"{time.perf_counter() - t_fam:.1f} s (beside (c)); the "
+                  f"sharded prefills' flash launches {flash}", flush=True)
         finally:
             dist.destroy_process_group()
-        print(f"[{tag}] (a) and (b) done {time.perf_counter() - t0:.1f} s "
-              "into the phase; the process group destroyed", flush=True)
+        print(f"[{tag}] (a), (b) and (d) done {time.perf_counter() - t0:.1f} "
+              "s into the phase; the process group destroyed", flush=True)
         scaleout_dryrun(tag, smi, dry, out, t_dry)
     finally:
         if dry is not None and dry.poll() is None:
             dry.kill()
             dry.wait()
         work.cleanup()
+    return flash
 
 
 def start_examples() -> tuple:
@@ -5890,7 +6064,7 @@ def main() -> int:
                      note="; beside [examples]: under contention")
         ex = phase_examples(smi, examples)            # prints its [time]
         train_ref = timed("train", phase_train, smi)
-    timed("scaleout", phase_scaleout, smi, train_ref)
+    scaleout = timed("scaleout", phase_scaleout, smi, train_ref)
     print(f"[time] all phases {time.perf_counter() - t0:.1f} s", flush=True)
     runs = {
         "pattern_gemm": "tile-pattern qwen2-1.5b serving 8 requests "
@@ -5956,7 +6130,10 @@ def main() -> int:
                            f"saved 2-layer one serving 4 "
                            f"({pipe['flash_attention']}) + [examples]: the "
                            "LM example's prefills (4 / 2 heads of 16, the "
-                           f"SIMT route) ({ex['flash_attention']})",
+                           f"SIMT route) ({ex['flash_attention']}) + "
+                           "[scaleout] (d): the 1-layer qwen2-moe-a2.7b's "
+                           "and 2-layer hymba-1.5b's sharded prefills on "
+                           f"the 1 x 1 mesh ({scaleout})",
         "pattern_conv": "one bf16 forward of VGG-16 at batch 32 "
                         f"({conv[0]}) + one of ResNet-18 at batch 256 "
                         f"({conv[1]}) + one of the ADMM-pruned, retrained "
@@ -5975,6 +6152,7 @@ def main() -> int:
     launches = {k: launches[k] + cont[k] + spec[k] + tuned[k] + win[k]
                 + fam[k] + moe[k] + ssm[k] + admm[k] + pipe[k] + ex[k]
                 + roof.get(k, 0) for k in launches}
+    launches["flash_attention"] += scaleout
     launches.update(pattern_conv=sum(conv) + admm_conv
                     + pipe["pattern_conv"] + roof["pattern_conv"]
                     + ex["pattern_conv"],

@@ -21,11 +21,15 @@ reference's lowering does off-TPU (its ``use_flash`` is on only on a TPU
 backend); that is not the served route, which on the card runs the flash
 kernel: the ctypes kernels cannot take meta tensors. Each tile of the
 blockwise attention's loops is traced once per shape and its recorded
-costs replayed for the other tiles of that shape (``_Replay``), and so
-is a prefill's whole attention call for the layers after the first, as
-the reference's cost parser multiplies a loop body by its trip count:
-costs that do not depend on values come out the same, traced in
-seconds in place of minutes.
+costs replayed for the other tiles of that shape, and so are a
+prefill's whole attention call for the layers after the first, each
+chunk of the recurrent cells' time loops (forward and recomputed
+backward) and the MoE's routing of a batch of groups (the model marks
+these regions ``roofline.step_costs.replayable``; ``_Replay`` handles
+them here), as the
+reference's cost parser multiplies a loop body by its trip count: costs
+that do not depend on values come out the same, traced in seconds in
+place of minutes (a mamba prefill_32k steps 32 768 times a layer).
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\
@@ -37,12 +41,11 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import time
 import traceback
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -51,8 +54,6 @@ from repro_torch.configs.base import SHAPES
 from repro_torch.configs.shapes import input_specs, skip_reason
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.train import make_train_step, train_state_specs
-from repro_torch.models import attention as attention_mod
-from repro_torch.models import transformer as transformer_mod
 from repro_torch.models import build_model
 from repro_torch.optim import adamw
 from repro_torch.parallel.sharding import (
@@ -62,7 +63,12 @@ from repro_torch.parallel.sharding import (
     param_shardings,
     shard_tree,
 )
-from repro_torch.roofline.step_costs import cost_scope, op_rows, record_step
+from repro_torch.roofline.step_costs import (
+    cost_scope,
+    op_rows,
+    record_step,
+    replay_regions,
+)
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 MESH_NAMES = {False: "16x16", True: "2x16x16"}
@@ -87,61 +93,80 @@ def fake_process_group(world_size: int) -> None:
                             world_size=world_size)
 
 
-class _Replay:
-    """A function whose calls are recorded under the "attention" cost
-    scope and, with ``replay``, traced once per argument shapes: a later
-    call of the same shapes replays the first one's recorded costs and
-    returns empty (meta) outputs of its shapes. A call with an input
-    that needs a gradient runs for real: its backward has to be traced
-    too (its tiles are then replayed within it)."""
+def _key(x):
+    """A hashable stand-in of a call's argument: a tensor's shape and
+    dtype, a sequence's items' keys, any other value as it is."""
+    if isinstance(x, torch.Tensor):
+        return (tuple(x.shape), x.dtype)
+    if isinstance(x, (list, tuple)):
+        return tuple(_key(v) for v in x)
+    return x
 
-    def __init__(self, mode, fn, replay: bool):
-        self.mode, self.fn, self.replay = mode, fn, replay
+
+def _flat(x) -> list:
+    """The tensors of a (nested) argument or result, None kept."""
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _flat(v)]
+    return [x]
+
+
+class _Out(NamedTuple):
+    shape: tuple
+    dtype: torch.dtype
+
+
+class _Replay:
+    """The handler of the model's ``replayable`` regions (the blockwise
+    attention's tiles and the model's whole attention call, replayed per
+    layer where nothing needs a gradient, as in a prefill cell; the
+    recurrent cells' chunks, forward and recomputed backward, each
+    chunk's inputs detached; the MoE's routing of a batch of groups):
+    each call is recorded under its scope and, with ``replay``, traced
+    once per function and argument shapes: a later call of the same
+    shapes replays the first one's recorded costs and returns empty
+    (meta) outputs of its shapes. A call with an input that needs a
+    gradient runs for real: its backward has to be traced too (the
+    regions within it are then replayed)."""
+
+    def __init__(self, mode, replay: bool):
+        self.mode, self.replay = mode, replay
         self.seen: Dict[Any, Any] = {}
 
-    def __call__(self, *args, **kwargs):
-        with cost_scope("attention"):
-            return self._call(*args, **kwargs)
+    def __call__(self, scope: str, fn, args: tuple, kwargs: dict):
+        with cost_scope(scope):
+            return self._call(fn, args, kwargs)
 
-    def _call(self, *args, **kwargs):
-        tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    def _call(self, fn, args: tuple, kwargs: dict):
+        tensors = [a for a in _flat(args) if isinstance(a, torch.Tensor)]
         if not self.replay or any(t.requires_grad for t in tensors):
-            return self.fn(*args, **kwargs)
-        key = tuple((tuple(a.shape), a.dtype) if isinstance(a, torch.Tensor)
-                    else a for a in args) + tuple(sorted(kwargs.items()))
+            return fn(*args, **kwargs)
+        key = (fn,) + _key(args) + tuple(sorted(kwargs.items()))
         if key in self.seen:
             delta, outs = self.seen[key]
-            made = [torch.empty(shp, dtype=dt, device=tensors[0].device)
-                    for shp, dt in outs]
-            self.mode.replay(delta, holder=made[0])
-            return tuple(made) if len(made) > 1 else made[0]
+            made = self._make(outs, tensors[0].device)
+            ts = [t for t in _flat(made) if t is not None]
+            self.mode.replay(delta, holder=ts[0] if ts else None,
+                             outputs=ts)
+            return made
         snap = self.mode.snapshot()
-        out = self.fn(*args, **kwargs)
-        outs = out if isinstance(out, tuple) else (out,)
-        self.seen[key] = (self.mode.delta(snap),
-                          [(tuple(t.shape), t.dtype) for t in outs])
+        out = fn(*args, **kwargs)
+        self.seen[key] = (self.mode.delta(snap), self._spec(out))
         return out
 
+    @classmethod
+    def _spec(cls, out):
+        """The shapes and dtypes of a result (tuples and None kept)."""
+        if isinstance(out, tuple):
+            return tuple(cls._spec(o) for o in out)
+        return None if out is None else _Out(tuple(out.shape), out.dtype)
 
-# what ``_Replay`` wraps: the blockwise attention's tiles, and the model's
-# whole attention call (replayed per layer where nothing needs a gradient,
-# as in a prefill cell)
-_REPLAYED = ((attention_mod, ("_fwd_tile", "_dq_tile", "_dkv_tile")),
-             (transformer_mod, ("prefill_attention",)))
-
-
-@contextlib.contextmanager
-def _replayed_attention(mode, replay: bool):
-    """The functions of ``_REPLAYED`` as ``_Replay``s while open."""
-    saved = [(mod, n, getattr(mod, n)) for mod, names in _REPLAYED
-             for n in names]
-    for mod, n, fn in saved:
-        setattr(mod, n, _Replay(mode, fn, replay))
-    try:
-        yield
-    finally:
-        for mod, n, fn in saved:
-            setattr(mod, n, fn)
+    @classmethod
+    def _make(cls, spec, device):
+        """Empty tensors of a result's ``_spec``."""
+        if isinstance(spec, _Out):
+            return torch.empty(spec.shape, dtype=spec.dtype, device=device)
+        return None if spec is None else tuple(cls._make(s, device)
+                                               for s in spec)
 
 
 def _local_bytes(tree: Any) -> int:
@@ -163,8 +188,8 @@ def lower_cell(cfg, shape, mesh, *, masked: bool = False,
     rules = default_rules(mesh)
     model = build_model(cfg, device="cpu").on_meta()
     specs = input_specs(cfg, shape, rules=rules)
-    with axis_rules(rules), record_step() as rec, \
-            _replayed_attention(rec, replay):
+    with axis_rules(rules), record_step("meta") as rec, \
+            replay_regions(_Replay(rec, replay)):
         if specs["kind"] == "train":
             optimizer = adamw(1e-4, weight_decay=0.0)
             shapes, shardings = train_state_specs(

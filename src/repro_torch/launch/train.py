@@ -238,17 +238,8 @@ def run_training(
     same arguments) the run is sharded under ``default_rules(mesh)``:
     the state and each step's batch are DTensors, and a checkpoint
     written on any mesh (or none) resumes onto this one. ``masks`` are
-    whole trees; ``device`` must be the mesh's device type. The MoE,
-    SSM and hybrid families do not run under the axis rules yet and are
-    refused with a mesh (``NotImplementedError``).
+    whole trees; ``device`` must be the mesh's device type.
     """
-    if mesh is not None and (cfg.num_experts or
-                             cfg.family in ("ssm", "hybrid")):
-        raise NotImplementedError(
-            f"{cfg.name}: sharded training of the MoE, SSM and hybrid "
-            "families is not ported (a tensor made inside their forward "
-            "meets the DTensor params; ROADMAP queue 1 item 0); run it "
-            "with mesh=None")
     dev = resolve_device(device)
     if mesh is not None and mesh.device_type != dev.type:
         raise ValueError(f"mesh on {mesh.device_type!r} but device {dev}")

@@ -22,6 +22,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import flash_attention as flash
+from repro_torch.roofline.step_costs import replayable
 
 NEG_INF = -1e30
 
@@ -159,10 +160,10 @@ def _qchunk_fwd(q, k, v, *, causal: bool, window: Optional[int], chunk: int,
         acc = torch.zeros((B, chunk, KV, G, hd), device=q.device)
         j0 = _band_start(qi, band, n)
         for kj in range(j0, j0 + band):
-            m, l, acc = _fwd_tile(qc, kf[:, kj * chunk:(kj + 1) * chunk],
-                                  vf[:, kj * chunk:(kj + 1) * chunk], m, l,
-                                  acc, q_pos, kj * chunk + pos, causal,
-                                  window, v.dtype)
+            m, l, acc = replayable(
+                "attention", _fwd_tile, qc, kf[:, kj * chunk:(kj + 1) * chunk],
+                vf[:, kj * chunk:(kj + 1) * chunk], m, l, acc, q_pos,
+                kj * chunk + pos, causal, window, v.dtype)
         outs.append((acc / l.clamp_min(1e-30)[..., None]).to(q.dtype))
         ms.append(m)
         ls.append(l)
@@ -249,7 +250,8 @@ def _qchunk_bwd(q, k, v, out, m_all, l_all, dout, *, causal: bool,
         dqc = torch.zeros((B, chunk, KV, G, hd), dtype=f32, device=q.device)
         j0 = _band_start(qi, band, n)
         for kj in range(j0, j0 + band):
-            dqc = dqc + _dq_tile(*tile_args(qi, kj), k.dtype)
+            dqc = dqc + replayable("attention", _dq_tile,
+                                   *tile_args(qi, kj), k.dtype)
         dq.append((dqc * scale).to(q.dtype))
     qband = band if causal else n
     dk, dv = [], []
@@ -258,7 +260,8 @@ def _qchunk_bwd(q, k, v, out, m_all, l_all, dout, *, causal: bool,
         dvc = torch.zeros_like(dkc)
         j0 = kj if causal else 0
         for qi in range(j0, min(j0 + qband, n)):
-            dk_t, dv_t = _dkv_tile(*tile_args(qi, kj), q.dtype, dout.dtype)
+            dk_t, dv_t = replayable("attention", _dkv_tile,
+                                    *tile_args(qi, kj), q.dtype, dout.dtype)
             dvc = dvc + dv_t
             dkc = dkc + dk_t
         dk.append(dkc.to(k.dtype))

@@ -16,6 +16,14 @@ The shared SwiGLU goes through ``ffn_apply``, so its GEMMs run packed
 when its leaves are. Every op has a fixed shape and none syncs with the
 host, so a decode step with MoE layers captures into a CUDA graph.
 
+Under axis rules the groups are split over the batch axes and each
+rank routes its own groups on its local shards; the dispatch, expert
+and combine einsums run there too, on each rank's slice of every
+expert's width (experts replicated, ``expert_mlp`` on the model axis, as
+the reference shards them), so their output is a partial sum over the
+model axis. The auxiliary loss reduces its two means across the ranks
+before their product.
+
 Returns a Switch-style load-balancing auxiliary loss beside the output.
 """
 
@@ -27,6 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init, ffn_apply, ffn_init
+from repro_torch.parallel.sharding import local_call, replicate
+from repro_torch.roofline.step_costs import replayable
 
 
 def moe_init(gen: torch.Generator, d_model: int, num_experts: int,
@@ -70,7 +80,26 @@ def _route(router: torch.Tensor, xt: torch.Tensor, k: int,
            capacity_factor: float):
     """Router, top-k and slot positions of a batch of groups ->
     (combine, dispatch (G, tg, E, C) in the activation dtype, fp32 probs
-    (G, tg, E), the int32 one-hot choices (G, tg, k, E))."""
+    (G, tg, E), the int32 one-hot choices (G, tg, k, E)).
+
+    Under axis rules each rank routes its own groups (``route_local`` on
+    its local shards): a group is a chunk of one batch row whose sequence
+    is whole on the rank, so its slots are the unsharded run's."""
+    G, tg, _ = xt.shape
+    E = router.shape[1]
+    C = _group_capacity(tg, E, k, capacity_factor)
+    rows = ("batch", None, None, None)
+    return local_call(
+        lambda r, x: replayable("routing", route_local, r, x, k,
+                                capacity_factor),
+        [(router, (None, None)), (xt, ("batch", None, None))],
+        [(rows, (G, tg, E, C)), (rows, (G, tg, E, C)),
+         (("batch", None, None), (G, tg, E)), (rows, (G, tg, k, E))])
+
+
+def route_local(router: torch.Tensor, xt: torch.Tensor, k: int,
+                capacity_factor: float):
+    """``_route`` on plain tensors."""
     G, tg, _ = xt.shape
     E = router.shape[1]
     logits = torch.einsum("gtd,de->gte", xt.to(torch.float32), router)
@@ -125,11 +154,21 @@ def _moe_groups(params: dict, xt: torch.Tensor, *, top_k: int,
     E = params["router"].shape[1]
     combine, dispatch, probs, sel = _route(params["router"], xt, top_k,
                                            capacity_factor)
-    ye = _experts(params["experts"], _dispatch(dispatch, xt))
-    y = _combine(combine, ye)
+    w = params["experts"]
+    rows = ("batch", None, None, None)
+    y = local_call(
+        lambda c, d, x, wg, wu, wd: _combine(c, _experts(
+            {"w_gate": wg, "w_up": wu, "w_down": wd}, _dispatch(d, x))),
+        [(combine, rows), (dispatch, rows), (xt, ("batch", None, None)),
+         (w["w_gate"], (None, None, "expert_mlp")),
+         (w["w_up"], (None, None, "expert_mlp")),
+         (w["w_down"], (None, "expert_mlp", None))],
+        [(("batch", None, None), tuple(xt.shape), "expert_mlp")])
     if "shared" in params:
         y = y + ffn_apply(params["shared"], xt, "swiglu")
-    # Switch-style auxiliary load-balancing loss
+    # Switch-style auxiliary load-balancing loss: under axis rules each
+    # mean is reduced across the ranks the groups are split over before
+    # the product (a mean of per-rank products is another number)
     me = probs.mean(dim=(0, 1))
     fe = sel.to(torch.float32).sum(dim=2).mean(dim=(0, 1))
     return y, E * (me * fe).sum()
@@ -160,7 +199,8 @@ def moe_apply(params: dict, x: torch.Tensor, *, top_k: int,
         chunks_per_step = 1
     n_outer = n_steps // chunks_per_step
     xs = x.reshape(B, n_outer, chunks_per_step, tg, D)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = replicate(torch.zeros((), dtype=torch.float32, device=x.device),
+                    like=x)
     ys = []
     for i in range(n_outer):
         y, a = _moe_groups(params, xs[:, i].reshape(

@@ -31,7 +31,8 @@ a leading (slstm_every - 1) axis, "slstm": leaves}``, as the reference
 stacks them (G, per - 1, ...) and (G, ...); its cache is the recurrent
 states alone, fp32, in the reference's stacked layout, and no KV rows.
 Every recurrent state is written IN PLACE, so a captured decode graph
-replays on the same tensors.
+replays on the same tensors; under axis rules each rank writes its own
+shard of a sharded cache.
 """
 
 from __future__ import annotations
@@ -77,8 +78,8 @@ from repro_torch.parallel.sharding import (
     constrain,
     current_rules,
     is_dtensor,
+    local_call,
     local_rows,
-    logical_placements,
     logical_sharding,
     merge_dims,
     mesh_axis_sizes,
@@ -86,7 +87,9 @@ from repro_torch.parallel.sharding import (
     shard_tree,
     sharded_dims,
     split_dim,
+    write_local,
 )
+from repro_torch.roofline.step_costs import replayable
 from repro_torch.utils.tree import tree_items, tree_map, unflatten
 
 LOSS_CHUNK = 512               # sequence positions per cross-entropy chunk
@@ -110,9 +113,10 @@ def _cell(bp: Dict[str, Any]) -> Dict[str, Any]:
 
 def _write_state(bufs: Dict[str, torch.Tensor], state: Dict[str, Any],
                  at: Tuple[Any, ...] = ()) -> None:
-    """Copy each of ``state``'s tensors into ``bufs[k][at]`` in place."""
+    """Copy each of ``state``'s tensors into ``bufs[k][at]`` in place
+    (each rank into its own shard of a sharded cache)."""
     for k, t in state.items():
-        bufs[k][at].copy_(t)
+        write_local(bufs[k], t, at)
 
 
 class LM:
@@ -295,12 +299,16 @@ class LM:
             return ("batch", None, "act_model")
         return ("batch", "act_seq", None)
 
-    def _gemm_input(self, h: torch.Tensor) -> torch.Tensor:
+    def _gemm_input(self, h: torch.Tensor, ffn: bool = False
+                    ) -> torch.Tensor:
         """A normed residual (B, S, D) on its way into a block's GEMMs:
         under Megatron-SP its sequence, split over the model axis, is
         gathered first (flattening (B, S) for the GEMM would otherwise
-        split the merged dim two ways); a no-op without rules."""
-        if self._res_axes()[1] != "act_seq":
+        split the merged dim two ways); so is a hybrid residual's feature
+        dim on its way into the FFN (``ffn``: left to DTensor, the FFN's
+        GEMMs on a 3-D mesh took over a minute a prefill to plan); a
+        no-op without rules."""
+        if self._res_axes()[1] != "act_seq" and not ffn:
             return h
         return constrain(h, ("batch", None, None))
 
@@ -455,7 +463,8 @@ class LM:
         """The channel mixer and its residual: MoE, the FFN or nothing.
         ``aux``, a list, gets a MoE layer's load-balancing loss."""
         cfg = self.config
-        h = self._gemm_input(rmsnorm(bp["norm2"], x, cfg.norm_eps))
+        h = self._gemm_input(rmsnorm(bp["norm2"], x, cfg.norm_eps),
+                             ffn=True)
         if cfg.num_experts:
             y, layer_aux = moe_apply(bp["moe"], h, top_k=cfg.moe_top_k,
                                      capacity_factor=cfg.capacity_factor)
@@ -514,30 +523,21 @@ class LM:
         """``prefill_attention`` of q (B, S, H, hd), k/v (B, S, KV, hd).
         Under rules on DTensors it runs head-parallel: heads expanded to
         divide the model axis, then the plain attention on each rank's
-        local shard (whole heads of a batch slice) through ``local_map``,
+        local shard (whole heads of a batch slice) through ``local_call``,
         and the padded heads sliced off."""
         cfg = self.config
-        if not is_dtensor(q):
-            return prefill_attention(q, k, v, causal=cfg.causal,
-                                     window=cfg.sliding_window,
-                                     use_flash=use_flash)
-        from torch.distributed.tensor.experimental import local_map
-
-        rules = current_rules()
-        qa, _ = self._attn_axes()
-        qe, ke, ve, H = self._expand_heads_for_tp(q, k, v)
-        pq = logical_placements(rules, qa, tuple(qe.shape))
-        pk = logical_placements(rules, qa, tuple(ke.shape))
 
         def core(ql, kl, vl):
-            return prefill_attention(ql, kl, vl, causal=cfg.causal,
-                                     window=cfg.sliding_window,
-                                     use_flash=use_flash)
+            return replayable("attention", prefill_attention, ql, kl, vl,
+                              causal=cfg.causal, window=cfg.sliding_window,
+                              use_flash=use_flash)
 
-        out = local_map(core, out_placements=list(pq),
-                        in_placements=(pq, pk, pk),
-                        device_mesh=rules.mesh, redistribute_inputs=True)(
-                            qe, ke, ve)
+        if not is_dtensor(q):
+            return core(q, k, v)
+        qa, _ = self._attn_axes()
+        qe, ke, ve, H = self._expand_heads_for_tp(q, k, v)
+        out = local_call(core, [(qe, qa), (ke, qa), (ve, qa)],
+                         [(qa, tuple(qe.shape))])
         return out if out.shape[2] == H else out[:, :, :H, :]
 
     def hidden_states(self, params, tokens: torch.Tensor, *,
@@ -739,7 +739,7 @@ class LM:
             for i, mst in enumerate(st["mlstm"]):
                 _write_state(cache["mlstm"], mst, (g, i))
             _write_state(cache["slstm"], st["slstm"], (g,))
-        cache["pos"].fill_(tokens.shape[1])
+        _local(cache["pos"]).fill_(tokens.shape[1])
         h = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
         return cache, self.lm_logits(params, h)
 
@@ -902,7 +902,7 @@ class LM:
                 num_heads=H)
             _write_state(cache["slstm"], st, (g,))
             x = x + out
-        cache["pos"].add_(1)
+        _local(cache["pos"]).add_(1)
         h = rmsnorm(params["final_norm"], x[:, None, :], cfg.norm_eps)
         return cache, self.lm_logits(params, h)
 

@@ -427,3 +427,78 @@ def local_elementwise(fn, *args):
 def gather_full(x):
     """``x`` whole: a DTensor's ``full_tensor()``, any other leaf as it is."""
     return x.full_tensor() if is_dtensor(x) else x
+
+
+def local_call(fn, ins: Sequence[Tuple[Any, Sequence[Optional[str]]]],
+               outs: Sequence[tuple]):
+    """``fn(*tensors)`` of ``ins`` (pairs of a tensor and its logical
+    axes), on each rank's local shards through ``local_map`` when some
+    input is a DTensor: the inputs are placed by their axes (shape-aware:
+    a dim the mesh axis does not divide is whole on every rank) and the
+    outputs, (logical axes, global shape) per output in ``outs``, are
+    DTensors so placed; a third entry, a logical name, marks an output
+    as each rank's partial sum over that name's mesh axes (a contraction
+    over a split dim). Without a DTensor input, ``fn`` as it is, so a
+    one-card mesh runs the very ops of no mesh.
+
+    The core must be row-wise over the axes its outputs are split (or
+    summed) on; the gradient of an input that is whole on such an axis
+    (a weight, or features every row reads) is the partial sum of each
+    rank's rows there."""
+    tensors = [x for x, _ in ins]
+    if not any(is_dtensor(x) for x in tensors):
+        return fn(*tensors)
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    rules = current_rules()
+    ref = next(x for x in tensors if is_dtensor(x))
+    mesh = ref.device_mesh
+    in_pl = [logical_placements(rules, ax, tuple(x.shape)) for x, ax in ins]
+    out_pl = [_out_placements(rules, *out) for out in outs]
+    split = [any(not pl[i].is_replicate() for pl in out_pl)
+             for i in range(mesh.ndim)]
+    grad_pl = [tuple(Partial() if p.is_replicate() and split[i] else p
+                     for i, p in enumerate(pl)) for pl in in_pl]
+    return local_map(fn, out_placements=tuple(out_pl) if len(outs) > 1
+                     else list(out_pl[0]),
+                     in_placements=in_pl,
+                     in_grad_placements=grad_pl, device_mesh=mesh,
+                     redistribute_inputs=True)(
+                         *[replicate(x, like=ref) for x in tensors])
+
+
+def _out_placements(rules: AxisRules, logical, shape,
+                    partial: Optional[str] = None) -> tuple:
+    """An output's placements: its logical axes', with ``Partial()`` on
+    the mesh axes of ``partial`` (extent > 1)."""
+    from torch.distributed.tensor import Partial
+
+    pl = list(logical_placements(rules, logical, tuple(shape)))
+    ax = rules.lookup(partial)
+    names = list(rules.mesh.mesh_dim_names)
+    for a in () if ax is None else (ax if isinstance(ax, tuple) else (ax,)):
+        i = names.index(a)
+        if rules.mesh.shape[i] > 1:
+            pl[i] = Partial()
+    return tuple(pl)
+
+
+def write_local(dst: torch.Tensor, src: torch.Tensor,
+                at: Tuple[int, ...] = ()) -> None:
+    """``dst[at].copy_(src)`` IN PLACE on each rank's own shard: ``src``
+    placed as ``dst`` is (the leading dims ``at`` indexes are whole on
+    every rank), so no rank writes another's rows."""
+    if not is_dtensor(dst):
+        dst[at].copy_(src)
+        return
+    from torch.distributed.tensor import Shard
+
+    n = len(at)
+    want = [Shard(p.dim - n) if p.is_shard() else p for p in dst.placements]
+    if any(p.is_shard() and p.dim < n for p in dst.placements):
+        raise ValueError("write_local indexes a split dim")
+    src = replicate(src, like=dst)
+    if tuple(src.placements) != tuple(want):
+        src = src.redistribute(dst.device_mesh, want)
+    dst.to_local()[at].copy_(src.to_local())

@@ -32,7 +32,7 @@ import contextlib
 import dataclasses
 import threading
 import weakref
-from typing import Any, Dict, Iterator, List
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -77,6 +77,33 @@ def cost_scope(name: str) -> Iterator[None]:
         yield
     finally:
         stack.pop()
+
+
+# the handler of ``replayable`` regions while ``replay_regions`` is open
+_REPLAYER: Optional[Callable[..., Any]] = None
+
+
+def replayable(scope: str, fn: Callable[..., Any], *args, **kwargs):
+    """``fn(*args, **kwargs)``, a region a step repeats at one shape (an
+    attention tile or call, a recurrent cell's scan chunk, the MoE's
+    routing). Under ``replay_regions`` the call goes to its handler,
+    which may trace it once per shapes and replay it after (the
+    dry-run's ``_Replay``); else ``fn`` runs as it is."""
+    if _REPLAYER is None:
+        return fn(*args, **kwargs)
+    return _REPLAYER(scope, fn, args, kwargs)
+
+
+@contextlib.contextmanager
+def replay_regions(handler: Callable[..., Any]) -> Iterator[None]:
+    """While open, every ``replayable`` call is
+    ``handler(scope, fn, args, kwargs)``."""
+    global _REPLAYER
+    prev, _REPLAYER = _REPLAYER, handler
+    try:
+        yield
+    finally:
+        _REPLAYER = prev
 
 
 def _where() -> str:
@@ -128,8 +155,9 @@ class StepCostMode(TorchDispatchMode):
     ``peak_bytes`` and ``ops`` (``OpStat`` rows by (op, where)) are read
     after the ``with`` block."""
 
-    def __init__(self):
+    def __init__(self, device: Optional[str] = None):
         super().__init__()
+        self.device = device
         self.costs = Costs()
         self.ops: Dict[tuple, OpStat] = {}
         self.live = 0
@@ -177,6 +205,9 @@ class StepCostMode(TorchDispatchMode):
         ins = list(_tensors((args, kwargs)))
         if self._quiet or any(_is_fake(t) for t in ins):
             return out
+        if self.device is not None and not any(
+                t.device.type == self.device for t in ins + _tensors(out)):
+            return out        # host bookkeeping beside a step on the device
         name = func.overloadpacket.__name__
         kind = COLLECTIVE_OPS.get(name)
         if kind is not None:
@@ -246,11 +277,13 @@ class StepCostMode(TorchDispatchMode):
         return {"costs": d, "ops": rows, "rise": rise,
                 "kept": self.live - snap["live"]}
 
-    def replay(self, delta: Dict[str, Any], holder: Any = None) -> None:
+    def replay(self, delta: Dict[str, Any], holder: Any = None,
+               outputs: Any = ()) -> None:
         """Add a region's recorded ``delta`` as if it ran again now: its
         costs, its op rows, its peak above the live bytes of now, and the
-        bytes it left alive (``kept``), held until ``holder`` (the
-        replayed region's output) is freed."""
+        bytes it left alive (``kept``): each of ``outputs`` (the replayed
+        region's outputs) held until it is freed when they are what it
+        left, else all held until ``holder`` is freed."""
         if self.quiet:
             return
         self.costs.add(delta["costs"])
@@ -261,7 +294,9 @@ class StepCostMode(TorchDispatchMode):
             st.flops += r.flops
             st.bytes += r.bytes
         self.peak_bytes = max(self.peak_bytes, self.live + delta["rise"])
-        if holder is not None and delta["kept"] > 0:
+        if outputs and delta["kept"] == sum(_nbytes(t) for t in outputs):
+            self._track(outputs)
+        elif holder is not None and delta["kept"] > 0:
             self.live += delta["kept"]
             weakref.finalize(holder, self._free, delta["kept"])
 
@@ -313,10 +348,14 @@ def _count_alltoall(mode: StepCostMode) -> Iterator[None]:
 
 
 @contextlib.contextmanager
-def record_step() -> Iterator[StepCostMode]:
+def record_step(device: Optional[str] = None) -> Iterator[StepCostMode]:
     """``with record_step() as rec: <one step>``, then read ``rec.costs``,
-    ``rec.peak_bytes`` and ``rec.ops``."""
-    mode = StepCostMode()
+    ``rec.peak_bytes`` and ``rec.ops``. With ``device`` (a device type)
+    an op none of whose tensors is on it is not recorded: the host's
+    bookkeeping (DTensor's sharding propagation computes shard offsets
+    with small CPU tensors, more or fewer as its caches are cold or
+    warm) beside a step traced on that device."""
+    mode = StepCostMode(device)
     with _count_alltoall(mode), mode:
         yield mode
 

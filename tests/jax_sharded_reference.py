@@ -3,9 +3,10 @@ the port's in ``tests/test_torch_scaleout_dense.py`` and
 ``tests/test_torch_dryrun.py``.
 
     python tests/jax_sharded_reference.py train OUT_DIR ARCH [ARCH ...]
-    python tests/jax_sharded_reference.py dryrun OUT_DIR SHAPE [SHAPE ...]
+    python tests/jax_sharded_reference.py dryrun OUT_DIR [ARCH:]SHAPE ...
 
-``train``: for each ARCH (a key of ``torch_scaleout_worker.DENSE``),
+``train``: for each ARCH (a key of ``torch_scaleout_worker.DENSE`` or
+``FAMILIES``),
 runs ``repro.launch.train.make_train_step`` jitted under
 ``default_rules`` of a 2×2 ("data", "model") mesh of 4 host devices,
 with the state placed by the reference's ``train_state_specs``, from
@@ -19,7 +20,8 @@ warmup-cosine and int8 compression with error feedback. Writes
 
 ``dryrun``: for each SHAPE, the reference's ``launch.dryrun.lower_cell``
 of the dry-run tests' reduced config on a 4×4 mesh of 16 host devices;
-writes ``OUT_DIR/ref_<SHAPE>.json``.
+writes ``OUT_DIR/ref_<SHAPE>.json``. A name ``ARCH:SHAPE`` lowers that
+arch's reduced config instead, into ``OUT_DIR/ref_<ARCH>_<SHAPE>.json``.
 """
 
 from __future__ import annotations
@@ -137,9 +139,11 @@ def dryrun(shape: str, out: str) -> None:
     from repro.launch.dryrun import lower_cell
 
     W = _worker()
-    rec = lower_cell(reduced_config(W.DRY_ARCH), SHAPES[shape],
+    arch, _, name = shape.rpartition(":")
+    rec = lower_cell(reduced_config(arch or W.DRY_ARCH), SHAPES[name],
                      _mesh((4, 4)))
-    with open(os.path.join(out, f"ref_{shape}.json"), "w") as f:
+    tag = f"{arch}_{name}" if arch else name
+    with open(os.path.join(out, f"ref_{tag}.json"), "w") as f:
         json.dump(rec, f)
 
 

@@ -1616,3 +1616,55 @@ def test_run_training_on_a_one_card_mesh_is_bit_equal(cuda, tmp_path):
     assert set(params) == set(want)
     for path, w in want.items():
         assert torch.equal(params[path], w), path
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "hymba-1.5b",
+                                  "xlstm-1.3b"])
+def test_families_on_a_one_card_mesh_are_bit_equal(cuda, tmp_path, arch):
+    """A reduced MoE, hybrid and xLSTM config (``FAMILIES`` of
+    ``tests/torch_scaleout_worker.py``) on a 1 × 1 mesh of an NCCL group
+    of one rank: ``run_training``'s metrics and final params over 2
+    masked, int8-compressed steps, and a prefill with greedy decode
+    steps (logits and tokens), bit-equal to the unsharded runs'."""
+    import importlib.util
+    import os
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.train import run_training
+    from repro_torch.parallel.sharding import gather_full
+    from repro_torch.utils.tree import tree_items
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_scaleout_worker", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "torch_scaleout_worker.py"))
+    W = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(W)
+    cfg = W.config(arch)
+    masks = W.masks_for(cfg, device=cuda)
+
+    def run(name, mesh=None):
+        res = run_training(cfg, W.train_config(str(tmp_path / name)),
+                           seq_len=W.SEQ, global_batch=W.BATCH, masks=masks,
+                           mesh=mesh, device=cuda)
+        return ([r.metrics for r in res["metrics"]],
+                {p: gather_full(x) for p, x in
+                 tree_items(res["state"]["params"])},
+                W.serve(cfg, mesh, device=cuda))
+
+    plain = run("plain")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        sharded = run("mesh", init_device_mesh(
+            "cuda", (1, 1), mesh_dim_names=("data", "model")))
+    finally:
+        dist.destroy_process_group()
+    assert sharded[0] == plain[0]
+    assert set(sharded[1]) == set(plain[1])
+    for path, w in plain[1].items():
+        assert torch.equal(sharded[1][path], w), path
+    for got, want in zip(sharded[2], plain[2]):
+        assert torch.equal(got, want)

@@ -231,6 +231,40 @@ def test_gradients_match_reference(kind):
         _close(p[k].grad, jg[0][k], 1e-4)
 
 
+def test_mlstm_gradients_where_a_chunk_forgets_fast():
+    """Forget gates near 0.5 (the forget bias 0) over one chunk of 256:
+    the chunk's masked exponents reach ≈ 177 above the diagonal, past
+    fp32's exp. The reference's ``where(tri, exp(dmat), 0)`` then gives
+    non-finite gradients (its fault, ROADMAP §3); the port's are finite
+    and match the reference's own at chunk 32, whose exponents stay
+    small (the chunkwise form is exact at any chunk length)."""
+    jp, p = _cell("mlstm", "float32")
+    bias = np.asarray(jp["b_if"]).copy()
+    bias[H:] = 0.0
+    jp = dict(jp, b_if=jnp.asarray(bias))
+    p = dict(p, b_if=torch.from_numpy(bias))
+    jx, x = _x((1, 256, D), "float32")
+    r = np.random.default_rng(4).standard_normal((1, 256, D)).astype(
+        np.float32)
+
+    def jgrad(chunk):
+        return jax.grad(lambda pp, xx: jnp.sum(jssm.mlstm_apply(
+            pp, xx, num_heads=H, chunk=chunk) * r), argnums=(0, 1))(jp, jx)
+
+    bad = jgrad(256)
+    assert not all(np.isfinite(np.asarray(g)).all()
+                   for g in jax.tree.leaves(bad))
+    want = jgrad(32)
+    p = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+    x = x.clone().requires_grad_(True)
+    (ssm.mlstm_apply(p, x, num_heads=H) * torch.from_numpy(r)).sum(
+        ).backward()
+    _close(x.grad, want[1], 1e-4)
+    for k in p:
+        assert torch.isfinite(p[k].grad).all(), k
+        _close(p[k].grad, want[0][k], 1e-4)
+
+
 @pytest.mark.parametrize("S", [300, 257, 600])
 @pytest.mark.parametrize("kind", ["mlstm", "slstm", "mamba"])
 def test_refused_lengths(kind, S):

@@ -150,6 +150,36 @@ def test_hidden_states_loss_and_gradients(pair):
         _close(leaf.grad, r, 1e-4)
 
 
+def test_masked_step_with_pruned_forget_biases(pair):
+    """The step ``chip_smoke.py`` ``[scaleout]`` (d) trains at full width,
+    here reduced: a seeded 50% mask of every 2-D leaf but the embedding
+    (the grouped mLSTM's per-layer vectors among them, so half its
+    forget biases are 0 and those gates near 0.5) on 256 tokens, one
+    chunk. The reference's gradients are not finite there (its
+    ``where(tri, exp(dmat), 0)``, ROADMAP §3); the port's are, on the
+    same loss."""
+    jmodel, _, _, model, params = pair
+    g = torch.Generator().manual_seed(11)
+    leaves = {p: (w * (torch.rand(w.shape, generator=g) < 0.5).to(w.dtype)
+                  if w.ndim == 2 and p != "embed" else w).requires_grad_(True)
+              for p, w in tree_items(params)}
+    tree = _rebuild(params, leaves)
+    jparams = jax.tree.map(lambda t: jnp.asarray(t.detach().numpy()),
+                           tree_to_jax(tree))
+    toks, labels = _tokens((1, 256)), _tokens((1, 256), seed=1)
+    jloss, jgrad = jax.value_and_grad(lambda p: jmodel.train_loss(
+        p, {"inputs": jnp.asarray(toks), "labels": jnp.asarray(labels)}))(
+            jparams)
+    assert not all(np.isfinite(np.asarray(x)).all()
+                   for x in jax.tree.leaves(jgrad))
+    loss = model.train_loss(tree, {"inputs": torch.from_numpy(toks),
+                                   "labels": torch.from_numpy(labels)})
+    loss.backward()
+    _close(loss.item(), float(jloss))
+    for path, leaf in leaves.items():
+        assert torch.isfinite(leaf.grad).all(), path
+
+
 def _rebuild(tree, leaves, prefix=""):
     if isinstance(tree, dict):
         return {k: _rebuild(v, leaves, f"{prefix}/{k}" if prefix else k)

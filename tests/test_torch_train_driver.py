@@ -271,22 +271,6 @@ def test_masks_survive_and_mesh_raises(tmp_path):
                            global_batch=2, mesh=CardMesh(), device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "deepseek-moe-16b",
-                                  "hymba-1.5b", "xlstm-1.3b"])
-def test_mesh_refuses_the_families_not_yet_sharded(tmp_path, arch):
-    """The MoE, SSM and hybrid families are refused on a mesh, before
-    anything is built, with the reason and the way round."""
-
-    class Mesh:
-        device_type = "cpu"
-
-    with pytest.raises(NotImplementedError,
-                       match="not ported.*queue 1 item 0.*mesh=None"):
-        train.run_training(reduced_config(arch), _tcfg(tmp_path, "f"),
-                           seq_len=16, global_batch=2, mesh=Mesh(),
-                           device="cpu")
-
-
 LINE = re.compile(r"^arch=(\S+) steps=(\d+) loss: first=(\d+\.\d{4}) "
                   r"last=(\d+\.\d{4})$")
 

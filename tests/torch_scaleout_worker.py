@@ -3,7 +3,9 @@
     python tests/torch_scaleout_worker.py train OUT_DIR
     python tests/torch_scaleout_worker.py dense OUT_DIR
     python tests/torch_scaleout_worker.py collectives OUT_DIR
+    python tests/torch_scaleout_worker.py families OUT_DIR ARCH [ARCH ...]
     python tests/torch_scaleout_worker.py fake OUT_DIR [MESH ...]
+    python tests/torch_scaleout_worker.py fake_families OUT_DIR MESH NAME ...
 
 Each spawns WORLD gloo ranks on the CPU that rendezvous through a
 ``FileStore`` under OUT_DIR (no port), pins each rank to one intra-op
@@ -11,11 +13,13 @@ thread, joins every rank within ``JOIN_S`` seconds and exits non-zero
 with each failing rank's traceback. ``train`` runs ``run_training`` on
 the 2×2 and 1×4 meshes, saves on 2×2, restores that checkpoint onto 4×1
 and trains on; ``dense`` runs each ``DENSE`` config on 2×2;
-``collectives`` records one train step's collectives on a 2×2 mesh.
-Rank 0 writes what it saw to OUT_DIR as JSON (and the gathered params
-as a checkpoint). ``fake`` traces dry-run cells on fake process groups
-in one process and writes one JSON per cell. The test files load this
-module for its configs and for the helpers at its end.
+``collectives`` records one train step's collectives on a 2×2 mesh;
+``families`` trains and serves (``serve``) each named ``FAMILIES``
+config on 2×2. Rank 0 writes what it saw to OUT_DIR as JSON (and the
+gathered params as a checkpoint). ``fake`` and ``fake_families`` trace
+dry-run cells on fake process groups in one process and write one JSON
+per cell. The test files load this module for its configs and for the
+helpers at its end.
 """
 
 from __future__ import annotations
@@ -55,11 +59,29 @@ DENSE = {
 }
 
 
+# the MoE, hybrid and ssm configs, reduced, each with overrides that take
+# it down the path its full config takes on the production meshes
+FAMILIES = {
+    # 4 experts of capacity 8 at top-2 over 16-token groups: tokens past
+    # an expert's capacity are dropped
+    "qwen2-moe-a2.7b": dict(num_experts=4, capacity_factor=0.25),
+    "deepseek-moe-16b": dict(),
+    # 5 heads over 1 KV head (hymba's 25 over 5 on 16): on a 2-way model
+    # axis k/v repeat to 5 heads and pad to 6; a window shorter than the
+    # sequence
+    "hymba-1.5b": dict(num_heads=5, num_kv_heads=1, sliding_window=8),
+    # 3 heads (xlstm's 4 on 16) on a 2-way model axis: the mLSTM keeps
+    # heads whole and splits the batch
+    "xlstm-1.3b": dict(d_model=48, num_heads=3, num_kv_heads=3),
+}
+
+
 def config(arch: str = ARCH):
-    """The reduced ``arch`` with its ``DENSE`` overrides."""
+    """The reduced ``arch`` with its ``DENSE`` or ``FAMILIES``
+    overrides."""
     from repro_torch.configs import reduced_config
 
-    return reduced_config(arch, **DENSE[arch])
+    return reduced_config(arch, **{**DENSE, **FAMILIES}[arch])
 
 
 def train_config(ckpt: str, save_every: int = STEPS):
@@ -167,6 +189,68 @@ def _dense_rank(rank: int, out: str) -> None:
             json.dump(record, f)
 
 
+SERVE_NEW = 4
+
+
+def serve(cfg, mesh=None, device="cpu"):
+    """A seeded init of ``cfg`` serving ``BATCH`` seeded ``SEQ``-token
+    prompts: the prefill and ``SERVE_NEW`` greedy decode steps, sharded
+    under ``default_rules(mesh)`` when a mesh is given -> (fp32 logits of
+    each step, gathered whole, stacked; the greedy tokens)."""
+    from repro_torch.models import build_model
+    from repro_torch.parallel.sharding import (
+        axis_rules, batch_spec, default_rules, gather_full, param_shardings,
+        shard, shard_tree)
+
+    model = build_model(cfg, device=device)
+    params = model.init(torch.Generator(device).manual_seed(0))
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, SEQ),
+                            generator=torch.Generator().manual_seed(5),
+                            dtype=torch.int32).to(device)
+    rules = None if mesh is None else default_rules(mesh)
+    place = lambda t: t
+    with axis_rules(rules):
+        if rules is not None:
+            params = shard_tree(params, param_shardings(
+                rules, model.param_logical_axes(), params))
+            place = lambda t: shard(t, batch_spec(rules, 2, shape=t.shape))
+        cache, logits = model.prefill(params, place(prompts),
+                                      SEQ + SERVE_NEW)
+        steps = [gather_full(logits).float()]
+        toks = []
+        for _ in range(SERVE_NEW):
+            tok = steps[-1].argmax(-1).to(torch.int32)
+            toks.append(tok)
+            cache, logits = model.decode_step(params, cache, place(tok))
+            steps.append(gather_full(logits).float())
+    return torch.cat(steps, dim=1), torch.cat(toks, dim=1)
+
+
+def _families_rank(rank: int, out: str, archs: Sequence[str]) -> None:
+    from repro_torch.checkpoint import save_pytree
+    from repro_torch.launch.train import run_training
+    from repro_torch.parallel.sharding import gather_full
+    from repro_torch.utils.tree import tree_map
+
+    record = {}
+    for arch in archs:
+        cfg = config(arch)
+        ckpt = os.path.join(out, f"ckpt_{arch}")
+        res = run_training(cfg, train_config(ckpt), seq_len=SEQ,
+                           global_batch=BATCH, mesh=_mesh((2, 2)),
+                           masks=masks_for(cfg), device="cpu")
+        record[arch] = [r.metrics for r in res["metrics"]]
+        params = tree_map(gather_full, res["state"]["params"])
+        logits, tokens = serve(cfg, _mesh((2, 2)))
+        if rank == 0:
+            save_pytree(os.path.join(out, f"params_{arch}"), params)
+            save_pytree(os.path.join(out, f"serve_{arch}"),
+                        {"logits": logits, "tokens": tokens})
+    if rank == 0:
+        with open(os.path.join(out, "families.json"), "w") as f:
+            json.dump(record, f)
+
+
 def _collectives_rank(rank: int, out: str) -> None:
     from repro_torch.launch.train import init_state, make_train_step
     from repro_torch.models import build_model
@@ -204,48 +288,105 @@ def _collectives_rank(rank: int, out: str) -> None:
 
 
 WORKERS = {"train": _train_rank, "dense": _dense_rank,
-           "collectives": _collectives_rank}
+           "collectives": _collectives_rank, "families": _families_rank}
 
 FAKE_MESHES = {"4x4": ((4, 4), ("data", "model")),
                "2x4x4": ((2, 4, 4), ("pod", "data", "model")),
                "2x2": ((2, 2), ("data", "model"))}
 
 
-def fake(out: str, meshes: Sequence[str] = ()) -> None:
-    """Every shape of a reduced dense config on fake 4×4 and 2×4×4
-    groups, the same cells traced at every tile, and the small train
-    step of ``collectives`` on a fake 2×2 one, in this one process (rank 0 of each fake group); only
-    those of ``meshes`` (``FAKE_MESHES`` keys) if any are named."""
+# the family cells traced with and without replay (``fake_families``):
+# a train step of four chunks of the recurrent cells' loops (a chunk's
+# first, middle and last backward differ in which inputs need a
+# gradient), a prefill of two, a MoE layer's groups routed in every layer
+SMALL_CELLS = {"hymba-1.5b": ("train", "prefill"),
+               "xlstm-1.3b": ("train", "prefill"),
+               "qwen2-moe-a2.7b": ("train", "prefill")}
+SMALL_SEQ = {"train": 1024, "prefill": 512}
+# xlstm's train cell at one group (3 mLSTM + 1 sLSTM): traced in full,
+# its sLSTM loop steps 1 024 times a group forward and again backward
+SMALL_CUT = {("xlstm-1.3b", "train"): {"num_layers": 4}}
+
+
+def _fake_mesh(mesh_name: str):
     from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.dryrun import fake_process_group
+
+    shape, names = FAKE_MESHES[mesh_name]
+    world = 1
+    for n in shape:
+        world *= n
+    fake_process_group(world)
+    return init_device_mesh("cpu", shape, mesh_dim_names=names)
+
+
+def _write_cell(out: str, cfg, arch: str, cell, mesh, mesh_name: str,
+                tag: str = "", **kw) -> None:
+    """Trace (or skip, with the reference's reason) one cell and write
+    its record to OUT as ``<arch>__<shape>__<mesh><tag>.json``."""
+    from repro_torch.configs.shapes import skip_reason
+    from repro_torch.launch.dryrun import lower_cell
+
+    reason = skip_reason(cfg, cell)
+    t0 = time.time()
+    rec = ({"status": "skipped", "reason": reason} if reason else
+           dict(lower_cell(cfg, cell, mesh, **kw), status="ok"))
+    rec.update(arch=arch, shape=cell.name, mesh=mesh_name,
+               trace_seconds=time.time() - t0)
+    with open(os.path.join(
+            out, f"{arch}__{cell.name}__{mesh_name}{tag}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def fake_families(out: str, mesh_name: str, names: Sequence[str]) -> None:
+    """On the fake ``mesh_name`` group, for each name ``ARCH``: every
+    shape of the reduced config; for ``ARCH:small``: its ``SMALL_CELLS``
+    traced with replay (tag ``_replay``) and without (``_full``); for
+    ``ARCH:KIND`` that one of them."""
+    import dataclasses
 
     from repro_torch.configs import reduced_config
     from repro_torch.configs.base import SHAPES, ShapeConfig
-    from repro_torch.configs.shapes import skip_reason
-    from repro_torch.launch.dryrun import fake_process_group, lower_cell
+
+    torch.set_num_threads(1)
+    mesh = _fake_mesh(mesh_name)
+    for name in names:
+        arch, _, what = name.partition(":")
+        cfg = reduced_config(arch)
+        if not what:
+            for cell in SHAPES.values():
+                _write_cell(out, cfg, arch, cell, mesh, mesh_name)
+            continue
+        for kind in SMALL_CELLS[arch] if what == "small" else (what,):
+            cell = ShapeConfig(kind + "_small", SMALL_SEQ[kind], 4, kind)
+            cut = dataclasses.replace(cfg, **SMALL_CUT.get((arch, kind), {}))
+            for replay in (True, False):
+                _write_cell(out, cut, arch, cell, mesh, mesh_name,
+                            "_replay" if replay else "_full", replay=replay)
+
+
+def fake(out: str, meshes: Sequence[str] = ()) -> None:
+    """Every shape of a reduced dense config on fake 4×4 and 2×4×4
+    groups, the same cells traced at every tile, and the small train
+    step of ``collectives`` on a fake 2×2 one, in this one process (rank
+    0 of each fake group); only those of ``meshes`` (``FAKE_MESHES``
+    keys) if any are named."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.configs.base import SHAPES, ShapeConfig
+    from repro_torch.launch.dryrun import lower_cell
 
     torch.set_num_threads(1)
     small = ShapeConfig("train_small", SEQ, BATCH, "train")
-    for mesh_name, (shape, names) in FAKE_MESHES.items():
+    for mesh_name in FAKE_MESHES:
         if meshes and mesh_name not in meshes:
             continue
-        world = 1
-        for n in shape:
-            world *= n
-        fake_process_group(world)
-        mesh = init_device_mesh("cpu", shape, mesh_dim_names=names)
+        mesh = _fake_mesh(mesh_name)
         cells = ([(ARCH, small)] if mesh_name == "2x2" else
                  [(DRY_ARCH, s) for s in SHAPES.values()])
         for arch, cell in cells:
             cfg = config() if arch == ARCH else reduced_config(arch)
-            reason = skip_reason(cfg, cell)
-            t0 = time.time()
-            rec = ({"status": "skipped", "reason": reason} if reason else
-                   dict(lower_cell(cfg, cell, mesh), status="ok"))
-            rec.update(arch=arch, shape=cell.name, mesh=mesh_name,
-                       trace_seconds=time.time() - t0)
-            with open(os.path.join(
-                    out, f"{arch}__{cell.name}__{mesh_name}.json"), "w") as f:
-                json.dump(rec, f)
+            _write_cell(out, cfg, arch, cell, mesh, mesh_name)
         if mesh_name == "4x4":
             # the same cells traced tile by tile
             for name in ("train_4k", "prefill_32k", "decode_32k"):
@@ -257,22 +398,23 @@ def fake(out: str, meshes: Sequence[str] = ()) -> None:
                     json.dump(rec, f)
 
 
-def _rank(rank: int, mode: str, out: str) -> None:
+def _rank(rank: int, mode: str, out: str, names: Sequence[str]) -> None:
     import torch.distributed as dist
 
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(
         os.path.join(out, "store"), WORLD), rank=rank, world_size=WORLD)
     try:
-        WORKERS[mode](rank, out)
+        WORKERS[mode](rank, out, *([names] if names else []))
     finally:
         dist.destroy_process_group()
 
 
-def run(mode: str, out: str) -> None:
-    """Spawn WORLD ranks of ``mode`` and join them within ``JOIN_S``."""
-    ctx = mp.start_processes(_rank, args=(mode, out), nprocs=WORLD,
-                             start_method="spawn", join=False)
+def run(mode: str, out: str, names: Sequence[str] = ()) -> None:
+    """Spawn WORLD ranks of ``mode`` (given ``names``, the archs of
+    ``families``) and join them within ``JOIN_S``."""
+    ctx = mp.start_processes(_rank, args=(mode, out, tuple(names)),
+                             nprocs=WORLD, start_method="spawn", join=False)
     deadline = time.time() + JOIN_S
     try:
         while not ctx.join(timeout=1):
@@ -338,8 +480,10 @@ if __name__ == "__main__":
     try:
         if sys.argv[1] == "fake":
             fake(sys.argv[2], sys.argv[3:])
+        elif sys.argv[1] == "fake_families":
+            fake_families(sys.argv[2], sys.argv[3], sys.argv[4:])
         else:
-            run(sys.argv[1], sys.argv[2])
+            run(sys.argv[1], sys.argv[2], sys.argv[3:])
     except Exception:  # noqa: BLE001 — report every rank's failure
         traceback.print_exc()
         sys.exit(1)
